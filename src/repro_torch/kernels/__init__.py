@@ -1,0 +1,16 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), one per Pallas TPU
+kernel of `repro.kernels` on the ported path:
+
+paged_attention   fused block-table-walking attention for the paged
+                  serving stack (port of repro's Pallas `_paged_kernel`)
+
+Each kernel sits beside its plain PyTorch version (`ref.py`), which
+its wrapper runs for CPU tensors; `build.launch_counts` counts the
+kernel launches. `sc_matmul` and `flash_attention` are not ported yet.
+"""
+from repro_torch.kernels.build import launch_counts, reset_launch_counts
+from repro_torch.kernels.paged_attention import (paged_attention,
+                                                 paged_attention_ref)
+
+__all__ = ["launch_counts", "reset_launch_counts", "paged_attention",
+           "paged_attention_ref"]

@@ -1,0 +1,164 @@
+"""Decoder-only transformer as an `nn.Module` (counterpart of
+`repro.models.transformer`, dense family only).
+
+The module holds what the reference's parameter pytree holds, with the
+stacked leading L axis of `params["layers"]` unstacked into a
+`ModuleList` of blocks (the reference's `lax.scan` over layers becomes
+a Python loop):
+
+  embed       (V, d)
+  layers[i]   ln1.scale, attn.{wq,wk,wv,wo,q_norm,k_norm}, ln2.scale,
+              ffn.{w_up,w_gate,w_down}
+  final_norm  scale (d,)
+  head        (d, V); absent if tied
+
+Storage dtypes: the reference casts every matrix that reaches `mm`,
+the embedding and the head to the compute dtype on every call
+(`w.astype(x.dtype)`). This module casts them ONCE, when they are set,
+which is bit-identical and saves re-reading f32 weights each forward.
+The norm scales stay f32: the reference reads them as f32, never in
+the compute dtype.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """A torch dtype from the reference's dtype name."""
+    try:
+        return _DTYPES[name]
+    except KeyError:
+        raise ValueError(f"unsupported dtype {name!r}; "
+                         f"known: {sorted(_DTYPES)}") from None
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, device):
+        super().__init__()
+        self.scale = _param((d,), torch.float32, device)
+        nn.init.ones_(self.scale)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        h, kv = cfg.n_heads, cfg.n_kv_heads
+        self.wq = _param((d, h * hd), dtype, device)
+        self.wk = _param((d, kv * hd), dtype, device)
+        self.wv = _param((d, kv * hd), dtype, device)
+        self.wo = _param((h * hd, d), dtype, device)
+        if cfg.qk_norm:
+            self.q_norm = _param((hd,), torch.float32, device)
+            self.k_norm = _param((hd,), torch.float32, device)
+            nn.init.ones_(self.q_norm)
+            nn.init.ones_(self.k_norm)
+
+
+class FFN(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        self.w_up = _param((d, f), dtype, device)
+        self.w_down = _param((f, d), dtype, device)
+        if cfg.glu:
+            self.w_gate = _param((d, f), dtype, device)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.ln1 = RMSNorm(cfg.d_model, device)
+        self.attn = Attention(cfg, dtype, device)
+        self.ln2 = RMSNorm(cfg.d_model, device)
+        self.ffn = FFN(cfg, dtype, device)
+
+
+class Transformer(nn.Module):
+    """The dense decoder's weights. Build it empty (zeros) and fill it
+    with `init` (seeded random weights) or `repro_torch.bridge`."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet (dense only)")
+        if cfg.modality != "text":
+            raise NotImplementedError(
+                f"modality {cfg.modality!r} is not ported yet (text only)")
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.compute_dtype = torch_dtype(cfg.compute_dtype)
+        dt = self.compute_dtype
+        v, d = cfg.padded_vocab, cfg.d_model
+        self.embed = _param((v, d), dt, device)
+        self.layers = nn.ModuleList(
+            Block(cfg, dt, device) for _ in range(cfg.n_layers))
+        self.final_norm = RMSNorm(d, device)
+        self.head = None if cfg.tie_embeddings else _param((d, v), dt, device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "Transformer":
+        """Seeded random weights with the reference's distributions
+        (`layers.dense_init` / `embed_init`; norm scales are ones).
+        Each matrix is drawn in f32, rounded to the reference's
+        `param_dtype`, then stored in the compute dtype. The stream of
+        `generator` is not jax's, so the values differ from
+        `repro.models.model.init` for the same seed."""
+        cfg, dev = self.cfg, self.device
+        pdt = torch_dtype(cfg.param_dtype)
+
+        def dense(w):
+            d_in, d_out = w.shape
+            w.copy_(L.dense_init(generator, d_in, d_out, dev, pdt))
+
+        self.embed.copy_(L.embed_init(generator, *self.embed.shape, dev, pdt))
+        for blk in self.layers:
+            for name in ("wq", "wk", "wv", "wo"):
+                dense(getattr(blk.attn, name))
+            for name in ("w_up", "w_down", "w_gate"):
+                if hasattr(blk.ffn, name):
+                    dense(getattr(blk.ffn, name))
+        if self.head is not None:
+            dense(self.head)
+        return self
+
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """`transformer._embed_tokens` for text: (B, S) -> (B, S, d)."""
+        x = self.embed[tokens]
+        if self.cfg.scale_embeddings:
+            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
+                                 device=x.device)
+        return x
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """`transformer._logits` for text: (B, S, d) -> (B, S, V)."""
+        if self.head is None:
+            return torch.matmul(x, self.embed.to(x.dtype).T)
+        return torch.matmul(x, self.head.to(x.dtype))
+
+
+def init(cfg: ModelConfig, seed: int = 0, device="cuda") -> Transformer:
+    """A model with seeded random weights on `device`."""
+    model = Transformer(cfg, device=device)
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(seed)
+    return model.init(gen)
