@@ -24,12 +24,24 @@ without printing a result:
   6. the same trace at float32 through 2 layers of the full width,
      once with the gather core and once with the fused kernel: the
      greedy tokens must be identical;
-  7. print the kernels line, the card line, then the result line.
+  7. drain the same trace at the full width (bf16, attn_impl="gather")
+     under each quantized policy (int8, artemis_mxu, artemis), counts
+     zeroed just before each drain and read just after: sc_matmul once
+     per dense projection (7 per layer) of every forward, and
+     paged_attention never; then profile one prefill-chunk forward and
+     one decode forward per policy (device time by group);
+  8. print the kernels line, the card line, then the result line.
+
+Kernels: paged_attention (exact path) and sc_matmul (the ARTEMIS MAC
+of the quantized policies), both CUDA C++ for sm_90a, built in
+parallel. sc_matmul is held bit for bit against its plain version.
 
 The script imports nothing of `repro` (the JAX package) or of jax.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
@@ -44,6 +56,12 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12          # f32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12         # int8 tensor cores, dense
+# integer issue of the CUDA cores: 132 SMs x 64 INT32 lanes x 1.98 GHz
+INT32_INSTR_PER_S = 132 * 64 * 1.98e9
+# sc_matmul's artemis inner loop: 6 integer instructions per pair of
+# products (one IMAD, one shift, two LOP3 masks, two adds)
+ARTEMIS_INSTR_PER_PRODUCT = 3
 
 PA_TOL = dict(rtol=2e-4, atol=2e-4)   # f32 sums in another order, over
 #                                        up to a few hundred keys
@@ -269,6 +287,154 @@ def time_paged_attention(cfg) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# phases 3-4: sc_matmul against its plain version, and its timing
+# ---------------------------------------------------------------------------
+
+SC_MODES = ("int8", "artemis_mxu", "artemis")
+# qwen3_8b's dense projections as (K, N): wq and wo, wk and wv, w_gate
+# and w_up, w_down; M = 8 rows at decode (max_batch 8), 256 at a
+# prefill chunk (8 lanes x 32 tokens)
+SC_SHAPES = ((4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096))
+SC_ROWS = (("decode", 8), ("prefill_chunk", 256))
+
+
+def _int8(gen, *shape):
+    """Uniform int8 in [-127, 127], as quantize gives, on the card."""
+    import torch
+    return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                         dtype=torch.int32).to(torch.int8)
+
+
+def _sc_compare(a, b, label, **kw):
+    """The kernel against its plain version on the same operands: bit
+    equality, else raise with the max abs error."""
+    import torch
+    from repro_torch.kernels.sc_matmul import (sc_matmul_quantized,
+                                               sc_matmul_ref)
+    out = sc_matmul_quantized(a, b, **kw)
+    torch.cuda.synchronize()
+    ref = sc_matmul_ref(a, b, **kw)
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise AssertionError(f"sc_matmul {label} {kw}: {out.shape} "
+                             f"{out.dtype} vs plain {ref.shape} {ref.dtype}")
+    if not torch.equal(out, ref):
+        err = (out.double() - ref.double()).abs().max().item()
+        raise AssertionError(
+            f"sc_matmul {label} {kw}: not bit-equal to its plain version, "
+            f"max abs err {err:.3e} (both are exact integer dots, or the "
+            f"same f32 group scan with fused readout products)")
+    return out
+
+
+def check_sc_matmul() -> int:
+    """Ragged shapes in every mode and readout: M in {1, 8, 37, 256}, K
+    not a multiple of 20 (nor of 4), N not a multiple of 128 (nor of
+    4)."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    variants = [dict(mode="int8"), dict(mode="artemis_mxu"),
+                dict(mode="artemis_mxu", rbar=60.25)]
+    variants += [dict(mode="artemis", acc_depth=d, readout_bits=r)
+                 for d in (20, 16) for r in (8, 4, None)]
+    n = 0
+    for m in (1, 8, 37, 256):
+        for k, nn in ((333, 45), (1000, 130), (61, 258)):
+            a, b = _int8(gen, m, k), _int8(gen, k, nn)
+            for kw in variants:
+                _sc_compare(a, b, f"M {m} K {k} N {nn}", **kw)
+                n += 1
+        log(f"  M {m:3d}: {3 * len(variants)} cases bit-equal (K x N in "
+            f"333x45, 1000x130, 61x258)")
+    log(f"sc_matmul: {n} ragged cases bit-equal to the plain version "
+        f"(int8, artemis_mxu at rbar 63.5 and 60.25, artemis at depth "
+        f"20/16 x readout 8/4/None)")
+    return n
+
+
+def _sc_bound(mode, m, k, n):
+    """(bound ms, bound_by, bytes, ops): each input read once, the
+    output written once; int8 dots at the tensor cores' int8 rate, the
+    artemis products at ARTEMIS_INSTR_PER_PRODUCT integer instructions
+    each at the CUDA cores' integer issue rate."""
+    n_bytes = m * k + k * n + 4 * m * n
+    if mode == "artemis":
+        ops = m * k * n * ARTEMIS_INSTR_PER_PRODUCT
+        t_ops = ops / INT32_INSTR_PER_S * 1e3
+    else:
+        ops = 2 * m * k * n * (2 if mode == "artemis_mxu" else 1)
+        t_ops = ops / INT8_OPS_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", n_bytes, ops)
+
+
+def _adaptive_ms(fn, budget_s=0.25, most=50):
+    """Mean ms of fn(i) by CUDA events after one warm-up call: one timed
+    call when it alone takes half of `budget_s`, else as many as fit
+    `budget_s` (at most `most`)."""
+    once = cuda_time_ms(fn, 1, warmup=1)
+    if once * 1e-3 >= budget_s / 2:
+        return once
+    n_iter = max(2, min(most, int(budget_s / max(once * 1e-3, 1e-6))))
+    return cuda_time_ms(fn, n_iter, warmup=0)
+
+
+def time_sc_matmul() -> list[dict]:
+    """Each full-width projection shape at decode and prefill-chunk M,
+    in every mode: the kernel against its plain version once more (bit
+    equality), then kernel, plain and (int8) torch._int_mm times. Each
+    call reads another of 4 weight copies (up to 200 MB of int8), so the
+    50 MB L2 does not hold the weight, as in a forward over 36 layers."""
+    import torch
+    from repro_torch.kernels.sc_matmul import (sc_matmul_quantized,
+                                               sc_matmul_ref)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    copies = 4
+    rows = []
+    for k, n in SC_SHAPES:
+        bs = [_int8(gen, k, n) for _ in range(copies)]
+        for label, m in SC_ROWS:
+            a = _int8(gen, m, k)
+            # torch._int_mm takes M > 16: decode rows are zero-padded
+            # to 32, and only the first M rows of its result are used
+            a_lib = torch.zeros((max(m, 32), k), dtype=torch.int8,
+                                device="cuda")
+            a_lib[:m] = a
+            for mode in SC_MODES:
+                out = _sc_compare(a, bs[0], f"{label} K {k} N {n}",
+                                  mode=mode)
+                ms = _adaptive_ms(lambda i: sc_matmul_quantized(
+                    a, bs[i % copies], mode=mode))
+                plain_ms = _adaptive_ms(lambda i: sc_matmul_ref(
+                    a, bs[i % copies], mode=mode), budget_s=1.0, most=10)
+                library_ms = None
+                if mode == "int8":
+                    lib = torch._int_mm(a_lib, bs[0])[:m]
+                    if not torch.equal(lib, out):
+                        raise AssertionError("torch._int_mm disagrees "
+                                             "with the int8 kernel")
+                    library_ms = _adaptive_ms(lambda i: torch._int_mm(
+                        a_lib, bs[i % copies]))
+                bound_ms, bound_by, n_bytes, ops = _sc_bound(mode, m, k, n)
+                rows.append(dict(mode=mode, shape=label, M=m, K=k, N=n,
+                                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                 library_ms=library_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, bytes=n_bytes, ops=ops))
+                lib_txt = (f" | _int_mm {library_ms*1e3:9.2f} us"
+                           if library_ms is not None else "")
+                log(f"  {mode:11s} {label:13s} M {m:3d} K {k:5d} N {n:5d}:"
+                    f" kernel {ms*1e3:9.2f} us | plain {plain_ms*1e3:10.2f}"
+                    f" us{lib_txt} | bound {bound_ms*1e3:8.2f} us "
+                    f"({bound_by}) | {bound_ms/ms:6.1%} of bound")
+        del bs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phases 5-6: the engine at full width
 # ---------------------------------------------------------------------------
 
@@ -288,13 +454,16 @@ def engine_config(attn_impl: str):
                         attn_impl=attn_impl)
 
 
-def drain(cfg, model, trace, attn_impl: str) -> dict:
-    """Drain `trace` through a fresh engine; launch counts are zeroed
-    just before the drain and read just after."""
+def drain(cfg, model, trace, attn_impl: str, policy=None) -> dict:
+    """Drain `trace` through a fresh engine (exact policy unless
+    `policy`); launch counts are zeroed just before the drain and read
+    just after."""
     import torch
+    from repro_torch.core.policy import ArithmeticPolicy
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serve import ServeEngine
-    eng = ServeEngine(cfg, params=model, ecfg=engine_config(attn_impl))
+    eng = ServeEngine(cfg, params=model, ecfg=engine_config(attn_impl),
+                      policy=policy or ArithmeticPolicy())
     eng.submit_trace(trace)
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -379,6 +548,238 @@ def identity_drains(cfg) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the quantized policies at full width
+# ---------------------------------------------------------------------------
+
+# the dense projections of a layer, as (K, N) of SC_SHAPES: wq, wk, wv,
+# wo, w_gate, w_up, w_down
+LAYER_PROJECTIONS = ((4096, 4096), (4096, 1024), (4096, 1024), (4096, 4096),
+                     (4096, 12288), (4096, 12288), (12288, 4096))
+ARTEMIS_DRAIN_LIMIT_S = 60.0
+
+
+def short_trace(cfg):
+    from repro_torch.serve import TrafficConfig, synth_trace
+    return synth_trace(TrafficConfig(
+        n_requests=4, arrival_rate=1e9, prompt_len_min=32,
+        prompt_len_max=64, gen_len_min=8, gen_len_max=8,
+        vocab_size=cfg.vocab_size, seed=0))
+
+
+def artemis_drain_estimate(cfg, trace, sc_rows, n_forwards) -> float:
+    """Seconds of sc_matmul time an artemis drain of `trace` would take,
+    from this run's kernel times: every forward of the exact drain
+    priced as a decode forward, plus one prefill-chunk forward per 256
+    prompt tokens priced as such."""
+    ms = {(r["M"], r["K"], r["N"]): r["ms"] for r in sc_rows
+          if r["mode"] == "artemis"}
+    layer = {m: sum(ms[(m, k, n)] for k, n in LAYER_PROJECTIONS)
+             for _, m in SC_ROWS}
+    n_prefill = -(-sum(len(it.prompt) for it in trace) // 256)
+    return cfg.n_layers * (n_forwards * layer[8]
+                           + n_prefill * layer[256]) * 1e-3
+
+
+def quantized_drains(cfg, sc_rows, n_forwards_exact) -> dict:
+    """One full-width bf16 drain per quantized policy, gather core;
+    then the profile of one prefill-chunk and one decode forward per
+    policy on the same weights."""
+    import torch
+    from repro_torch.core.policy import ArithmeticPolicy
+    from repro_torch.models import transformer
+    trace = smoke_trace(cfg)
+    model = transformer.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    drain(cfg, model, trace[:1], "gather",
+          ArithmeticPolicy(mode="int8"))              # warm-up
+    runs = {}
+    for mode in SC_MODES:
+        tr, trace_name = trace, "8 requests, prompts 128-256, 32 new tokens"
+        if mode == "artemis":
+            est = artemis_drain_estimate(cfg, trace, sc_rows,
+                                         n_forwards_exact)
+            log(f"  artemis: the 8-request drain would spend about "
+                f"{est:.1f} s in sc_matmul (from phase 4's kernel times)")
+            if est > ARTEMIS_DRAIN_LIMIT_S:
+                tr = short_trace(cfg)
+                trace_name = "4 requests, prompts 32-64, 8 new tokens"
+                log(f"  artemis: over {ARTEMIS_DRAIN_LIMIT_S:.0f} s, so it "
+                    f"drains the shorter trace ({trace_name})")
+        torch.cuda.reset_peak_memory_stats()
+        run = drain(cfg, model, tr, "gather", ArithmeticPolicy(mode=mode))
+        launches = run["counts"].get("sc_matmul", 0)
+        want = 7 * cfg.n_layers * run["n_forwards"]
+        m = run["metrics"]
+        tok_s = m["n_generated_tokens"] / run["wall_s"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"  {mode:11s}: {m['n_done']} requests, "
+            f"{m['n_generated_tokens']} tokens in {run['wall_s']:.3f} s "
+            f"wall ({tok_s:.2f} tok/s; {run['n_forwards']} forwards, "
+            f"{run['wall_s'] / run['n_forwards'] * 1e3:.2f} ms each); "
+            f"peak device memory {peak:.2f} GiB; trace: {trace_name}")
+        log(f"  {mode:11s}: sc_matmul launches {launches} = 7 x "
+            f"{cfg.n_layers} layers x {run['n_forwards']} forwards? "
+            f"{launches == want}; paged_attention launches "
+            f"{run['counts'].get('paged_attention', 0)}")
+        if launches != want:
+            raise AssertionError(f"{mode}: sc_matmul launched {launches} "
+                                 f"times, want {want}")
+        if run["counts"].get("paged_attention", 0):
+            raise AssertionError(f"{mode}: the gather drain launched "
+                                 f"paged_attention")
+        runs[mode] = dict(tok_s=tok_s, wall_s=run["wall_s"],
+                          n_forwards=run["n_forwards"], launches=launches,
+                          n_tokens=m["n_generated_tokens"],
+                          peak_gib=peak, trace=trace_name)
+    for mode in SC_MODES:
+        runs[mode]["profile"] = profile_forwards(cfg, model, mode)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+PROFILE_SCOPES = ("sc_matmul", "quantize", "int_einsum", "quant_einsum",
+                  "artemis_matmul")
+GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::matmul",
+            "aten::baddbmm")
+SC_KERNEL_NAMES = ("dot_kernel", "artemis_kernel", "mxu_epilogue")
+
+
+@contextlib.contextmanager
+def profile_scopes():
+    """Wrap the port's quantized-path functions in profiler ranges, for
+    the profiled forwards only."""
+    import importlib
+    import torch
+    quant = importlib.import_module("repro_torch.core.quantization")
+    am = importlib.import_module("repro_torch.core.artemis_matmul")
+    layers = importlib.import_module("repro_torch.models.layers")
+    targets = [(quant, "quant_scale", "quantize"),
+               (quant, "quantize", "quantize"),
+               (am, "sc_matmul_quantized", "sc_matmul"),
+               (layers, "_int_einsum", "int_einsum"),
+               (layers, "_quant_einsum", "quant_einsum"),
+               (layers, "artemis_matmul", "artemis_matmul")]
+    saved = []
+
+    def scoped(fn, label):
+        def wrapper(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return wrapper
+
+    for mod, name, label in targets:
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+        setattr(mod, name, scoped(fn, label))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _op_group(evt) -> str:
+    """The group of the kernels an operator launched: its innermost
+    enclosing scope of `profile_scopes`, and for the two quantized entry
+    points whether it is a matrix product (the straight-through term's
+    exact f32 product) or elementwise (casts, dequantize)."""
+    node = evt
+    while node is not None and node.name not in PROFILE_SCOPES:
+        node = node.cpu_parent
+    scope = node.name if node is not None else None
+    if scope in ("quant_einsum", "artemis_matmul"):
+        return "STE exact product" if evt.name in GEMM_OPS \
+            else "quantize/cast"
+    return {"sc_matmul": "sc_matmul", "quantize": "quantize/cast",
+            "int_einsum": "attention int einsum (f64)"}.get(scope, "other")
+
+
+def device_time_by_group(prof) -> tuple[dict, float]:
+    """(ms by group, total ms) of the profiled device kernels. sc_matmul
+    counts its kernels by name; the other groups take each operator's
+    kernels by `_op_group`; "other" is the rest of the device time. The
+    device rows named after a scope are the profiler's spans of those
+    ranges on the device timeline, not kernels: they are left out."""
+    from torch.autograd import DeviceType
+    total = 0.0
+    groups = {"sc_matmul": 0.0}
+    for evt in prof.key_averages():
+        us = evt.self_device_time_total
+        if evt.device_type != DeviceType.CUDA or us <= 0 \
+                or evt.key in PROFILE_SCOPES:
+            continue
+        total += us
+        if any(k in evt.key for k in SC_KERNEL_NAMES):
+            groups["sc_matmul"] += us
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CPU or not evt.kernels:
+            continue
+        group = _op_group(evt)
+        if group in ("sc_matmul", "other"):
+            continue
+        for kern in evt.kernels:
+            if not any(k in kern.name for k in SC_KERNEL_NAMES):
+                groups[group] = groups.get(group, 0.0) + kern.duration
+    groups["other"] = total - sum(groups.values())
+    return {k: v * 1e-3 for k, v in groups.items()}, total * 1e-3
+
+
+def profile_forwards(cfg, model, mode) -> dict:
+    """Device time by group of one prefill-chunk forward (8 lanes x 32
+    tokens at positions 128-159) and one decode forward (8 lanes at
+    position 160) under `mode`, gather core, f32 page pool."""
+    import torch
+    from repro_torch.core.policy import ArithmeticPolicy
+    from repro_torch.serve.paged_cache import init_paged_cache
+    from repro_torch.serve.paged_model import (make_paged_chunked_prefill,
+                                               make_paged_decode)
+    pol = ArithmeticPolicy(mode=mode)
+    b, page, chunk, pmax = 8, 8, 32, 21
+    kv = init_paged_cache(cfg, b * pmax + 1, page, device="cuda").kv
+    bt = (1 + torch.arange(b * pmax, device="cuda", dtype=torch.int32)
+          ).reshape(b, pmax)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (b, chunk), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    full = torch.ones(b, dtype=torch.bool, device="cuda")
+    i32 = dict(dtype=torch.int32, device="cuda")
+    steps = {
+        "prefill_chunk": (make_paged_chunked_prefill(cfg, pol), (
+            tokens, kv, bt, torch.full((b,), 128, **i32),
+            torch.full((b,), chunk, **i32), full,
+            torch.zeros(b, **i32))),
+        "decode": (make_paged_decode(cfg, pol), (
+            tokens[:, :1], kv, bt, torch.full((b,), 160, **i32), full)),
+    }
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    for label, (fn, args) in steps.items():
+        fn(model, *args)                                  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(model, *args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile_scopes(), torch.profiler.profile(activities=acts) as p:
+            fn(model, *args)
+            torch.cuda.synchronize()
+        groups, total = device_time_by_group(p)
+        out[label] = dict(wall_ms=wall_ms, device_ms=total, groups=groups)
+        log(f"  {mode:11s} {label:13s}: wall {wall_ms:9.2f} ms, device "
+            f"{total:9.2f} ms ({total / wall_ms:.1%} busy) | " + " | ".join(
+                f"{g} {ms:.2f}" for g, ms in sorted(
+                    groups.items(), key=lambda kv: -kv[1])))
+        if total <= 0:
+            raise AssertionError("the profiler recorded no device time")
+    del kv
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -393,6 +794,7 @@ def main() -> int:
         from repro_torch import configs
         from repro_torch.kernels import build
         from repro_torch.kernels.paged_attention import paged_attention
+        from repro_torch.kernels.sc_matmul import sc_matmul_quantized
     except ImportError as e:
         print(f"chip_smoke: the port is not here ({e}); run from the "
               f"repository root", file=sys.stderr)
@@ -406,20 +808,29 @@ def main() -> int:
     if torch.cuda.get_device_capability(0) != (9, 0):
         raise AssertionError("the kernels are built for sm_90a (Hopper)")
 
-    log("== 2. build")
-    pa_mod = sys.modules[paged_attention.__module__]
-    t0 = time.perf_counter()
-    lib = build.build(pa_mod.SOURCE)
-    log(f"  {pa_mod.SOURCE.relative_to(ROOT)} -> {lib.relative_to(ROOT)} "
-        f"in {time.perf_counter() - t0:.1f} s")
-    log(f"  ptxas: {ptxas_summary(lib.with_suffix('.log').read_text())}")
+    log("== 2. build (one nvcc per source, all started together)")
+    sources = [sys.modules[fn.__module__].SOURCE
+               for fn in (paged_attention, sc_matmul_quantized)]
+
+    def timed_build(src):
+        t = time.perf_counter()
+        return build.build(src), time.perf_counter() - t
+
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(timed_build, sources))
+    for src, (lib, sec) in zip(sources, built):
+        log(f"  {src.relative_to(ROOT)} -> {lib.relative_to(ROOT)} "
+            f"in {sec:.1f} s")
+        log(f"  ptxas: {ptxas_summary(lib.with_suffix('.log').read_text())}")
 
     log("== 3. kernels against their plain versions")
     max_err = check_paged_attention()
+    n_sc_cases = check_sc_matmul()
 
     cfg = configs.get_config("qwen3_8b")
     log("== 4. kernel timing at the full-width qwen3_8b shapes")
     timing = time_paged_attention(cfg)
+    sc_rows = time_sc_matmul()
 
     log("== 5. full-width qwen3_8b drain: bf16, attn_impl=fused")
     full = full_width_drain(cfg)
@@ -427,7 +838,15 @@ def main() -> int:
     log("== 6. f32 token identity: gather vs fused")
     identity_drains(cfg)
 
+    log("== 7. full-width qwen3_8b drains under the quantized policies: "
+        "bf16, attn_impl=gather")
+    quant = quantized_drains(cfg, sc_rows, full["n_forwards"])
+
     decode = timing[0]
+    # sc_matmul's headline row: int8 at the decode shape of w_gate/w_up,
+    # the one with a library call; every mode and shape is in "shapes"
+    head = next(r for r in sc_rows if r["mode"] == "int8"
+                and r["M"] == 8 and (r["K"], r["N"]) == (4096, 12288))
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/paged_attention/csrc/"
@@ -439,11 +858,23 @@ def main() -> int:
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
         "library_ms": decode["library_ms"],
         "shapes": timing,
+    }, {
+        "name": "sc_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/sc_matmul/csrc/sc_matmul.cu",
+        "replaces": "src/repro/kernels/sc_matmul/sc_matmul.py:49",
+        "launches": sum(q["launches"] for q in quant.values()),
+        "max_abs_err": 0.0, "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "launches_by_mode": {k: q["launches"] for k, q in quant.items()},
+        "cases_bit_equal": n_sc_cases + len(sc_rows),
+        "shapes": sc_rows,
     }]
     log(json.dumps({"kernels": kernels,
                     "drain": {"tok_s": full["tok_s"],
                               "wall_s": full["wall_s"],
-                              "n_forwards": full["n_forwards"]}}))
+                              "n_forwards": full["n_forwards"]},
+                    "quantized_drains": quant}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,10 @@ A port of `repro` (the JAX package, which stays the reference) that
 mirrors its layout so each module has a counterpart:
 
   configs/  models/config.py   model configurations (copies)
-  core/policy.py               the arithmetic-policy switchboard (copy)
+  core/                        the arithmetic-policy switchboard (copy)
+                               and the ARTEMIS arithmetic (quantization,
+                               TCU multiply, MOMCAP readout,
+                               artemis_matmul)
   hwsim/                       the ARTEMIS hardware simulator (copies)
   models/                      `nn.Module` transformer + shared layers
   kernels/                     hand-written CUDA kernels for sm_90a,

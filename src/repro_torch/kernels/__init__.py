@@ -3,14 +3,19 @@ kernel of `repro.kernels` on the ported path:
 
 paged_attention   fused block-table-walking attention for the paged
                   serving stack (port of repro's Pallas `_paged_kernel`)
+sc_matmul         the ARTEMIS MAC over int8 operands in the int8,
+                  artemis_mxu and artemis modes (port of repro's Pallas
+                  `_sc_matmul_kernel`); every dense projection of a
+                  quantized policy runs through it
 
 Each kernel sits beside its plain PyTorch version (`ref.py`), which
 its wrapper runs for CPU tensors; `build.launch_counts` counts the
-kernel launches. `sc_matmul` and `flash_attention` are not ported yet.
+kernel launches. `flash_attention` is not ported yet.
 """
 from repro_torch.kernels.build import launch_counts, reset_launch_counts
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_ref)
+from repro_torch.kernels.sc_matmul import sc_matmul_quantized, sc_matmul_ref
 
 __all__ = ["launch_counts", "reset_launch_counts", "paged_attention",
-           "paged_attention_ref"]
+           "paged_attention_ref", "sc_matmul_quantized", "sc_matmul_ref"]

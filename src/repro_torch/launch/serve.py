@@ -8,11 +8,15 @@
                   backend (COW prefix sharing, `--prefix-groups` et
                   al.). `--attn-impl fused` runs attention through the
                   hand-written paged-attention kernel. Greedy decoding.
+                  `--policy int8|artemis|artemis_mxu` runs every dense
+                  projection through the hand-written sc_matmul kernel
+                  and the attention contractions through the int8
+                  ladder (with `--attn-impl gather`).
 
 It prints the same summary lines as `repro.launch.serve`. Weights are
 random, drawn from `--seed` with a torch generator on `--device`
-(default cuda). `--mode static`, MoE, the recurrent families, the
-quantized policies and sampled decoding are not ported yet.
+(default cuda). `--mode static`, MoE, the recurrent families and
+sampled decoding are not ported yet.
 
 Wall-clock use here is intentional: the CLI reports real drain seconds
 next to the virtual-clock metrics.
@@ -34,7 +38,8 @@ from repro_torch.serve import (EngineConfig, ServeEngine, TrafficConfig,
 
 def serve_engine(arch: str = "qwen3_8b", smoke: bool = True,
                  n_requests: int = 16, arrival_rate: float = 200.0,
-                 prompt_len: int = 32, gen_len: int = 16, seed: int = 0,
+                 prompt_len: int = 32, gen_len: int = 16,
+                 policy_mode: str = "exact", seed: int = 0,
                  page_size: int = 8, n_pages: int = 256,
                  max_batch: int = 8, scheduler: str = "cost",
                  prefill_chunk: int = 32, prefix_sharing: bool = True,
@@ -55,7 +60,8 @@ def serve_engine(arch: str = "qwen3_8b", smoke: bool = True,
         attn_impl=attn_impl)
     if params is None:
         params = transformer.init(cfg, seed=seed, device=dev)
-    eng = ServeEngine(cfg, params=params, policy=ArithmeticPolicy(),
+    eng = ServeEngine(cfg, params=params,
+                      policy=ArithmeticPolicy(mode=policy_mode),
                       ecfg=ecfg, seed=seed, device=dev)
     trace = synth_trace(TrafficConfig(
         n_requests=n_requests, arrival_rate=arrival_rate,
@@ -115,6 +121,8 @@ def main(argv: list[str] | None = None) -> None:
                     help="engine decode lanes")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--policy", default="exact",
+                    choices=["exact", "int8", "artemis", "artemis_mxu"])
     ap.add_argument("--n-requests", type=int, default=16,
                     help="synthetic trace length")
     ap.add_argument("--arrival-rate", type=float, default=200.0,
@@ -145,7 +153,8 @@ def main(argv: list[str] | None = None) -> None:
     out = serve_engine(
         arch=args.arch, smoke=not args.full, n_requests=args.n_requests,
         arrival_rate=args.arrival_rate, prompt_len=args.prompt_len,
-        gen_len=args.gen_len, seed=args.seed, page_size=args.page_size,
+        gen_len=args.gen_len, policy_mode=args.policy, seed=args.seed,
+        page_size=args.page_size,
         n_pages=args.n_pages, max_batch=args.batch,
         scheduler=args.scheduler, prefill_chunk=args.prefill_chunk,
         prefix_sharing=not args.no_prefix_sharing,

@@ -2,9 +2,10 @@
 `repro.models.layers`).
 
 Every dense matmul routes through `mm(...)`, the ArithmeticPolicy
-switch. Only `mode="exact"` is ported: it keeps the compute dtype. The
-quantized ARTEMIS modes raise until the arithmetic of `repro.core` is
-ported.
+switch: exact mode keeps the compute dtype; the quantized modes call
+`repro_torch.core.artemis_matmul`, whose int8 core is the sc_matmul
+kernel on CUDA. The attention score/value contractions go through
+`qeinsum`, the batched int8 (and artemis_mxu) ladder of the reference.
 
 Numerics follow the reference op for op: norms and RoPE run in f32 and
 cast back, the norm scales are read as f32, and the FFN activations
@@ -15,7 +16,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import quantization as q
+from repro_torch.core.artemis_matmul import artemis_matmul
 from repro_torch.core.policy import ArithmeticPolicy
+from repro_torch.core.quantization import SC_LEVELS
 
 # ---------------------------------------------------------------------------
 # policy-routed matmuls
@@ -25,11 +29,46 @@ from repro_torch.core.policy import ArithmeticPolicy
 def mm(x: torch.Tensor, w: torch.Tensor,
        policy: ArithmeticPolicy) -> torch.Tensor:
     """x: (..., K) activations, w: (K, N) weights -> (..., N), x.dtype."""
-    if policy.mode != "exact":
-        raise NotImplementedError(
-            f"policy mode {policy.mode!r} is not ported yet: the port's "
-            f"mm takes only mode='exact'")
-    return torch.matmul(x, w.to(x.dtype))
+    if policy.mode == "exact":
+        return torch.matmul(x, w.to(x.dtype))
+    return artemis_matmul(x, w, policy).to(x.dtype)
+
+
+def _int_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact integer einsum of two integer tensors, as f32 (the
+    reference's int32 einsum cast to f32). PyTorch has no integer
+    product on CUDA and f32 is inexact once a sum passes 2**24, so the
+    product runs in f64, exact for any contraction this model has."""
+    return torch.einsum(spec, a.double(), b.double()).float()
+
+
+def _quant_einsum(spec: str, a: torch.Tensor, b: torch.Tensor,
+                  policy: ArithmeticPolicy) -> torch.Tensor:
+    """Batched einsum through the int8 / artemis_mxu ladder, in the
+    operands' dtype up to the integer product, as the reference. Only
+    artemis_mxu takes the sign correction: every other quantized mode
+    (artemis included) is a plain int8 contraction here."""
+    sa = q.quant_scale(a, 8, policy.act_quant_axis)
+    sb = q.quant_scale(b, 8, policy.act_quant_axis)
+    aq, bq = q.quantize(a, sa), q.quantize(b, sb)
+    dot = _int_einsum(spec, aq, bq)
+    if policy.mode == "artemis_mxu":
+        sgn = _int_einsum(spec, torch.sign(aq), torch.sign(bq))
+        dot = dot - policy.rbar / SC_LEVELS * sgn
+    out = dot * sa * sb
+    if policy.ste:
+        exact = torch.einsum(spec, a.float(), b.float())
+        out = exact + (out - exact).detach()
+    return out
+
+
+def qeinsum(spec: str, a: torch.Tensor, b: torch.Tensor,
+            policy: ArithmeticPolicy) -> torch.Tensor:
+    """Attention-style batched contraction under the policy ladder, in
+    a's dtype."""
+    if policy.mode == "exact":
+        return torch.einsum(spec, a, b)
+    return _quant_einsum(spec, a, b, policy).to(a.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -12,9 +12,12 @@ docstring for the full text). One backend is ported:
                      PrefixIndex admission matching, copy-on-write forks
                      and trash page 0 for idle lanes.
 
-Not ported yet, and refused by `make_backend` with a message that says
-so: the state-slot backend of the recurrent families, MoE, the
-tensor-parallel mesh (`mesh_shards > 1`) and the quantized policies.
+Every arithmetic policy mode runs (the quantized ones through the
+sc_matmul kernel and the gather core). Not ported yet, and refused by
+`make_backend` with a message that says so: the state-slot backend of
+the recurrent families, MoE, the tensor-parallel mesh
+(`mesh_shards > 1`) and the analog readout noise of the artemis mode
+(`sigma_analog > 0`).
 
 The steps run on the device of the model's weights. The pool is owned
 by the backend and updated in place (the reference donates it to its
@@ -577,9 +580,10 @@ def make_backend(cfg: ModelConfig, ecfg: EngineConfig,
         raise NotImplementedError(
             f"mesh_shards={ecfg.mesh_shards}: the tensor-parallel serve "
             f"mesh is not ported yet (set mesh_shards=1)")
-    if policy.is_quantized():
+    if policy.mode == "artemis" and policy.sigma_analog > 0.0:
         raise NotImplementedError(
-            f"policy mode {policy.mode!r} is not ported yet (exact only)")
+            f"sigma_analog={policy.sigma_analog}: the analog readout "
+            f"noise of the artemis mode is not ported yet")
     if cfg.family in ("rwkv6", "zamba2"):
         raise NotImplementedError(
             f"family {cfg.family!r} serves through the state-slot "

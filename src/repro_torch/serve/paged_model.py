@@ -25,8 +25,11 @@ Inactive rows / padding chunk positions scatter into the reserved
 trash page 0 and are excluded from every valid query's mask. The pool
 `kv` is updated in place and returned.
 
-The whole-prompt reference step (`make_paged_prefill`) is not ported
-yet. Only the dense family is.
+Every arithmetic policy runs: under a quantized one the projections go
+through the sc_matmul kernel (`L.mm`) and the attention contractions
+through `L.qeinsum`, with the gather core (the fused core is exact
+only). The whole-prompt reference step (`make_paged_prefill`) is not
+ported yet. Only the dense family is.
 """
 from __future__ import annotations
 
@@ -60,12 +63,14 @@ def _attn_core(qg, kall, vall, positions, cfg: ModelConfig, policy):
     """Default grouped-query attention over the gathered KV view.
     qg: (B, S, KV, G, Dh) grouped queries; kall/vall: (B, Smax, KV, Dh);
     positions: (B, S) absolute query positions. Returns the context
-    (B, S, KV, G, Dh). Scores and softmax in f32, probabilities cast to
-    the compute dtype before the value product, as the reference (the
-    exact policy only: quantized modes are refused by `mm` upstream)."""
+    (B, S, KV, G, Dh). Both contractions go through `L.qeinsum`, so a
+    quantized policy quantizes the whole gathered view (trash page, stale
+    and idle slots included) with one scale, as the reference does.
+    Scores and softmax in f32, probabilities cast to the compute dtype
+    before the value product."""
     hd = qg.shape[-1]
     smax = kall.shape[1]
-    scores = torch.einsum("bskgd,btkd->bkgst", qg, kall)
+    scores = L.qeinsum("bskgd,btkd->bkgst", qg, kall, policy)
     scores = scores.float() * (hd ** -0.5)
     # page j of a block table holds positions [j*page, (j+1)*page), so
     # the gathered view's kv position IS its index t
@@ -77,7 +82,7 @@ def _attn_core(qg, kall, vall, positions, cfg: ModelConfig, policy):
     scores = torch.where(keep[:, None, None, :, :], scores,
                          torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1).to(qg.dtype)
-    return torch.einsum("bkgst,btkd->bskgd", probs, vall)
+    return L.qeinsum("bkgst,btkd->bskgd", probs, vall, policy)
 
 
 def make_fused_paged_core(cfg: ModelConfig, policy: ArithmeticPolicy):
@@ -104,8 +109,24 @@ def make_fused_paged_core(cfg: ModelConfig, policy: ArithmeticPolicy):
     return core
 
 
+def last_writers(page_idx: torch.Tensor, offset: torch.Tensor,
+                 page: int) -> torch.Tensor:
+    """(B*S,) index, in row-major (b, s) order, of the LAST token that
+    writes the same (page, slot) as each token. Every inactive and
+    padding token writes (TRASH_PAGE, 0); jax's scatter on the CPU keeps
+    the last of such duplicates, while a CUDA `index_put_` keeps any of
+    them. Giving every duplicate the last writer's values makes the
+    port's pool deterministic and equal to the reference's, trash row
+    included, which matters because a quantized policy's per-tensor
+    scales see that row."""
+    key = (page_idx * page + offset).reshape(-1)
+    order = torch.arange(key.numel(), device=key.device)
+    same = key[:, None] == key[None, :]
+    return torch.where(same, order, -1).amax(dim=1)
+
+
 def _paged_attn_block(lp, x, cfg: ModelConfig, policy, positions,
-                      ckl, cvl, block_tables, page_idx, offset,
+                      ckl, cvl, block_tables, page_idx, offset, writer,
                       attn_core=None, paged_core=None):
     """One layer's attention with paged K/V. x: (B, S, d); lp: the
     layer's `Block`.
@@ -113,7 +134,8 @@ def _paged_attn_block(lp, x, cfg: ModelConfig, policy, positions,
     ckl/cvl: this layer's page pool (P, page, KV, Dh), written in place;
     positions, page_idx, offset: (B, S) — the absolute position of every
     query token and its scatter coordinates in the pool (trash page for
-    inactive / padding tokens). Returns the attention output.
+    inactive / padding tokens); writer: `last_writers` of those
+    coordinates. Returns the attention output.
 
     Two occupants share the attention seam: `attn_core` consumes the
     GATHERED (B, Smax, KV, Dh) view (default `_attn_core`), while
@@ -135,9 +157,11 @@ def _paged_attn_block(lp, x, cfg: ModelConfig, policy, positions,
     # scatter the new tokens' K/V into their (page, slot) coordinates,
     # BEFORE the attention read, so chunk tokens attend to earlier
     # tokens of the same chunk. Every inactive/padding token lands on
-    # (TRASH_PAGE, 0); which duplicate wins there is unspecified.
-    ckl[page_idx, offset] = kh.to(ckl.dtype)
-    cvl[page_idx, offset] = vh.to(cvl.dtype)
+    # (TRASH_PAGE, 0): all of them carry the last one's values
+    ckl[page_idx, offset] = kh.reshape(b * s, kvh, hd)[writer].reshape(
+        kh.shape).to(ckl.dtype)
+    cvl[page_idx, offset] = vh.reshape(b * s, kvh, hd)[writer].reshape(
+        vh.shape).to(cvl.dtype)
 
     g = h // kvh
     qg = qh.reshape(b, s, kvh, g, hd)
@@ -162,11 +186,12 @@ def _paged_forward(model, cfg: ModelConfig, policy, tokens, kv,
     """Full-model paged step: embed -> layers -> logits (B, S, V). The
     pool `kv` is written in place, layer by layer."""
     x = model.embed_tokens(tokens)                               # (B, S, d)
+    writer = last_writers(page_idx, offset, kv["k"].shape[2])
     for li, lp in enumerate(model.layers):
         x = x + _paged_attn_block(
             lp, L.rmsnorm(lp.ln1.scale, x, cfg.norm_eps), cfg, policy,
             positions, kv["k"][li], kv["v"][li], block_tables, page_idx,
-            offset, attn_core=attn_core, paged_core=paged_core)
+            offset, writer, attn_core=attn_core, paged_core=paged_core)
         x = x + L.ffn(lp.ffn, L.rmsnorm(lp.ln2.scale, x, cfg.norm_eps),
                       cfg.act, cfg.glu, policy)
     x = L.rmsnorm(model.final_norm.scale, x, cfg.norm_eps)

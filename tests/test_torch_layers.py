@@ -90,9 +90,12 @@ def test_mm_exact():
 
 
 def test_mm_refuses_quantized_modes():
+    """The quantized modes run (tests/test_torch_quantized_serve.py);
+    the one that is still refused is artemis with analog readout
+    noise."""
     x, w = torch.zeros(2, 4), torch.zeros(4, 3)
     with pytest.raises(NotImplementedError, match="not ported"):
-        TL.mm(x, w, TPolicy(mode="int8"))
+        TL.mm(x, w, TPolicy(mode="artemis", sigma_analog=0.01))
 
 
 def _numpy_params(arch, **overrides):
