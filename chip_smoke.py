@@ -13,7 +13,7 @@ without printing a result:
      (nvcc, sm_90a), timed as set-up;
   3. hold each kernel against its plain PyTorch version on the card
      over a grid of cases, with the tolerance stated per kernel;
-  4. at the full-width qwen3_8b shapes of the serve path, hold each
+  4. at the full-width qwen3_8b shapes of the serve paths, hold each
      kernel against its plain version once more, then time it beside
      its plain version, its bound and one library call;
   5. drain the paged-KV engine at the full qwen3_8b width (36 layers,
@@ -30,11 +30,23 @@ without printing a result:
      per dense projection (7 per layer) of every forward, and
      paged_attention never; then profile one prefill-chunk forward and
      one decode forward per policy (device time by group);
-  8. print the kernels line, the card line, then the result line.
+  8. drive the static path (`launch.serve --mode static`'s serve()) at
+     the full qwen3_8b width: bf16, f32 cache, batch 8, prompt 1024,
+     gen 32, exact policy, counts zeroed just before and read just
+     after: flash_attention once per layer of every forward (36 x 33),
+     paged_attention and sc_matmul never; then profile one static
+     prefill forward and one decode forward (device time by group);
+  9. the static path at float32 through 2 layers of the full width
+     with the flash and the gather core: the greedy tokens must be
+     identical; then one short int8 static run at the full width,
+     sc_matmul once per dense projection and flash_attention never;
+ 10. print the kernels line, the card line, then the result line.
 
-Kernels: paged_attention (exact path) and sc_matmul (the ARTEMIS MAC
-of the quantized policies), both CUDA C++ for sm_90a, built in
-parallel. sc_matmul is held bit for bit against its plain version.
+Kernels: paged_attention (exact engine path), sc_matmul (the ARTEMIS
+MAC of the quantized policies) and flash_attention (exact static
+path), all CUDA C++ for sm_90a, built in parallel. sc_matmul is held
+bit for bit against its plain version, the attention kernels within
+2e-4.
 
 The script imports nothing of `repro` (the JAX package) or of jax.
 """
@@ -56,6 +68,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12          # f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # bf16 tensor cores, dense, f32 sums
 INT8_OPS_PER_S = 1979e12         # int8 tensor cores, dense
 # integer issue of the CUDA cores: 132 SMs x 64 INT32 lanes x 1.98 GHz
 INT32_INSTR_PER_S = 132 * 64 * 1.98e9
@@ -435,6 +448,205 @@ def time_sc_matmul() -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# phases 3-4: flash_attention against its plain version, and its timing
+# ---------------------------------------------------------------------------
+
+FA_TOL = dict(rtol=2e-4, atol=2e-4)   # f32 sums in another order, over up
+#                                        to 1056 keys
+# (bq, bk) tiles cycled over the cases; None: the ops wrapper's choice
+FA_TILES = (None, (8, 8), (16, 32), (64, 16), (32, 128))
+FA_WINDOWS = ((False, None), (True, None), (True, 1), (True, 16),
+              (True, 100))
+
+
+def _fa_errors(out, ref):
+    """(max abs err of o and of the finite lse entries, bool tensor: any
+    entry outside FA_TOL or nvis unequal), on the device."""
+    import torch
+    (o, lse, nvis), (ro, rl, rn) = out, ref
+    bad = ((o - ro).abs() > FA_TOL["atol"] + FA_TOL["rtol"] * ro.abs()).any()
+    bad |= ((lse - rl).abs() > FA_TOL["atol"]
+            + FA_TOL["rtol"] * rl.abs()).any()
+    bad |= ~torch.isfinite(o).all() | (nvis != rn).any()
+    finite = rl.abs() < 1e29              # rows that kept a key
+    err = torch.maximum((o - ro).abs().max(),
+                        torch.where(finite, (lse - rl).abs(), 0).max())
+    return err, bad
+
+
+def check_flash_attention() -> tuple[float, int]:
+    """Every combination of Sq in {1, 8, 33, 128, 200}, Sk in {Sq,
+    Sq + 40, 1056}, (causal, window) in FA_WINDOWS, kv_len unset or
+    set, q_offset in {0, Sk - Sq, mid}, group in {1, 4}, D in {64, 128},
+    q in {bf16, f32} and K/V in {f32, bf16}; tiles cycle over FA_TILES,
+    every other case reads strided (B, S, H, D) views, and every third
+    case with f32 K/V rounds them to bf16 (`kv_cast`). o and lse within
+    FA_TOL of the plain version, nvis equal."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_all,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention.ops import effective_tiles
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    f32, bf16 = torch.float32, torch.bfloat16
+    combos = [(g, d, qd, kd) for g in (1, 4) for d in (64, 128)
+              for qd in (bf16, f32) for kd in (f32, bf16)]
+    b, hkv = 2, 2
+    n, worst = 0, 0.0
+
+    def operand(heads, s, d, dtype, strided):
+        if strided:
+            x = torch.randn((b, s, heads, d), generator=gen, device="cuda")
+            return x.to(dtype).transpose(1, 2)
+        return torch.randn((b, heads, s, d), generator=gen,
+                           device="cuda").to(dtype)
+
+    for sq in (1, 8, 33, 128, 200):
+        cases = []
+        for sk in sorted({sq, sq + 40, 1056}):
+            for causal, window in FA_WINDOWS:
+                for kv_set in (False, True):
+                    for q_offset in sorted({0, sk - sq, (sk - sq) // 2}):
+                        kv_len = (max(1, min(sk, q_offset + (sq + 1) // 2))
+                                  if kv_set else None)
+                        for group, d, q_dt, kv_dt in combos:
+                            tiles = FA_TILES[n % len(FA_TILES)]
+                            bq, bk = tiles or effective_tiles(sq, sk)
+                            strided = n % 2 == 1
+                            kv_cast = (bf16 if kv_dt == f32 and n % 3 == 0
+                                       else None)
+                            q = operand(hkv * group, sq, d, q_dt, strided)
+                            k = operand(hkv, sk, d, kv_dt, strided)
+                            v = operand(hkv, sk, d, kv_dt, strided)
+                            kw = dict(causal=causal, window=window,
+                                      kv_len=kv_len, q_offset=q_offset,
+                                      bq=bq, bk=bk, kv_cast=kv_cast)
+                            err, bad = _fa_errors(
+                                flash_attention_all(q, k, v, **kw),
+                                flash_attention_ref(q, k, v, **kw))
+                            cases.append((kw | dict(sq=sq, sk=sk, G=group,
+                                                    D=d, q=q_dt, kv=kv_dt,
+                                                    strided=strided),
+                                          err, bad))
+                            n += 1
+        torch.cuda.synchronize()
+        errs = torch.stack([e for _, e, _ in cases]).cpu()
+        bads = torch.stack([x for _, _, x in cases]).cpu()
+        if bool(bads.any()):
+            i = int(bads.nonzero()[0, 0])
+            raise AssertionError(
+                f"flash_attention disagrees with its plain version: "
+                f"{cases[i][0]}: max err {errs[i].item():.3e} (or nvis)")
+        worst = max(worst, errs.max().item())
+        log(f"  Sq {sq:3d}: {len(cases)} cases within rtol=atol=2e-4, nvis "
+            f"equal (max abs err {errs.max().item():.2e})")
+    log(f"flash_attention: {n} cases within rtol=atol=2e-4 of the plain "
+        f"version, block counts equal (max abs err {worst:.3e})")
+    return worst, n
+
+
+def _fa_bound(b, hq, hkv, sq, d, kv_rows, pairs, q_bytes, kv_bytes,
+              qk_bf16):
+    """(bound ms, bound_by, bytes, flops): q and the kv_rows K/V rows read
+    once, o, lse and nvis written once; 2 * D flops of q.k and 2 * D of
+    p.v per kept (query head, key) pair. q.k of bf16 operands (`qk_bf16`:
+    bf16 q, K bf16 or rounded to it) is exact on the bf16 tensor cores
+    with f32 sums, so it is priced at their rate; p.v multiplies f32
+    probabilities and q.k of f32 operands is f32, both priced at the CUDA
+    cores' f32 rate. The two units run side by side, so the operations
+    take the longer of the two times."""
+    n_bytes = (b * hq * sq * d * q_bytes + 2 * b * kv_rows * hkv * d
+               * kv_bytes + b * hq * sq * (d + 2) * 4)
+    half = 2 * d * hq * b * pairs
+    flops = 2 * half
+    if qk_bf16:
+        t_ops = max(half / BF16_FLOPS_PER_S, half / F32_FLOPS_PER_S) * 1e3
+    else:
+        t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", n_bytes, flops)
+
+
+def time_flash_attention(cfg) -> list[dict]:
+    """The static path's two shapes at the full qwen3_8b width: B 8, Hq
+    32, Hkv 8, D 128, bf16 queries read as (B, S, H, D) views, an f32
+    dense cache of Smax 1056 slots read in place as (B, KV, Smax, D)
+    views and rounded to bf16 in the kernel (`kv_cast`), as the path
+    calls it. Each call reads another of 4 layers' caches (69 MB each),
+    so the 50 MB L2 holds none of it. The cache holds bf16 values, as
+    the path's does, so the library call (SDPA on f32, GQA, keys sliced
+    to kv_len) computes the same function."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_all,
+                                                     flash_attention_ref)
+    b, hq, hkv, d = 8, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    smax, n_layers = 1056, 4
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    shape = (n_layers, b, smax, hkv, d)
+    ck = torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16).float()
+    cv = torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16).float()
+    scale = d ** -0.5
+    rows = []
+    for label, sq, q_offset, kv_len in (("decode", 1, 1040, 1041),
+                                        ("prefill", 1024, 0, 1024)):
+        q = torch.randn((b, sq, hq, d), generator=gen, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+
+        def kv(i):
+            return ck[i % n_layers].transpose(1, 2), \
+                cv[i % n_layers].transpose(1, 2)
+
+        kw = dict(causal=True, kv_len=kv_len, q_offset=q_offset,
+                  scale=scale, kv_cast=torch.bfloat16)
+        out = flash_attention_all(q, *kv(0), **kw)
+        torch.cuda.synchronize()
+        ref = flash_attention_ref(q, *kv(0), **kw)
+        err, bad = _fa_errors(out, ref)
+        if bool(bad):
+            raise AssertionError(f"flash_attention disagrees with its plain "
+                                 f"version at the {label} shape: max err "
+                                 f"{err.item():.3e}")
+        ms = _adaptive_ms(lambda i: flash_attention_all(q, *kv(i), **kw))
+        plain_ms = _adaptive_ms(lambda i: flash_attention_ref(q, *kv(i),
+                                                              **kw),
+                                budget_s=1.0, most=10)
+        qf = q.float()
+
+        def sdpa(i):
+            k, v = kv(i)
+            return F.scaled_dot_product_attention(
+                qf, k[:, :, :kv_len], v[:, :, :kv_len],
+                is_causal=sq > 1, scale=scale, enable_gqa=True)
+
+        lib_err = (sdpa(0) - out[0]).abs().max().item()
+        library_ms = _adaptive_ms(sdpa)
+        pairs = sum(min(kv_len, r + q_offset + 1) for r in range(sq))
+        bound_ms, bound_by, n_bytes, flops = _fa_bound(
+            b, hq, hkv, sq, d, kv_len, pairs, 2, 4, qk_bf16=True)
+        rows.append(dict(shape=label, B=b, Sq=sq, Smax=smax,
+                         q_offset=q_offset, kv_len=kv_len,
+                         max_abs_err=err.item(), ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, library_max_abs_diff=lib_err,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         bytes=n_bytes, flops=flops))
+        log(f"  {label:7s} Sq {sq:4d} q_offset {q_offset:4d} kv_len "
+            f"{kv_len}: max err {err.item():.2e} | kernel {ms*1e3:9.2f} us "
+            f"| plain {plain_ms*1e3:10.2f} us | sdpa {library_ms*1e3:9.2f} "
+            f"us (max diff {lib_err:.1e}) | bound {bound_ms*1e3:8.2f} us "
+            f"({bound_by}: {n_bytes/1e6:.1f} MB, {flops/1e9:.2f} GFLOP) | "
+            f"{bound_ms/ms:.1%} of bound")
+    del ck, cv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phases 5-6: the engine at full width
 # ---------------------------------------------------------------------------
 
@@ -640,6 +852,172 @@ def quantized_drains(cfg, sc_rows, n_forwards_exact) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phases 8-9: the static path (`--mode static`) at full width
+# ---------------------------------------------------------------------------
+
+
+def static_run(cfg, model, *, batch, prompt_len, gen_len, policy_mode="exact",
+               attn_impl=None) -> dict:
+    """One `serve()` of the static path on `model`, launch counts zeroed
+    just before and read just after; the generated tokens checked for
+    shape and range."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import serve
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = serve(batch=batch, prompt_len=prompt_len, gen_len=gen_len,
+                policy_mode=policy_mode, params=model, device="cuda",
+                attn_impl=attn_impl)
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    gen = out["generated"]
+    if tuple(gen.shape) != (batch, gen_len) or int(gen.min()) < 0 or \
+            int(gen.max()) >= cfg.padded_vocab:
+        raise AssertionError(f"static run: bad tokens {gen}")
+    if out["cache_index"] != prompt_len + gen_len:
+        raise AssertionError(f"static run: cache index {out['cache_index']}")
+    return dict(out, counts=counts)
+
+
+def static_drain(cfg) -> dict:
+    """Full-width qwen3_8b through `--mode static`'s serve(): bf16, f32
+    cache, batch 8, prompt 1024, gen 32, exact policy (flash core)."""
+    import torch
+    from repro_torch.models import transformer
+    model = transformer.init(cfg, seed=0, device="cuda")
+    # warm-up: cuBLAS handles and workspaces, first-launch costs
+    static_run(cfg, model, batch=8, prompt_len=64, gen_len=2)
+    torch.cuda.reset_peak_memory_stats()
+    run = static_run(cfg, model, batch=8, prompt_len=1024, gen_len=32)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = run["counts"]
+    want = cfg.n_layers * (1 + 32)
+    step_ms = run["decode_s"] / 32 * 1e3
+    log(f"  prefill {run['prefill_s']*1e3:.2f} ms (8 x 1024 tokens) | decode "
+        f"{run['decode_tok_per_s']:.2f} tok/s, {step_ms:.2f} ms per step | "
+        f"peak device memory {peak:.2f} GiB")
+    log(f"  launches: flash_attention {counts.get('flash_attention', 0)} = "
+        f"{cfg.n_layers} layers x (1 prefill + 32 decode) forwards? "
+        f"{counts.get('flash_attention', 0) == want}; paged_attention "
+        f"{counts.get('paged_attention', 0)}, sc_matmul "
+        f"{counts.get('sc_matmul', 0)}")
+    if counts.get("flash_attention", 0) != want:
+        raise AssertionError(f"flash_attention launched "
+                             f"{counts.get('flash_attention', 0)} times, "
+                             f"want {want}: the path missed the kernel")
+    if counts.get("paged_attention", 0) or counts.get("sc_matmul", 0):
+        raise AssertionError(f"the exact static path launched {counts}")
+    return dict(model=model, prefill_ms=run["prefill_s"] * 1e3,
+                decode_tok_s=run["decode_tok_per_s"], step_ms=step_ms,
+                peak_gib=peak, launches=counts["flash_attention"],
+                profile=profile_static(cfg, model))
+
+
+def profile_static(cfg, model) -> dict:
+    """Device time by group of one static prefill forward (8 x 1024
+    tokens) and one decode forward (8 lanes at index 1024) of the exact
+    path: flash_attention (its kernel, by name), the matrix products
+    (the kernels of aten GEMM operators) and the rest."""
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.launch import steps
+    from repro_torch.models import model as modellib
+    b, s = 8, 1024
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    tokens = torch.randint(2, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    cache = modellib.init_cache(cfg, b, s + 32, torch.float32, device="cuda")
+    prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+    calls = {
+        "prefill": lambda: prefill(model, {"tokens": tokens}, cache),
+        "decode": lambda: decode(model, tokens[:, :1], dict(cache, index=s)),
+    }
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    for label, fn in calls.items():
+        fn()                                              # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        total = flash = 0.0
+        n_kernels = 0
+        for evt in prof.key_averages():
+            if evt.device_type != DeviceType.CUDA or \
+                    evt.self_device_time_total <= 0:
+                continue
+            total += evt.self_device_time_total
+            n_kernels += evt.count
+            if "flash_attention_kernel" in evt.key:
+                flash += evt.self_device_time_total
+        matmul = sum(k.duration for evt in prof.events()
+                     if evt.device_type == DeviceType.CPU
+                     and evt.name in GEMM_OPS for k in evt.kernels)
+        groups = {"flash_attention": flash * 1e-3, "matmul": matmul * 1e-3,
+                  "other": (total - flash - matmul) * 1e-3}
+        total *= 1e-3
+        out[label] = dict(wall_ms=wall_ms, device_ms=total,
+                          n_kernels=n_kernels, groups=groups)
+        log(f"  profile, static {label:7s} forward: wall {wall_ms:9.2f} ms, "
+            f"device {total:9.2f} ms ({total / wall_ms:.1%} busy), "
+            f"{n_kernels} kernels | " + " | ".join(
+                f"{g} {ms:.2f}" for g, ms in groups.items()))
+        if total <= 0 or flash <= 0:
+            raise AssertionError("the profiler recorded no flash_attention "
+                                 "device time")
+    del cache
+    return out
+
+
+def static_checks(cfg, model) -> dict:
+    """f32 token identity of the flash and gather cores through 2 layers
+    of the full width; one short int8 static run on the full model."""
+    import torch
+    from repro_torch.models import transformer
+    cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    model2 = transformer.init(cfg2, seed=0, device="cuda")
+    runs = {impl: static_run(cfg2, model2, batch=8, prompt_len=256,
+                             gen_len=16, attn_impl=impl)
+            for impl in ("flash", "gather")}
+    if runs["flash"]["counts"] != {"flash_attention": 2 * 17}:
+        raise AssertionError(f"flash run launches {runs['flash']['counts']}")
+    if runs["gather"]["counts"]:
+        raise AssertionError(f"gather run launches {runs['gather']['counts']}")
+    same = torch.equal(runs["flash"]["generated"], runs["gather"]["generated"])
+    log(f"  f32, 2 layers of the full width, batch 8, prompt 256, gen 16: "
+        f"flash and gather token-identical over 128 tokens? {same}")
+    if not same:
+        raise AssertionError("the flash static run diverged from gather")
+    del model2, runs
+    run = static_run(cfg, model, batch=8, prompt_len=128, gen_len=8,
+                     policy_mode="int8")
+    counts = run["counts"]
+    want = 7 * cfg.n_layers * (1 + 8)
+    log(f"  int8, batch 8, prompt 128, gen 8: prefill "
+        f"{run['prefill_s']*1e3:.2f} ms, decode {run['decode_tok_per_s']:.2f} "
+        f"tok/s | sc_matmul launches {counts.get('sc_matmul', 0)} = 7 x "
+        f"{cfg.n_layers} layers x 9 forwards? "
+        f"{counts.get('sc_matmul', 0) == want}; flash_attention "
+        f"{counts.get('flash_attention', 0)}")
+    if counts.get("sc_matmul", 0) != want or counts.get("flash_attention", 0) \
+            or counts.get("paged_attention", 0):
+        raise AssertionError(f"int8 static run launches {counts}, want "
+                             f"sc_matmul {want} and nothing else")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(int8_prefill_ms=run["prefill_s"] * 1e3,
+                int8_decode_tok_s=run["decode_tok_per_s"],
+                int8_sc_matmul_launches=counts["sc_matmul"])
+
+
 PROFILE_SCOPES = ("sc_matmul", "quantize", "int_einsum", "quant_einsum",
                   "artemis_matmul")
 GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::matmul",
@@ -793,6 +1171,7 @@ def main() -> int:
     try:
         from repro_torch import configs
         from repro_torch.kernels import build
+        from repro_torch.kernels.flash_attention import flash_attention_all
         from repro_torch.kernels.paged_attention import paged_attention
         from repro_torch.kernels.sc_matmul import sc_matmul_quantized
     except ImportError as e:
@@ -810,7 +1189,8 @@ def main() -> int:
 
     log("== 2. build (one nvcc per source, all started together)")
     sources = [sys.modules[fn.__module__].SOURCE
-               for fn in (paged_attention, sc_matmul_quantized)]
+               for fn in (paged_attention, sc_matmul_quantized,
+                          flash_attention_all)]
 
     def timed_build(src):
         t = time.perf_counter()
@@ -826,11 +1206,13 @@ def main() -> int:
     log("== 3. kernels against their plain versions")
     max_err = check_paged_attention()
     n_sc_cases = check_sc_matmul()
+    fa_err, n_fa_cases = check_flash_attention()
 
     cfg = configs.get_config("qwen3_8b")
     log("== 4. kernel timing at the full-width qwen3_8b shapes")
     timing = time_paged_attention(cfg)
     sc_rows = time_sc_matmul()
+    fa_rows = time_flash_attention(cfg)
 
     log("== 5. full-width qwen3_8b drain: bf16, attn_impl=fused")
     full = full_width_drain(cfg)
@@ -841,6 +1223,15 @@ def main() -> int:
     log("== 7. full-width qwen3_8b drains under the quantized policies: "
         "bf16, attn_impl=gather")
     quant = quantized_drains(cfg, sc_rows, full["n_forwards"])
+
+    log("== 8. full-width qwen3_8b static path: bf16, f32 cache, batch 8, "
+        "prompt 1024, gen 32, exact (flash)")
+    static = static_drain(cfg)
+
+    log("== 9. static path: f32 token identity (flash vs gather), int8 run")
+    static.update(static_checks(cfg, static.pop("model")))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     decode = timing[0]
     # sc_matmul's headline row: int8 at the decode shape of w_gate/w_up,
@@ -869,12 +1260,26 @@ def main() -> int:
         "launches_by_mode": {k: q["launches"] for k, q in quant.items()},
         "cases_bit_equal": n_sc_cases + len(sc_rows),
         "shapes": sc_rows,
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:48",
+        "launches": static["launches"],
+        "max_abs_err": max(fa_err, *(r["max_abs_err"] for r in fa_rows)),
+        "ms": fa_rows[0]["ms"], "plain_ms": fa_rows[0]["plain_ms"],
+        "bound_ms": fa_rows[0]["bound_ms"],
+        "bound_by": fa_rows[0]["bound_by"],
+        "library_ms": fa_rows[0]["library_ms"],
+        "cases_within_tol": n_fa_cases + len(fa_rows),
+        "shapes": fa_rows,
     }]
     log(json.dumps({"kernels": kernels,
                     "drain": {"tok_s": full["tok_s"],
                               "wall_s": full["wall_s"],
                               "n_forwards": full["n_forwards"]},
-                    "quantized_drains": quant}))
+                    "quantized_drains": quant,
+                    "static": static}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,13 @@
 """Serving launcher for the PyTorch port (counterpart of
 `repro.launch.serve`).
 
+  --mode static   (the default) one batch of prompts, prefilled once
+                  over the dense KV cache, then decoded in lockstep
+                  with greedy sampling. Under the exact policy every
+                  attention runs through the hand-written
+                  flash-attention kernel; under a quantized one the
+                  projections run through sc_matmul and attention
+                  through the int8 ladder.
   --mode engine   the `repro_torch.serve` engine: per-request lifecycles
                   with chunked+batched prefill composed with decode into
                   mixed steps by the ARTEMIS-cost-aware scheduler,
@@ -15,11 +22,13 @@
 
 It prints the same summary lines as `repro.launch.serve`. Weights are
 random, drawn from `--seed` with a torch generator on `--device`
-(default cuda). `--mode static`, MoE, the recurrent families and
-sampled decoding are not ported yet.
+(default cuda), and so are the static prompts (from `--seed` + 1, as
+the reference draws them with jax.random): the port's tokens differ
+from the reference's for the same seed. MoE, the recurrent families
+and sampled decoding are not ported yet.
 
-Wall-clock use here is intentional: the CLI reports real drain seconds
-next to the virtual-clock metrics.
+Wall-clock use here is intentional: the CLI reports real prefill,
+decode and drain seconds next to the virtual-clock metrics.
 """
 from __future__ import annotations
 
@@ -31,9 +40,68 @@ import torch
 from repro_torch import configs
 from repro_torch.core.policy import ArithmeticPolicy
 from repro_torch.device import resolve_device
+from repro_torch.launch import steps as stepslib
+from repro_torch.models import model as modellib
 from repro_torch.models import transformer
 from repro_torch.serve import (EngineConfig, ServeEngine, TrafficConfig,
                                synth_trace)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve(arch: str = "qwen3_8b", smoke: bool = True, batch: int = 4,
+          prompt_len: int = 32, gen_len: int = 16,
+          policy_mode: str = "exact", seed: int = 0, params=None,
+          device="cuda", attn_impl: str | None = None) -> dict:
+    """Static-batch serving: one prefill, lockstep greedy decode. The
+    first decode step takes the prefill's argmax token; "generated"
+    holds the gen_len tokens the decode steps sample, as the
+    reference's. The f32 dense cache is updated in place. Given
+    `params`, the model serves under the config it was built with
+    (`params.cfg`), and `arch`/`smoke` are not read."""
+    dev = resolve_device(device)
+    if params is None:
+        cfg = configs.get_config(arch, smoke=smoke)
+        params = modellib.init(cfg, seed=seed, device=dev)
+    cfg = params.cfg
+    policy = ArithmeticPolicy(mode=policy_mode)
+    prefill = stepslib.make_prefill_step(cfg, policy, attn_impl)
+    decode = stepslib.make_decode_step(cfg, policy, attn_impl)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    tokens = torch.randint(2, cfg.vocab_size, (batch, prompt_len),
+                           generator=gen, device=dev, dtype=torch.int32)
+    cache = modellib.init_cache(cfg, batch, prompt_len + gen_len,
+                                dtype=torch.float32, device=dev)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": tokens}, cache)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    out_tokens = []
+    nxt = stepslib.greedy_sample(logits)
+    t0 = time.perf_counter()
+    for _ in range(gen_len):
+        logits, cache = decode(params, nxt[:, None], cache)
+        nxt = stepslib.greedy_sample(logits)
+        out_tokens.append(nxt)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+
+    return {
+        "generated": torch.stack(out_tokens, dim=1),
+        "prompt": tokens,
+        "prefill_s": t_prefill,
+        "decode_s": t_decode,
+        "decode_tok_per_s": batch * gen_len / max(t_decode, 1e-9),
+        "cache_index": cache["index"],
+    }
 
 
 def serve_engine(arch: str = "qwen3_8b", smoke: bool = True,
@@ -70,12 +138,10 @@ def serve_engine(arch: str = "qwen3_8b", smoke: bool = True,
         vocab_size=cfg.vocab_size, seed=seed,
         n_prefix_groups=prefix_groups, prefix_len=prefix_len))
     eng.submit_trace(trace)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    _sync(dev)
     t0 = time.perf_counter()
     eng.drain()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    _sync(dev)
     wall = time.perf_counter() - t0
     m = eng.metrics()
     m["wall_s"] = wall
@@ -114,19 +180,20 @@ def summary_lines(m: dict) -> list[str]:
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--mode", default="engine", choices=["engine"])
+    ap.add_argument("--mode", default="static",
+                    choices=["static", "engine"])
     ap.add_argument("--arch", default="qwen3_8b")
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--batch", type=int, default=4,
-                    help="engine decode lanes")
+                    help="static batch size / engine decode lanes")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-len", type=int, default=16)
     ap.add_argument("--policy", default="exact",
                     choices=["exact", "int8", "artemis", "artemis_mxu"])
     ap.add_argument("--n-requests", type=int, default=16,
-                    help="synthetic trace length")
+                    help="engine: synthetic trace length")
     ap.add_argument("--arrival-rate", type=float, default=200.0,
-                    help="Poisson arrivals per virtual second")
+                    help="engine: Poisson arrivals per virtual second")
     ap.add_argument("--page-size", type=int, default=8)
     ap.add_argument("--n-pages", type=int, default=256)
     ap.add_argument("--prefill-chunk", type=int, default=32,
@@ -144,12 +211,23 @@ def main(argv: list[str] | None = None) -> None:
                     help="weights + synthetic trace seed")
     ap.add_argument("--attn-impl", default="gather",
                     choices=["gather", "fused"],
-                    help="paged attention core: 'fused' walks the block "
-                         "table inside the paged-attention kernel")
+                    help="engine: paged attention core; 'fused' walks "
+                         "the block table inside the paged-attention "
+                         "kernel (static mode runs the flash-attention "
+                         "kernel under the exact policy)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
+    if args.mode == "static":
+        out = serve(arch=args.arch, smoke=not args.full, batch=args.batch,
+                    prompt_len=args.prompt_len, gen_len=args.gen_len,
+                    policy_mode=args.policy, seed=args.seed,
+                    device=args.device)
+        print(f"prefill {out['prefill_s']*1e3:.0f}ms | decode "
+              f"{out['decode_tok_per_s']:.1f} tok/s | "
+              f"generated shape {tuple(out['generated'].shape)}")
+        return
     out = serve_engine(
         arch=args.arch, smoke=not args.full, n_requests=args.n_requests,
         arrival_rate=args.arrival_rate, prompt_len=args.prompt_len,

@@ -6,12 +6,17 @@ switch: exact mode keeps the compute dtype; the quantized modes call
 `repro_torch.core.artemis_matmul`, whose int8 core is the sc_matmul
 kernel on CUDA. The attention score/value contractions go through
 `qeinsum`, the batched int8 (and artemis_mxu) ladder of the reference.
+`attention` runs its score-softmax-context part, under the exact
+policy, through the flash-attention kernel (`attn_impl="flash"`), and
+otherwise through the reference's own math (`attn_impl="gather"`).
 
 Numerics follow the reference op for op: norms and RoPE run in f32 and
 cast back, the norm scales are read as f32, and the FFN activations
 match `jax.nn` (its `gelu` is the tanh approximation).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +25,7 @@ from repro_torch.core import quantization as q
 from repro_torch.core.artemis_matmul import artemis_matmul
 from repro_torch.core.policy import ArithmeticPolicy
 from repro_torch.core.quantization import SC_LEVELS
+from repro_torch.kernels.flash_attention import flash_attention
 
 # ---------------------------------------------------------------------------
 # policy-routed matmuls
@@ -133,6 +139,150 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA, optional qk-norm, dense KV cache, sliding window)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnDims:
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+
+
+ATTN_IMPLS = ("flash", "gather")
+
+
+def resolve_attn_impl(attn_impl: str | None,
+                      policy: ArithmeticPolicy) -> str:
+    """The attention core `attention` runs: "flash" (the kernel) for the
+    exact policy and "gather" (the reference's masked-softmax math,
+    through `qeinsum`) for a quantized one, unless asked otherwise. The
+    kernel computes exact f32 attention, so "flash" with a quantized
+    policy raises."""
+    if attn_impl is None:
+        return "gather" if policy.is_quantized() else "flash"
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
+                         f"{attn_impl!r}")
+    if attn_impl == "flash" and policy.is_quantized():
+        raise ValueError(
+            f"attn_impl='flash' computes exact fp32 attention and "
+            f"cannot reproduce quantized policy mode "
+            f"{policy.mode!r}; use attn_impl='gather'")
+    return attn_impl
+
+
+def _causal_mask(q_pos, k_pos, window: int):
+    """q_pos: (B, Sq), k_pos: (B, Sk) -> (B, 1, Sq, Sk) bool (True=keep)."""
+    dq = q_pos[:, None, :, None]
+    dk = k_pos[:, None, None, :]
+    keep = dk <= dq
+    if window:
+        keep = keep & (dk > dq - window)
+    return keep
+
+
+def _flash_core(qh, kh, vh, *, window: int, q_offset: int,
+                kv_len: int | None, kv_cast):
+    """Causal GQA attention of qh (B, S, H, Dh) over kh/vh (B, T, KV, Dh)
+    through the flash-attention kernel, query row r at key position
+    r + q_offset. The (B, heads, S, Dh) views are strided, not copied.
+    Returns the context (B, S, H * Dh) in qh's dtype."""
+    b, s, h, hd = qh.shape
+    o = flash_attention(qh.transpose(1, 2), kh.transpose(1, 2),
+                        vh.transpose(1, 2), causal=True,
+                        window=window or None, scale=hd ** -0.5,
+                        kv_len=kv_len, q_offset=q_offset, kv_cast=kv_cast)
+    return o.transpose(1, 2).to(qh.dtype).reshape(b, s, h * hd)
+
+
+def attention(p, x: torch.Tensor, dims: AttnDims, *, positions,
+              kv_positions=None, policy=ArithmeticPolicy(), qk_norm=False,
+              rope_theta=1e4, window=0, norm_eps=1e-6, cache=None,
+              cache_index: int = 0, attn_impl: str | None = None):
+    """GQA attention (counterpart of `repro.models.layers.attention`).
+    x: (B, S, D); p: an object with wq, wk, wv, wo (and q_norm, k_norm
+    when qk_norm).
+
+    cache: optional dict {"k","v"}: (B, Smax, KV, Dh), UPDATED IN PLACE
+    (the reference returns updated copies); cache_index: the host int
+    write offset. Returns (out, the cache dict or None).
+
+    attn_impl (see `resolve_attn_impl`): "gather" is the reference's
+    math, masked by `positions` / `kv_positions`; "flash" runs the
+    kernel, which derives its mask from the layout instead: query row r
+    at position cache_index + r (in-sequence: r), cache slot c at
+    position c, so it takes no `kv_positions` and assumes `positions`
+    are those contiguous ones.
+    """
+    impl = resolve_attn_impl(attn_impl, policy)
+    if impl == "flash" and kv_positions is not None:
+        raise ValueError("attn_impl='flash' derives the key mask from "
+                         "cache_index; it takes no kv_positions")
+    b, s, _ = x.shape
+    h, kv, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
+    qh = mm(x, p.wq, policy).reshape(b, s, h, hd)
+    kh = mm(x, p.wk, policy).reshape(b, s, kv, hd)
+    vh = mm(x, p.wv, policy).reshape(b, s, kv, hd)
+    if qk_norm:
+        qh = headwise_rmsnorm(p.q_norm, qh, norm_eps)
+        kh = headwise_rmsnorm(p.k_norm, kh, norm_eps)
+    qh = apply_rope(qh, positions, rope_theta)
+    kh = apply_rope(kh, positions, rope_theta)
+
+    new_kv = None
+    # in-sequence attention unless a cache shorter than the input holds
+    # the keys: flash's query offset and key length, gather's key mask
+    q_offset, kv_len, kv_cast = 0, None, None
+    if cache is not None:
+        ck, cv = cache["k"], cache["v"]
+        smax = ck.shape[1]
+        new_kv = cache
+        if s >= smax:
+            # prefill longer than the cache ring: attend in-sequence
+            # (the window mask handles causality) and store only the
+            # LAST smax tokens
+            ck.copy_(kh[:, -smax:])
+            cv.copy_(vh[:, -smax:])
+            kv_positions = None
+        else:
+            # dynamic_update_slice clamps the offset so the write fits
+            start = min(max(cache_index, 0), smax - s)
+            ck[:, start:start + s] = kh.to(ck.dtype)
+            cv[:, start:start + s] = vh.to(cv.dtype)
+            if impl == "flash":
+                q_offset = cache_index
+                kv_len = min(q_offset + s, smax)
+                kv_cast = x.dtype
+                kh, vh = ck, cv
+            else:
+                kh, vh = ck.to(x.dtype), cv.to(x.dtype)
+                if kv_positions is None:
+                    kv_positions = torch.arange(
+                        smax, dtype=torch.int32,
+                        device=x.device)[None].expand(b, smax)
+    if impl == "flash":
+        ctx = _flash_core(qh, kh, vh, window=window, q_offset=q_offset,
+                          kv_len=kv_len, kv_cast=kv_cast)
+        return mm(ctx, p.wo, policy), new_kv
+    if kv_positions is None:
+        kv_positions = positions
+
+    g = h // kv
+    qg = qh.reshape(b, s, kv, g, hd)
+    scores = qeinsum("bskgd,btkd->bkgst", qg, kh, policy)
+    scores = scores.float() * (hd ** -0.5)
+    mask = _causal_mask(positions, kv_positions, window)       # (B,1,Sq,Sk)
+    scores = torch.where(mask[:, :, None, :, :], scores,
+                         torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx = qeinsum("bkgst,btkd->bskgd", probs, vh, policy)
+    ctx = ctx.reshape(b, s, h * hd)
+    return mm(ctx, p.wo, policy), new_kv
 
 
 # ---------------------------------------------------------------------------

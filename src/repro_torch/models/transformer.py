@@ -18,12 +18,20 @@ the embedding and the head to the compute dtype on every call
 which is bit-identical and saves re-reading f32 weights each forward.
 The norm scales stay f32: the reference reads them as f32, never in
 the compute dtype.
+
+KV cache layout (decode): {"k"/"v": (L, B, Smax, KV, Dh), "index": int}.
+`apply` is the single forward entry point, as in the reference: no
+cache (in-sequence), prefill (cache at index 0) and decode (S == 1).
+The cache's `index` is a host int, not a device scalar: the positions
+and the key mask follow from it without a device-to-host sync per
+step, and the flash-attention kernel takes it as a launch argument.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.core.policy import ArithmeticPolicy
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -162,3 +170,77 @@ def init(cfg: ModelConfig, seed: int = 0, device="cuda") -> Transformer:
     gen = torch.Generator(device=model.device)
     gen.manual_seed(seed)
     return model.init(gen)
+
+
+def _dims(cfg: ModelConfig) -> L.AttnDims:
+    return L.AttnDims(cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda") -> dict:
+    """A zeroed dense KV cache: {"k","v": (L, B, max_len, KV, Dh),
+    "index": 0}."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "index": 0}
+
+
+def apply(model: Transformer, cfg: ModelConfig, inputs: dict, *,
+          policy: ArithmeticPolicy = ArithmeticPolicy(),
+          cache: dict | None = None, attn_impl: str | None = None):
+    """Forward pass (counterpart of `repro.models.transformer.apply`).
+
+    inputs: {"tokens": (B, S) int, optional "positions": (B, S) int}.
+    attn_impl: see `layers.resolve_attn_impl` ("flash", the kernel, for
+    the exact policy by default); explicit positions need "gather",
+    because the kernel's mask assumes contiguous ones.
+    Returns (logits (B, S, V), aux_loss (0 for the dense family),
+    new_cache). The cache's K/V tensors are updated IN PLACE, layer by
+    layer, and returned in new_cache with index + S.
+    """
+    impl = L.resolve_attn_impl(attn_impl, policy)
+    positions = inputs.get("positions")
+    if positions is not None and impl == "flash":
+        raise ValueError(
+            "attn_impl='flash' assumes contiguous positions (cache index "
+            "+ arange(S)); explicit inputs['positions'] need "
+            "attn_impl='gather'")
+    x = model.embed_tokens(inputs["tokens"])
+    b, s, _ = x.shape
+    index = cache["index"] if cache is not None else 0
+    if positions is None:
+        positions = (index + torch.arange(s, dtype=torch.int32,
+                                          device=x.device))[None].expand(b, s)
+    kv_positions = None
+    if cache is not None and impl == "gather":
+        smax = cache["k"].shape[2]
+        t = torch.arange(smax, dtype=torch.int32,
+                         device=x.device)[None].expand(b, smax)
+        # mask out cache slots not yet written
+        kv_positions = torch.where(t <= positions.max(), t,
+                                   torch.iinfo(torch.int32).max)
+
+    attn_dims = _dims(cfg)
+    for li, lp in enumerate(model.layers):
+        ckv = None
+        if cache is not None:
+            ckv = {"k": cache["k"][li], "v": cache["v"][li]}
+        h, _ = L.attention(
+            lp.attn, L.rmsnorm(lp.ln1.scale, x, cfg.norm_eps), attn_dims,
+            positions=positions, kv_positions=kv_positions, policy=policy,
+            qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
+            window=cfg.attn_window, norm_eps=cfg.norm_eps, cache=ckv,
+            cache_index=index, attn_impl=impl)
+        x = x + h
+        x = x + L.ffn(lp.ffn, L.rmsnorm(lp.ln2.scale, x, cfg.norm_eps),
+                      cfg.act, cfg.glu, policy)
+    x = L.rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
+    logits = model.logits(x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_cache = None
+    if cache is not None:
+        new_cache = {"k": cache["k"], "v": cache["v"], "index": index + s}
+    return logits, aux, new_cache

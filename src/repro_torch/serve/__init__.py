@@ -3,8 +3,9 @@ PyTorch (counterpart of `repro.serve`).
 
 Request lifecycle (`request`), the sequence-memory protocol with its
 paged-KV backend (`backend`), the chunked-prefill and decode forwards
-(`paged_model`), the paged-cache primitives (`paged_cache`), the
-ARTEMIS-cost-aware scheduler (`scheduler` + `cost`, priced by
+and the whole-prompt reference prefill (`paged_model`), the
+paged-cache primitives (`paged_cache`), the ARTEMIS-cost-aware
+scheduler (`scheduler` + `cost`, priced by
 `repro_torch.hwsim`), the greedy sampler (`sampler`), synthetic
 traffic (`traffic`), observability (`obs`) and the engine driver
 (`engine`). The host modules are copies of the reference's; the device
@@ -46,6 +47,7 @@ from repro_torch.serve.paged_cache import (
 from repro_torch.serve.paged_model import (
     make_paged_chunked_prefill,
     make_paged_decode,
+    make_paged_prefill,
 )
 from repro_torch.serve.request import Request, RequestState, SamplingParams
 from repro_torch.serve.sampler import sample_tokens
@@ -61,7 +63,7 @@ __all__ = [
     "export_chrome_trace", "to_chrome_trace", "validate_chrome_trace",
     "PageAllocator", "PagedKVCache", "PrefixIndex", "cow_copy_page",
     "init_paged_cache",
-    "make_paged_chunked_prefill", "make_paged_decode",
+    "make_paged_chunked_prefill", "make_paged_decode", "make_paged_prefill",
     "Request", "RequestState", "SamplingParams", "sample_tokens",
     "Action", "Scheduler", "SchedulerConfig",
     "TraceItem", "TrafficConfig", "synth_trace",

@@ -1,7 +1,15 @@
 """Paged-attention forward passes for the serving engine (counterpart
 of `repro.serve.paged_model`).
 
-Two step builders, at fixed shapes under continuous batching:
+Three step builders:
+
+  make_paged_prefill(cfg, policy) ->
+      (model, tokens (1, S_pad), kv, page_ids (P_req,)) -> (logits, kv)
+    Whole-prompt prefill for ONE request through the standard
+    `model.apply` in-sequence attention path (the flash-attention
+    kernel under the exact policy), K/V scattered into the request's
+    pages afterwards. Kept as the reference path the paged steps are
+    pinned against; the engine itself uses the chunked builder.
 
   make_paged_chunked_prefill(cfg, policy) ->
       (model, tokens (B, C), kv, block_tables (B, Pmax),
@@ -28,8 +36,7 @@ trash page 0 and are excluded from every valid query's mask. The pool
 Every arithmetic policy runs: under a quantized one the projections go
 through the sc_matmul kernel (`L.mm`) and the attention contractions
 through `L.qeinsum`, with the gather core (the fused core is exact
-only). The whole-prompt reference step (`make_paged_prefill`) is not
-ported yet. Only the dense family is.
+only). Only the dense family is ported.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ import torch
 from repro_torch.core.policy import ArithmeticPolicy
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models import layers as L
+from repro_torch.models import model as modellib
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.paged_cache import TRASH_PAGE
 
@@ -52,6 +60,43 @@ def _check_family(cfg: ModelConfig) -> None:
     if cfg.modality != "text":
         raise ValueError(
             f"paged serving supports text modality, got {cfg.modality!r}")
+
+
+# ---------------------------------------------------------------------------
+# whole-prompt prefill (reference path)
+# ---------------------------------------------------------------------------
+
+
+def make_paged_prefill(cfg: ModelConfig,
+                       policy: ArithmeticPolicy = ArithmeticPolicy()):
+    """Returns prefill(model, tokens, kv, page_ids) -> (logits, kv).
+
+    tokens: (1, S_pad) int, S_pad a page multiple; page_ids: (S_pad /
+    page,) int pages owned by the request, in position order. Returns
+    logits for ALL S_pad positions (the caller indexes the true last
+    prompt position) and the pool, with the request's K/V written in
+    place. A dense cache of exactly S_pad slots makes `apply` take its
+    in-sequence branch, as in the reference.
+    """
+    _check_family(cfg)
+
+    @torch.no_grad()
+    def prefill(model, tokens, kv, page_ids):
+        s_pad = tokens.shape[1]
+        page = kv["k"].shape[2]
+        dense = modellib.init_cache(cfg, 1, s_pad, kv["k"].dtype,
+                                    device=tokens.device)
+        logits, _, dense = modellib.apply(
+            model, cfg, {"tokens": tokens}, policy=policy, cache=dense)
+        n_layers, _, _, kvh, hd = dense["k"].shape
+        ids = page_ids.long()
+        kv["k"][:, ids] = dense["k"].reshape(n_layers, s_pad // page, page,
+                                             kvh, hd)
+        kv["v"][:, ids] = dense["v"].reshape(n_layers, s_pad // page, page,
+                                             kvh, hd)
+        return logits[0], kv
+
+    return prefill
 
 
 # ---------------------------------------------------------------------------
