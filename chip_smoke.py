@@ -12,10 +12,13 @@ without printing a result:
   2. build every kernel of the serve path from the checkout's sources
      (nvcc, sm_90a), timed as set-up;
   3. hold each kernel against its plain PyTorch version on the card
-     over a grid of cases, with the tolerance stated per kernel;
+     over a grid of cases, with the tolerance stated per kernel
+     (sc_matmul's integer dots also at the edges of their tiles, splits
+     and int32 range);
   4. at the full-width qwen3_8b shapes of the serve paths, hold each
      kernel against its plain version once more, then time it beside
-     its plain version, its bound and one library call;
+     its plain version, its bound and one library call (sc_matmul int8:
+     the ratio to torch._int_mm; artemis_mxu: the ratio to int8);
   5. drain the paged-KV engine at the full qwen3_8b width (36 layers,
      bf16, attn_impl="fused") with seeded random weights, with every
      launch count zeroed just before and read just after: each kernel
@@ -102,6 +105,21 @@ def ptxas_summary(text: str) -> str:
     return (f"{len(regs)} kernel instances, {min(regs)}-{max(regs)} "
             f"registers, {sum(1 for s in spills if s)} spilling (max "
             f"{max(spills, default=0)} bytes)")
+
+
+def ptxas_instances(text: str) -> list[tuple[str, int, int]]:
+    """(mangled name, registers, spill-store bytes) of each kernel
+    instance in nvcc's `-Xptxas -v` report."""
+    out, name, spill = [], None, 0
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name, spill = m.group(1), 0
+        elif m := re.search(r"(\d+) bytes spill stores", line):
+            spill = int(m.group(1))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
 
 
 def cuda_time_ms(fn, n_iter: int, warmup: int = 3) -> float:
@@ -339,17 +357,42 @@ def _sc_compare(a, b, label, **kw):
     return out
 
 
+# the integer dots' edges: M around the 16- and 128-row tiles; K below, at
+# and above the mma depth (32) and a 128-deep stage (the split unit), and
+# 12288; N off the 128-wide block
+SC_DOT_MS = (1, 8, 15, 16, 17, 255, 256, 257)
+SC_DOT_KNS = ((31, 45), (32, 16), (33, 130), (127, 200), (128, 128),
+              (129, 257), (12288, 136))
+
+
+def _sc_extreme(gen, m, k, n):
+    """Operands whose dots sit near the int32 range: every entry +-127,
+    column 0 of B equal to row 0 of A (a dot of k * 127**2) and column 1
+    its negation, row 1 of A and column 2 of B all -128 (k * 128**2)."""
+    import torch
+    def pm127(*shape):
+        return torch.where(_int8(gen, *shape) >= 0, 127, -127).to(torch.int8)
+
+    a, b = pm127(m, k), pm127(k, n)
+    b[:, 0] = a[0]
+    b[:, 1] = -a[0]
+    a[1] = -128
+    b[:, 2] = -128
+    return a, b
+
+
 def check_sc_matmul() -> int:
     """Ragged shapes in every mode and readout: M in {1, 8, 37, 256}, K
     not a multiple of 20 (nor of 4), N not a multiple of 128 (nor of
-    4)."""
+    4); then the integer dots' edges (SC_DOT_MS x SC_DOT_KNS) and an
+    all-extreme case at K 12288."""
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
-    variants = [dict(mode="int8"), dict(mode="artemis_mxu"),
-                dict(mode="artemis_mxu", rbar=60.25)]
-    variants += [dict(mode="artemis", acc_depth=d, readout_bits=r)
-                 for d in (20, 16) for r in (8, 4, None)]
+    dots = [dict(mode="int8"), dict(mode="artemis_mxu"),
+            dict(mode="artemis_mxu", rbar=60.25)]
+    variants = dots + [dict(mode="artemis", acc_depth=d, readout_bits=r)
+                       for d in (20, 16) for r in (8, 4, None)]
     n = 0
     for m in (1, 8, 37, 256):
         for k, nn in ((333, 45), (1000, 130), (61, 258)):
@@ -362,7 +405,28 @@ def check_sc_matmul() -> int:
     log(f"sc_matmul: {n} ragged cases bit-equal to the plain version "
         f"(int8, artemis_mxu at rbar 63.5 and 60.25, artemis at depth "
         f"20/16 x readout 8/4/None)")
-    return n
+    n_dot = 0
+    for m in SC_DOT_MS:
+        for k, nn in SC_DOT_KNS:
+            a, b = _int8(gen, m, k), _int8(gen, k, nn)
+            for kw in dots:
+                _sc_compare(a, b, f"M {m} K {k} N {nn}", **kw)
+                n_dot += 1
+    a, b = _sc_extreme(gen, 17, 12288, 136)
+    for kw in dots:
+        out = _sc_compare(a, b, "extreme M 17 K 12288 N 136", **kw)
+        n_dot += 1
+        if kw["mode"] == "int8" and not (
+                out[0, 0].item() == 12288 * 127**2
+                and out[0, 1].item() == -12288 * 127**2
+                and out[1, 2].item() == 12288 * 128**2):
+            raise AssertionError("sc_matmul extreme case: the largest "
+                                 "dots are not exact")
+    log(f"sc_matmul: {n_dot} integer-dot edge cases bit-equal (M in "
+        f"{SC_DOT_MS}, K x N in {SC_DOT_KNS}, int8 and artemis_mxu at "
+        f"rbar 63.5 and 60.25; all-extreme operands at K 12288 with dots "
+        f"of +-12288 * 127**2 and 12288 * 128**2)")
+    return n + n_dot
 
 
 def _sc_bound(mode, m, k, n):
@@ -393,10 +457,37 @@ def _adaptive_ms(fn, budget_s=0.25, most=50):
     return cuda_time_ms(fn, n_iter, warmup=0)
 
 
+def _graph_ms(fn, n_calls=20, replays=5):
+    """Mean device ms of fn(i) from a CUDA graph of n_calls calls, which
+    replays without the host's launch cost (the wrapper's Python, the
+    allocations and the launches themselves)."""
+    import torch
+    fn(0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: the artemis launch sets its kernel's shared-memory limit
+    # on every call, which a global-mode capture may refuse
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for i in range(n_calls):
+            fn(i)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (replays * n_calls)
+    del graph
+    return ms
+
+
 def time_sc_matmul() -> list[dict]:
     """Each full-width projection shape at decode and prefill-chunk M,
     in every mode: the kernel against its plain version once more (bit
-    equality), then kernel, plain and (int8) torch._int_mm times. Each
+    equality), then kernel (per call, and on the device alone), plain
+    and (int8) torch._int_mm times. Each
     call reads another of 4 weight copies (up to 200 MB of int8), so the
     50 MB L2 does not hold the weight, as in a forward over 36 layers."""
     import torch
@@ -420,6 +511,8 @@ def time_sc_matmul() -> list[dict]:
                                   mode=mode)
                 ms = _adaptive_ms(lambda i: sc_matmul_quantized(
                     a, bs[i % copies], mode=mode))
+                device_ms = _graph_ms(lambda i: sc_matmul_quantized(
+                    a, bs[i % copies], mode=mode))
                 plain_ms = _adaptive_ms(lambda i: sc_matmul_ref(
                     a, bs[i % copies], mode=mode), budget_s=1.0, most=10)
                 library_ms = None
@@ -431,14 +524,26 @@ def time_sc_matmul() -> list[dict]:
                     library_ms = _adaptive_ms(lambda i: torch._int_mm(
                         a_lib, bs[i % copies]))
                 bound_ms, bound_by, n_bytes, ops = _sc_bound(mode, m, k, n)
-                rows.append(dict(mode=mode, shape=label, M=m, K=k, N=n,
-                                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                                 library_ms=library_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by, bytes=n_bytes, ops=ops))
-                lib_txt = (f" | _int_mm {library_ms*1e3:9.2f} us"
-                           if library_ms is not None else "")
+                row = dict(mode=mode, shape=label, M=m, K=k, N=n,
+                           max_abs_err=0.0, ms=ms, device_ms=device_ms,
+                           plain_ms=plain_ms,
+                           library_ms=library_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, bytes=n_bytes, ops=ops)
+                lib_txt = ""
+                if library_ms is not None:
+                    row["library_ratio"] = ms / library_ms
+                    lib_txt = (f" | _int_mm {library_ms*1e3:9.2f} us "
+                               f"(ratio {ms / library_ms:.2f})")
+                if mode == "artemis_mxu":
+                    int8 = rows[-1]   # same shape, int8 first
+                    row["over_int8"] = ms / int8["ms"]
+                    row["device_over_int8"] = device_ms / int8["device_ms"]
+                    lib_txt = (f" | {ms / int8['ms']:.2f}x int8 (device "
+                               f"{device_ms / int8['device_ms']:.2f}x)")
+                rows.append(row)
                 log(f"  {mode:11s} {label:13s} M {m:3d} K {k:5d} N {n:5d}:"
-                    f" kernel {ms*1e3:9.2f} us | plain {plain_ms*1e3:10.2f}"
+                    f" kernel {ms*1e3:9.2f} us (device {device_ms*1e3:8.2f})"
+                    f" | plain {plain_ms*1e3:10.2f}"
                     f" us{lib_txt} | bound {bound_ms*1e3:8.2f} us "
                     f"({bound_by}) | {bound_ms/ms:6.1%} of bound")
         del bs
@@ -1201,7 +1306,14 @@ def main() -> int:
     for src, (lib, sec) in zip(sources, built):
         log(f"  {src.relative_to(ROOT)} -> {lib.relative_to(ROOT)} "
             f"in {sec:.1f} s")
-        log(f"  ptxas: {ptxas_summary(lib.with_suffix('.log').read_text())}")
+        report = lib.with_suffix('.log').read_text()
+        log(f"  ptxas: {ptxas_summary(report)}")
+        for name, regs, spill in ptxas_instances(report):
+            if "mma_dot_kernel" in name:
+                log(f"    {name}: {regs} registers, {spill} bytes spill "
+                    f"stores")
+                if spill:
+                    raise AssertionError(f"sc_matmul {name} spills")
 
     log("== 3. kernels against their plain versions")
     max_err = check_paged_attention()

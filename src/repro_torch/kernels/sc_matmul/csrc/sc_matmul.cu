@@ -23,14 +23,27 @@
 // intrinsic, so nvcc neither fuses nor splits what the reference does.
 //
 // What bounds it on an H100, and what the design does about it:
-//   int8, artemis_mxu: at decode (M = 8) the bytes of B (K * N) at
-//     3.35 TB/s; at a prefill chunk (M = 256) the int8 operations, which
-//     tensor cores would run at 1979 TOPS. This first version runs them
-//     on the CUDA cores with __dp4a (4 int8 products per instruction)
-//     from shared-memory tiles, B transposed into k-words as it is
-//     loaded. Integer sums are exact in any order, so K is split over
-//     blocks until the grid fills the card, and the partial sums meet
-//     in int32 atomics; artemis_mxu finishes in a small epilogue kernel.
+//   int8, artemis_mxu: the bytes of the operands at 3.35 TB/s at every
+//     shape the serve paths launch: at decode (M = 8) B alone; at a
+//     prefill chunk (M = 256) B too, since the int8 operations take less
+//     time at the tensor cores' 1979 TOPS (13.0 us against 19.1 us of
+//     bytes at K x N = 4096 x 12288). The dot runs on the int8 tensor
+//     cores (mma.sync m16n8k32, fragments by ldmatrix), fed by a ring of
+//     3-4 stages of 128-deep A and B tiles that cp.async lands while the
+//     tensor cores work on the oldest, so at decode every SM keeps 96 KB
+//     of B in flight. B is (K, N), n contiguous, and the s8 .col fragment
+//     needs 4 consecutive k of a column, which ldmatrix cannot transpose
+//     for bytes: ldmatrix.trans reads 16-bit column pairs of the k rows
+//     4t, 4t + 1 and 4t + 2, 4t + 3, and two byte permutes split them into
+//     the fragments of the even and of the odd columns, so B goes from
+//     shared memory to the tensor cores once, untransposed. M pads to
+//     16-row tiles at decode. Integer sums are exact in any order, so K is
+//     split over blocks where that makes the waves of blocks end sooner,
+//     and the partial sums meet in int32 atomics (an unsplit tile is
+//     stored); either way each warp writes whole rows from a tile staged
+//     in shared memory. artemis_mxu runs the bytewise signs through a
+//     second accumulator (A's from a tile signed once per stage, B's from
+//     its fragments) and finishes in a small epilogue kernel.
 //   artemis: instruction issue. Every product is a multiply, a floor
 //     and a signed accumulate that no tensor core does. Two columns
 //     share one 32-bit register in 16-bit lanes, so one IMAD forms two
@@ -41,9 +54,8 @@
 //     per block with the exact f32 arithmetic. The f32 group scan is sequential
 //     per output, so K cannot be split: small grids (decode) take small
 //     tiles for more blocks.
-// wgmma/mma.sync int8 tensor cores, TMA and pipelined loads, and an
-// artemis split over K that scans the exact group sums in order later,
-// are later work.
+// Later work: wgmma with TMA and a producer warp for the dot, and an
+// artemis split over K that scans the exact group sums in order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,112 +95,289 @@ __device__ __forceinline__ void load_words(const W* p, W* out) {
   }
 }
 
-// Per-byte sign of four packed int8: +1, 0 or -1 in each byte.
-__device__ __forceinline__ int sign4(int w) {
-  const unsigned gt = __vcmpgts4((unsigned)w, 0u);  // 0xff where > 0
-  const unsigned lt = __vcmplts4((unsigned)w, 0u);  // 0xff where < 0
-  return (int)__vsub4(lt, gt);
+// ---------------------------------------------------------------------------
+// int8 / artemis_mxu: mma.sync m16n8k32 on the int8 tensor cores, operands
+// streamed through a ring of cp.async stages, K split over blockIdx.z
+// ---------------------------------------------------------------------------
+
+constexpr int kKGranule = 32;  // the wrapper pads K to one mma's depth
+constexpr int kNGranule = 16;  // and N to one 16-byte copy
+constexpr int kTK = 128;       // k per stage: 8 chunks of 16 bytes a row
+constexpr int kTN = 128;       // n per block: 8 chunks of 16 bytes a row
+constexpr int kMaxDevices = 64;
+// int32 row stride of the epilogue's tile in shared memory: 16 words of
+// padding put rows g and g + 1 in opposite bank halves
+constexpr int kOutStride = kTN + 16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// ---------------------------------------------------------------------------
-// int8 / artemis_mxu: __dp4a over k-words, K split over blockIdx.z
-// ---------------------------------------------------------------------------
+// 16 bytes global -> shared, bypassing L1; zero-filled when !full
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0));
+}
 
-template <int BM, int BN, int TM, int TN, bool kSigns>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-    dot_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
-               int* __restrict__ value, int* __restrict__ sign, int M, int N,
-               int K, int k_per_split) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  constexpr int W = kBK / 4;  // k-words per tile
-  __shared__ __align__(16) int As[W][BM];  // word w of row m: a[m][4w..4w+3]
-  __shared__ __align__(16) int Bs[W][BN];  // word w of col n: b[4w..4w+3][n]
-  __shared__ __align__(16) int Sa[kSigns ? W : 1][kSigns ? BM : 4];
-  __shared__ __align__(16) int Sb[kSigns ? W : 1][kSigns ? BN : 4];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 matrices of 16-bit elements (8 rows of 16 bytes each); lane l
+// gives the address of row l % 8 of matrix l / 8. Lane 4g + t receives
+// row g, elements 2t and 2t + 1; with .trans, rows 2t and 2t + 1 of
+// element column g.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c (16 x 8, s32) += a (16 x 32, s8, row) * b (32 x 8, s8, col)
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
+                                       const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Per-byte sign of four packed int8 (+1, 0 or -1 in each byte): prmt's
+// sign-replicating selectors (0x8-0xB) give 0xFF in each negative byte;
+// bit 7 of (u & 0x7F..) + 0x7F.. is set in each byte whose low 7 bits are
+// not all 0, which in a byte that is not negative makes it positive.
+__device__ __forceinline__ uint32_t sign_bytes(uint32_t u) {
+  uint32_t neg;
+  asm("prmt.b32 %0, %1, 0, 0xBA98;" : "=r"(neg) : "r"(u));
+  const uint32_t low = (u & 0x7F7F7F7Fu) + 0x7F7F7F7Fu;
+  return neg | ((low >> 7) & 0x01010101u);
+}
+
+// Shared-memory stages, rows of 128 bytes (8 chunks of 16) as cp.async
+// lands them, chunks XOR-swizzled so that no ldmatrix has a bank conflict:
+//   A (BM x kTK, k contiguous): chunk c of row m at c ^ (m & 7); ldmatrix
+//     reads 8 consecutive rows at one chunk.
+//   B (kTK x kTN, n contiguous): chunk c of row k at c ^ b_swizzle(k);
+//     ldmatrix.trans reads the 8 rows {0, 1, 4, 5, 8, 9, 12, 13} (+ 2,
+//     + 16) of a 16-row group at one chunk.
+// The s8 .col B fragment wants 4 consecutive k of one column in a register,
+// and ldmatrix transposes only 16-bit elements. So the B stage is read
+// with .trans from the rows k = 4t, 4t + 1 (one matrix) and 4t + 2, 4t + 3
+// (another): lane 4g + t holds columns 2g and 2g + 1 of those rows, and
+// two byte permutes give the even column's 4 consecutive k and the odd
+// one's. Each 16-column chunk is thus two mma tiles, of the even and the
+// odd columns; no pass over shared memory transposes B.
+__device__ __forceinline__ int a_swizzle(int m) { return m & 7; }
+__device__ __forceinline__ int b_swizzle(int k) {
+  return (k & 1) | ((k >> 1) & 6);
+}
+
+// One block: a BM x kTN output tile over the k range of its split, WM x
+// WN warps, each a (BM / WM) x (kTN / WN) tile of 16 x 8 mma tiles. Stage
+// t + STAGES - 1 is copied while stage t goes to the tensor cores. kSigns
+// runs the sign dot through a second accumulator: A's signs from a shared
+// tile that each thread fills from the chunks it copied (once per block),
+// B's from its fragments (once per warp row; the sign is bytewise, so it
+// commutes with the fragment layout).
+template <int BM, int WM, int WN, int STAGES, bool kSigns>
+__global__ void __launch_bounds__(WM * WN * 32, kSigns && BM > 64 ? 1 : 2)
+    mma_dot_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
+                   int* __restrict__ value, int* __restrict__ sign, int M,
+                   int N, int K, int k_per_split) {
+  constexpr int kWarps = WM * WN, kThreads = 32 * kWarps;
+  constexpr int WTM = BM / WM, WTN = kTN / WN;  // warp tile
+  constexpr int MT = WTM / 16, NT = WTN / 8;    // mma tiles per warp
+  static_assert(MT >= 1 && NT % 2 == 0, "whole 16-column chunks");
+  constexpr int A_BYTES = BM * kTK, B_BYTES = kTK * kTN;
+  constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static_assert(BM * kOutStride * 4 <= STAGES * STAGE_BYTES,
+                "the epilogue's tile fits the stages");
+  extern __shared__ __align__(128) uint8_t smem[];
+  // kSigns: two A tiles after the stages hold the signs of A at stages t
+  // and t - 1 (t % 2), laid out as the stage's A
+  uint8_t* const sign_a = smem + STAGES * STAGE_BYTES;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WN, wn = warp % WN;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * kTN;
   const int kbeg = blockIdx.z * k_per_split;
   const int kend = min(K, kbeg + k_per_split);
+  const int tiles = (kend - kbeg + kTK - 1) / kTK;
+  const uint32_t base = smem_addr(smem);
 
-  int acc[TM][TN], sacc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = sacc[i][j] = 0;
+  // K and N are multiples of 32 and 16: a 16-byte chunk is all in or all out
+  auto load_stage = [&](int stage, int t) {
+    const int k0 = kbeg + t * kTK;
+    const uint32_t as = base + stage * STAGE_BYTES, bs = as + A_BYTES;
+    for (int i = tid; i < BM * 8; i += kThreads) {
+      const int r = i >> 3, c = i & 7;
+      const int m = m0 + r, k = k0 + 16 * c;
+      const bool in = m < M && k < kend;
+      cp_async16(as + r * kTK + 16 * (c ^ a_swizzle(r)),
+                 in ? A + (size_t)m * K + k : A, in);
+    }
+    for (int i = tid; i < kTK * 8; i += kThreads) {
+      const int r = i >> 3, c = i & 7;
+      const int k = k0 + r, n = n0 + 16 * c;
+      const bool in = k < kend && n < N;
+      cp_async16(bs + r * kTN + 16 * (c ^ b_swizzle(r)),
+                 in ? B + (size_t)k * N + n : B, in);
+    }
+  };
 
-  for (int k0 = kbeg; k0 < kend; k0 += kBK) {
-    for (int i = tid; i < BM * W; i += NT) {
-      const int r = i / W, w = i % W;
-      const int m = m0 + r, k = k0 + 4 * w;
-      int v = 0;
-      if (m < M && k < kend)
-        v = __ldg(reinterpret_cast<const int*>(A + (size_t)m * K + k));
-      As[w][r] = v;
-      if constexpr (kSigns) Sa[w][r] = sign4(v);
-    }
-    for (int i = tid; i < W * (BN / 4); i += NT) {
-      const int w = i / (BN / 4), c = i % (BN / 4);
-      const int k = k0 + 4 * w, n = n0 + 4 * c;
-      int r0 = 0, r1 = 0, r2 = 0, r3 = 0;
-      if (n < N && k < kend) {  // K and N are multiples of 4
-        const int8_t* p = B + (size_t)k * N + n;
-        r0 = __ldg(reinterpret_cast<const int*>(p));
-        r1 = __ldg(reinterpret_cast<const int*>(p + N));
-        r2 = __ldg(reinterpret_cast<const int*>(p + 2 * (size_t)N));
-        r3 = __ldg(reinterpret_cast<const int*>(p + 3 * (size_t)N));
+  int acc[MT][NT][4], sacc[kSigns ? MT : 1][kSigns ? NT : 1][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[i][j][e] = 0;
+        if constexpr (kSigns) sacc[i][j][e] = 0;
       }
-      // 4x4 byte transpose: word j holds column n + j of rows k..k+3
-      const int t0 = __byte_perm(r0, r1, 0x5140);
-      const int t1 = __byte_perm(r0, r1, 0x7362);
-      const int t2 = __byte_perm(r2, r3, 0x5140);
-      const int t3 = __byte_perm(r2, r3, 0x7362);
-      const int o[4] = {(int)__byte_perm(t0, t2, 0x5410),
-                        (int)__byte_perm(t0, t2, 0x7632),
-                        (int)__byte_perm(t1, t3, 0x5410),
-                        (int)__byte_perm(t1, t3, 0x7632)};
+
+  // this lane's ldmatrix rows: A row (m) and B row (k) within a 16 x 32
+  // and a 32 x 16 fragment group, and the chunk half it reads
+  const int a_row = wm * WTM + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int a_half = lane >> 4;
+  const int b_row = 4 * ((lane & 7) >> 1) + (lane & 1) + 2 * ((lane >> 3) & 1) +
+                    16 * (lane >> 4);
+
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        Bs[w][4 * c + j] = o[j];
-        if constexpr (kSigns) Sb[w][4 * c + j] = sign4(o[j]);
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < tiles) load_stage(s, s);
+    cp_async_commit();  // empty groups keep the count uniform
+  }
+
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of tile t landed
+    if constexpr (kSigns) {
+      // the signs of the A chunks this thread copied, into sign tile t % 2
+      // (last read at tile t - 2)
+      const uint8_t* as = smem + (t % STAGES) * STAGE_BYTES;
+      uint8_t* sa = sign_a + (t & 1) * A_BYTES;
+      for (int i = tid; i < BM * 8; i += kThreads) {
+        const int off = (i >> 3) * kTK + 16 * ((i & 7) ^ a_swizzle(i >> 3));
+        const uint4 v = *reinterpret_cast<const uint4*>(as + off);
+        *reinterpret_cast<uint4*>(sa + off) =
+            make_uint4(sign_bytes(v.x), sign_bytes(v.y), sign_bytes(v.z),
+                       sign_bytes(v.w));
       }
     }
-    __syncthreads();
+    __syncthreads();  // everyone's landed (and signed); tile t - 1 consumed
+    if (t + STAGES - 1 < tiles)
+      load_stage((t + STAGES - 1) % STAGES, t + STAGES - 1);
+    cp_async_commit();
+
+    const uint32_t as = base + (t % STAGES) * STAGE_BYTES, bs = as + A_BYTES;
+    const uint32_t sas = smem_addr(sign_a) + (t & 1) * A_BYTES;
 #pragma unroll
-    for (int w = 0; w < W; ++w) {
-      int a[TM], b[TN];
-      load_words<TM>(&As[w][ty * TM], a);
-      load_words<TN>(&Bs[w][tx * TN], b);
+    for (int kk = 0; kk < kTK / 32; ++kk) {
+      uint32_t a[MT][4], b[NT][2];
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < MT; ++i) {
+        // a0..a3: rows +0 / +8 at chunk 2kk, then at chunk 2kk + 1
+        const int r = a_row + 16 * i;
+        ldmatrix_x4(as + r * kTK + 16 * ((2 * kk + a_half) ^ a_swizzle(r)),
+                    a[i]);
+      }
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
+      for (int j = 0; j < NT; j += 2) {
+        // rows 4t, 4t+1 | 4t+2, 4t+3 of k 0-15, then of k 16-31, at the
+        // 16-column chunk of tiles j (even columns) and j + 1 (odd)
+        const int k = 32 * kk + b_row;
+        const int c = (wn * WTN + 8 * j) / 16;
+        uint32_t f[4];
+        ldmatrix_x4_trans(bs + k * kTN + 16 * (c ^ b_swizzle(k)), f);
+        b[j][0] = __byte_perm(f[0], f[1], 0x6420);
+        b[j][1] = __byte_perm(f[2], f[3], 0x6420);
+        b[j + 1][0] = __byte_perm(f[0], f[1], 0x7531);
+        b[j + 1][1] = __byte_perm(f[2], f[3], 0x7531);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_s8(acc[i][j], a[i], b[j]);
       if constexpr (kSigns) {
-        load_words<TM>(&Sa[w][ty * TM], a);
-        load_words<TN>(&Sb[w][tx * TN], b);
 #pragma unroll
-        for (int i = 0; i < TM; ++i)
+        for (int i = 0; i < MT; ++i) {
+          const int r = a_row + 16 * i;
+          ldmatrix_x4(sas + r * kTK + 16 * ((2 * kk + a_half) ^ a_swizzle(r)),
+                      a[i]);
+        }
 #pragma unroll
-          for (int j = 0; j < TN; ++j)
-            sacc[i][j] = __dp4a(a[i], b[j], sacc[i][j]);
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) b[j][e] = sign_bytes(b[j][e]);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_s8(sacc[i][j], a[i], b[j]);
       }
     }
-    __syncthreads();
   }
 
+  // Epilogue through shared memory (the stages are free now), so that every
+  // warp writes whole rows: with one split, 16-byte stores; with several,
+  // int32 atomics on consecutive addresses. Fragment c0, c1 holds row g,
+  // mma columns 2t, 2t + 1 and c2, c3 row g + 8; column x of tile j is
+  // column 16 (j / 2) + 2x + j % 2 of the warp, so tiles 2p and 2p + 1
+  // give each lane 4 consecutive columns. The value plane, then (kSigns)
+  // the sign plane.
+  cp_async_wait<0>();
+  int* const tile = reinterpret_cast<int*>(smem);
+  const bool split = gridDim.z > 1;
+  auto write_plane = [&](const int (&v)[MT][NT][4], int* out) {
+    __syncthreads();  // shared memory free: the last stage, or last plane
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= M) continue;
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx * TN + j;
-      if (n >= N) continue;
-      atomicAdd(value + (size_t)m * N + n, acc[i][j]);
-      if constexpr (kSigns) atomicAdd(sign + (size_t)m * N + n, sacc[i][j]);
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * WTM + 16 * i + (lane >> 2) + 8 * h;
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          const int col = wn * WTN + 8 * j + 4 * (lane & 3);
+          *reinterpret_cast<int4*>(tile + r * kOutStride + col) =
+              make_int4(v[i][j][2 * h], v[i][j + 1][2 * h],
+                        v[i][j][2 * h + 1], v[i][j + 1][2 * h + 1]);
+        }
+      }
+    __syncthreads();
+    for (int r = warp; r < BM; r += kWarps) {
+      const int m = m0 + r;
+      if (m >= M) break;
+      int* row = out + (size_t)m * N + n0;
+      const int* src = tile + r * kOutStride;
+      if (!split) {  // N is a multiple of 16: 4 columns all in or all out
+        if (n0 + 4 * lane < N)
+          *reinterpret_cast<int4*>(row + 4 * lane) =
+              *reinterpret_cast<const int4*>(src + 4 * lane);
+      } else {
+#pragma unroll
+        for (int q = 0; q < kTN / 32; ++q)
+          if (n0 + lane + 32 * q < N)
+            atomicAdd(row + lane + 32 * q, src[lane + 32 * q]);
+      }
     }
-  }
+  };
+  write_plane(acc, value);
+  if constexpr (kSigns) write_plane(sacc, sign);
 }
 
 __global__ void mxu_epilogue(const int* __restrict__ value,
@@ -332,7 +521,6 @@ int num_sms() {
 }
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
-int clamp_int(int x, int lo, int hi) { return x < lo ? lo : (x > hi ? hi : x); }
 
 template <int BM, int BN, int TM, int TN>
 cudaError_t launch_artemis(const int8_t* A, const int8_t* B, float* out,
@@ -350,30 +538,86 @@ cudaError_t launch_artemis(const int8_t* A, const int8_t* B, float* out,
   return cudaGetLastError();
 }
 
-template <int BM, int BN, int TM, int TN, bool kSigns>
-cudaError_t launch_dot(const int8_t* A, const int8_t* B, int* value,
-                       int* sign, int M, int N, int K, int sms,
-                       cudaStream_t st) {
-  const int gx = cdiv(N, BN), gy = cdiv(M, BM);
-  const int tiles = cdiv(K, kBK);
-  // split K until the grid covers the card twice; splits own whole tiles
-  const int splits = clamp_int(cdiv(2 * sms, gx * gy), 1, tiles);
-  const int k_per_split = cdiv(tiles, splits) * kBK;
-  dim3 grid(gx, gy, cdiv(K, k_per_split));
-  dot_kernel<BM, BN, TM, TN, kSigns><<<grid, (BM / TM) * (BN / TN), 0, st>>>(
-      A, B, value, sign, M, N, K, k_per_split);
+// The K split (whole stages per split) whose waves of blocks end soonest:
+// a block takes its stages plus about kSplitCost stages of prologue and
+// epilogue, and `slots` blocks run at once. Ties go to fewer splits (fewer
+// atomics).
+constexpr int kSplitCost = 2;
+int choose_splits(int blocks, int tiles, int slots) {
+  int best = 1, best_cost = 0;
+  for (int s = 1; s <= tiles; ++s) {
+    const int per = cdiv(tiles, s);
+    if (cdiv(tiles, per) != s) continue;  // the same split as a smaller s
+    const int cost = cdiv(blocks * s, slots) * (per + kSplitCost);
+    if (s == 1 || cost < best_cost) {
+      best = s;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+template <int BM, int WM, int WN, int STAGES, bool kSigns>
+cudaError_t launch_mma_dot(const int8_t* A, const int8_t* B, int* value,
+                           int* sign, int M, int N, int K, int dev, int sms,
+                           cudaStream_t st) {
+  auto kernel = mma_dot_kernel<BM, WM, WN, STAGES, kSigns>;
+  constexpr int threads = WM * WN * 32;
+  constexpr int smem =
+      STAGES * (BM * kTK + kTK * kTN) + (kSigns ? 2 * BM * kTK : 0);
+  // set up once per device: the shared-memory opt-in, then the blocks
+  // that fit one SM
+  static int per_sm[kMaxDevices] = {};
+  if (!per_sm[dev]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[dev], kernel,
+                                                          threads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm[dev] < 1) return cudaErrorInvalidConfiguration;
+  }
+  const int gm = cdiv(M, BM), gn = cdiv(N, kTN);
+  const int tiles = cdiv(K, kTK);
+  const int splits = choose_splits(gm * gn, tiles, per_sm[dev] * sms);
+  const int k_per_split = cdiv(tiles, splits) * kTK;
+  // m fastest: the blocks that share a B tile run side by side (L2)
+  dim3 grid(gm, gn, cdiv(K, k_per_split));
+  if (grid.z > 1) {  // the splits meet in atomics on zeros
+    const cudaError_t err = cudaMemsetAsync(
+        value, 0, (kSigns ? 2 : 1) * (size_t)M * N * sizeof(int), st);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, threads, smem, st>>>(A, B, value, sign, M, N, K,
+                                      k_per_split);
   return cudaGetLastError();
+}
+
+// At decode (M <= 32) 16-row tiles, 8 warps side by side over 128 columns,
+// four 18 KB stages; above, 128-row tiles, 2 x 4 warps of 64 x 32, three
+// 32 KB stages. Two blocks to an SM, but one for artemis_mxu above decode,
+// whose two accumulators take about 200 registers a thread.
+template <bool kSigns>
+cudaError_t launch_int_dot(const int8_t* A, const int8_t* B, int* value,
+                           int* sign, int M, int N, int K, int dev, int sms,
+                           cudaStream_t st) {
+  if (M <= 32)
+    return launch_mma_dot<16, 1, 8, 4, kSigns>(A, B, value, sign, M, N, K,
+                                               dev, sms, st);
+  return launch_mma_dot<128, 2, 4, 3, kSigns>(A, B, value, sign, M, N, K, dev,
+                                              sms, st);
 }
 
 }  // namespace
 
 // C entry point, loaded with ctypes. A: (M, K) int8, B: (K, N) int8, both
-// contiguous and 16-byte aligned, N a multiple of 4; K a multiple of 4
-// (int8, artemis_mxu) or of acc_depth (artemis). out: (M, N) int32 for
-// int8, f32 otherwise. scratch: 2 * M * N int32 for artemis_mxu (unused
-// otherwise). readout_bits < 0 means ideal readout; levels = 2^bits - 1
-// and delta = acc_depth * 127 / levels rounded to f32 by the caller.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// contiguous and 16-byte aligned. int8, artemis_mxu: K a multiple of 32 and N
+// of 16 (whole mma depths, whole 16-byte copies); artemis: K a multiple of
+// acc_depth and N of 4. out: (M, N) int32 for int8, f32 otherwise. scratch:
+// 2 * M * N int32 for artemis_mxu (unused otherwise). readout_bits < 0 means
+// ideal readout; levels = 2^bits - 1 and delta = acc_depth * 127 / levels
+// rounded to f32 by the caller. Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int sc_matmul_launch(const void* A, const void* B, void* out,
                                 void* scratch, int M, int N, int K, int mode,
                                 int acc_depth, int readout_bits, float levels,
@@ -397,29 +641,25 @@ extern "C" int sc_matmul_launch(const void* A, const void* B, void* out,
     return (int)launch_artemis<8, 32, 2, 4>(a, b, o, M, N, K, acc_depth,
                                             readout_bits, levels, delta, st);
   }
-  if ((mode != kModeInt8 && mode != kModeMxu) || K % 4 != 0)
+  if ((mode != kModeInt8 && mode != kModeMxu) || K % kKGranule != 0 ||
+      N % kNGranule != 0 || reinterpret_cast<uintptr_t>(A) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(B) % 16 != 0)
     return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices)
+    return (int)cudaErrorInvalidDevice;
   const size_t mn = (size_t)M * N;
   const bool mxu = mode == kModeMxu;
   int* value = mxu ? static_cast<int*>(scratch) : static_cast<int*>(out);
   int* sign = mxu ? value + mn : nullptr;
-  cudaError_t err = cudaMemsetAsync(value, 0, (mxu ? 2 : 1) * mn * sizeof(int),
-                                    st);
-  if (err != cudaSuccess) return (int)err;
   if (mxu) {
-    err = large ? launch_dot<64, 128, 8, 8, true>(a, b, value, sign, M, N, K,
-                                                 sms, st)
-                : launch_dot<16, 64, 4, 4, true>(a, b, value, sign, M, N, K,
-                                                 sms, st);
+    const cudaError_t err = launch_int_dot<true>(a, b, value, sign, M, N, K, dev, sms, st);
     if (err != cudaSuccess) return (int)err;
     const int blocks = mn >= 4096 * 256 ? 4096 : (int)((mn + 255) / 256);
     mxu_epilogue<<<blocks, 256, 0, st>>>(value, sign, static_cast<float*>(out),
                                          mn, rbar);
     return (int)cudaGetLastError();
   }
-  err = large ? launch_dot<64, 128, 8, 8, false>(a, b, value, nullptr, M, N, K,
-                                                 sms, st)
-              : launch_dot<16, 64, 4, 4, false>(a, b, value, nullptr, M, N, K,
-                                                sms, st);
-  return (int)err;
+  return (int)launch_int_dot<false>(a, b, value, nullptr, M, N, K, dev, sms,
+                                    st);
 }

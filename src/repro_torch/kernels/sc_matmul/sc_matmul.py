@@ -29,6 +29,10 @@ _MODE_IDS = {"int8": 0, "artemis_mxu": 1, "artemis": 2}
 # the kernel sums a group's products in 16-bit lanes and keeps its
 # readout table (acc_depth*127 + 1 floats) in shared memory
 MAX_ACC_DEPTH = 128
+# the integer dots run m16n8k32 tensor-core products over B rows copied
+# 16 bytes at a time
+DOT_K_GRANULE = 32
+DOT_N_GRANULE = 16
 
 
 def _entry():
@@ -50,17 +54,27 @@ def _pad(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return out
 
 
+def granules(mode: str, acc_depth: int) -> tuple[int, int]:
+    """(k, n): what the kernel needs K and N to be multiples of. The
+    integer dots (int8, artemis_mxu) take whole mma depths of K and whole
+    16-byte rows of B; artemis takes whole MOMCAP groups of K and N in
+    4-byte words."""
+    if mode == "artemis":
+        return acc_depth, 4
+    return DOT_K_GRANULE, DOT_N_GRANULE
+
+
 def pad_operands(aq: torch.Tensor, bq: torch.Tensor, mode: str,
                  acc_depth: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The operands as the kernel takes them: K zero-padded to whole
-    MOMCAP groups in artemis mode (a zero group adds +0 - 0) and to whole
-    4-byte words otherwise (zeros add nothing to a dot), N to whole
-    4-byte words; contiguous and 16-byte aligned. The (M, N) corner of
-    the padded product is the product."""
+    """The operands as the kernel takes them: K and N zero-padded to the
+    mode's `granules` (zeros add nothing to a dot, and a zero MOMCAP
+    group adds +0 - 0), contiguous and 16-byte aligned. The (M, N)
+    corner of the padded product is the product."""
     m, k = aq.shape
     n = bq.shape[1]
-    kp = k + (-k) % (acc_depth if mode == "artemis" else 4)
-    np_ = n + (-n) % 4
+    gk, gn = granules(mode, acc_depth)
+    kp = k + (-k) % gk
+    np_ = n + (-n) % gn
     a = _pad(aq.contiguous(), m, kp)
     b = _pad(bq.contiguous(), kp, np_)
     if a.data_ptr() % 16 or b.data_ptr() % 16:

@@ -40,7 +40,13 @@ from repro_torch.kernels.sc_matmul import (  # noqa: E402
     sc_matmul_ref,
 )
 from repro_torch.kernels.sc_matmul import ops as tops  # noqa: E402
-from repro_torch.kernels.sc_matmul.sc_matmul import pad_operands  # noqa: E402
+from repro_torch.kernels.sc_matmul.sc_matmul import (  # noqa: E402
+    DOT_K_GRANULE,
+    DOT_N_GRANULE,
+    SOURCE,
+    granules,
+    pad_operands,
+)
 
 MODES = ["int8", "artemis_mxu", "artemis"]
 ORACLE_TOL = dict(rtol=1e-5, atol=1e-3)
@@ -104,20 +110,58 @@ def test_int8_dot_is_exact_beyond_float32():
     assert got[0, 0] == 2048 * 127**2
 
 
-@pytest.mark.parametrize("acc_depth", [20, 16, 7])
-@pytest.mark.parametrize("mode", MODES)
-def test_kernel_padding_leaves_the_product(mode, acc_depth):
-    """The zero padding the wrapper gives the kernel (K to whole groups
-    or words, N to words) changes no entry of the (M, N) corner."""
-    a, b = _int8(acc_depth, 5, 37, 45)
+# (mode, acc_depth, (K, N)): K = 37, N = 45 at every depth, then K and N
+# below, at and above the dot modes' granules (32, 16) at depth 20
+PADDING_CASES = (
+    [pytest.param(mode, d, (37, 45), id=f"{mode}-{d}")
+     for mode in MODES for d in (20, 16, 7)]
+    + [pytest.param(mode, 20, kn, id=f"{mode}-20-K{kn[0]}xN{kn[1]}")
+       for mode in MODES
+       for kn in ((1, 1), (31, 15), (32, 16), (33, 17), (200, 130))])
+
+
+@pytest.mark.parametrize("mode,acc_depth,kn", PADDING_CASES)
+def test_kernel_padding_leaves_the_product(mode, acc_depth, kn):
+    """The zero padding the wrapper gives the kernel (K and N to the
+    mode's granules: whole mma depths and 16-byte rows of B for the
+    integer dots, whole groups and 4-byte words for artemis) changes no
+    entry of the (M, N) corner."""
+    k, n = kn
+    a, b = _int8(acc_depth + k + n, 5, k, n)
     ta, tb = pad_operands(torch.from_numpy(a), torch.from_numpy(b), mode,
                           acc_depth)
-    assert ta.shape[1] % (acc_depth if mode == "artemis" else 4) == 0
-    assert tb.shape[1] % 4 == 0 and ta.is_contiguous()
+    gk, gn = granules(mode, acc_depth)
+    assert (gk, gn) == ((acc_depth, 4) if mode == "artemis" else (32, 16))
+    kp, np_ = ta.shape[1], tb.shape[1]
+    assert kp % gk == 0 and np_ % gn == 0 and tb.shape[0] == kp
+    assert k <= kp < k + gk and n <= np_ < n + gn
+    if mode != "artemis":   # cp.async copies rows 16 bytes at a time
+        assert kp % 16 == 0 and np_ % 16 == 0
+    assert ta.is_contiguous() and tb.is_contiguous()
     assert ta.data_ptr() % 16 == 0 and tb.data_ptr() % 16 == 0
     want = _plain(a, b, mode, acc_depth=acc_depth)
     got = sc_matmul_ref(ta, tb, mode=mode, acc_depth=acc_depth).numpy()
-    np.testing.assert_array_equal(got[:, :45], want)
+    np.testing.assert_array_equal(got[:, :n], want)
+
+
+@pytest.mark.parametrize("kn", [(4096, 4096), (4096, 1024), (4096, 12288),
+                                (12288, 4096)], ids=str)
+@pytest.mark.parametrize("mode", ["int8", "artemis_mxu"])
+def test_serve_shapes_reach_the_kernel_without_a_copy(mode, kn):
+    """qwen3_8b's projections are whole granules: the wrapper hands the
+    kernel the operands themselves."""
+    a = torch.empty((8, kn[0]), dtype=torch.int8)
+    b = torch.empty(kn, dtype=torch.int8)
+    ta, tb = pad_operands(a, b, mode, 20)
+    assert ta.data_ptr() == a.data_ptr() and tb.data_ptr() == b.data_ptr()
+
+
+def test_granules_are_the_kernels():
+    """The wrapper's dot granules are the ones the CUDA entry checks."""
+    src = SOURCE.read_text()
+    assert f"constexpr int kKGranule = {DOT_K_GRANULE};" in src
+    assert f"constexpr int kNGranule = {DOT_N_GRANULE};" in src
+    assert "K % kKGranule != 0" in src and "N % kNGranule != 0" in src
 
 
 @pytest.mark.parametrize("mode", MODES)
