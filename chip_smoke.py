@@ -10,20 +10,26 @@ without printing a result:
 
   1. the card: name and power limit (nvidia-smi), capability (9, 0);
   2. build every kernel of the serve path from the checkout's sources
-     (nvcc, sm_90a), timed as set-up;
+     (nvcc, sm_90a), timed as set-up; the registers and spill stores of
+     the tensor-core instances (none may spill);
   3. hold each kernel against its plain PyTorch version on the card
      over a grid of cases, with the tolerance stated per kernel
-     (sc_matmul's integer dots also at the edges of their tiles, splits
-     and int32 range);
+     (paged_attention through both its instances, rows and tile, on
+     every case: ragged row counts, chunks past their table, a table of
+     2000 keys; sc_matmul's integer dots also at the edges of their
+     tiles, splits and int32 range);
   4. at the full-width qwen3_8b shapes of the serve paths, hold each
      kernel against its plain version once more, then time it beside
-     its plain version, its bound and one library call (sc_matmul int8:
-     the ratio to torch._int_mm; artemis_mxu: the ratio to int8);
+     its plain version, its bound and one library call (paged_attention
+     at a prefill chunk: also its rows instance and the f32 bound;
+     sc_matmul int8: the ratio to torch._int_mm; artemis_mxu: the ratio
+     to int8);
   5. drain the paged-KV engine at the full qwen3_8b width (36 layers,
      bf16, attn_impl="fused") with seeded random weights, with every
      launch count zeroed just before and read just after: each kernel
      of the path must have run, paged_attention once per layer of
-     every forward;
+     every forward, its tile instance once per layer of every
+     prefill-chunk forward and its rows instance for the rest;
   6. the same trace at float32 through 2 layers of the full width,
      once with the gather core and once with the fused kernel: the
      greedy tokens must be identical;
@@ -45,9 +51,10 @@ without printing a result:
      sc_matmul once per dense projection and flash_attention never;
  10. print the kernels line, the card line, then the result line.
 
-Kernels: paged_attention (exact engine path), sc_matmul (the ARTEMIS
-MAC of the quantized policies) and flash_attention (exact static
-path), all CUDA C++ for sm_90a, built in parallel. sc_matmul is held
+Kernels: paged_attention (exact engine path; its rows instance at
+decode, its tensor-core tile instance at a prefill chunk), sc_matmul
+(the ARTEMIS MAC of the quantized policies) and flash_attention (exact
+static path), all CUDA C++ for sm_90a, built in parallel. sc_matmul is held
 bit for bit against its plain version, the attention kernels within
 2e-4.
 
@@ -72,6 +79,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12          # f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12        # bf16 tensor cores, dense, f32 sums
+TF32_FLOPS_PER_S = 495e12        # tf32 tensor cores, dense, f32 sums
 INT8_OPS_PER_S = 1979e12         # int8 tensor cores, dense
 # integer issue of the CUDA cores: 132 SMs x 64 INT32 lanes x 1.98 GHz
 INT32_INSTR_PER_S = 132 * 64 * 1.98e9
@@ -143,14 +151,20 @@ def cuda_time_ms(fn, n_iter: int, warmup: int = 3) -> float:
 # ---------------------------------------------------------------------------
 
 
-def _pa_case(gen, *, page, hd, group, window, s, q_dtype, kv_dtype):
+PA_VARIANTS = ("rows", "tile")       # the kernel's two instances
+
+
+def _pa_case(gen, *, page, hd, group, window, s, q_dtype, kv_dtype,
+             starts=None):
     """Operands of one case: lanes 0 and 1 mid-table (their chunks
-    straddle page boundaries), lane 2 idle (all-trash table, positions
-    0), as the engine lays them out."""
+    straddle page boundaries; `starts` moves them), lane 2 idle
+    (all-trash table, positions 0), lane 3 a chunk that runs past its
+    table (padding positions, as a lane's last chunk can), as the engine
+    lays them out."""
     import torch
-    kvh, b = 2, 3
+    kvh, b = 2, 4
     h = kvh * group
-    starts = [2 * page + 1, page - 1]
+    starts = starts or [2 * page + 1, page - 1]
     pmax = -(-(max(starts) + s) // page) + 1
     n_pages = 2 * pmax + 2
     q = torch.randn((b, s, h, hd), generator=gen, device="cuda")
@@ -158,75 +172,105 @@ def _pa_case(gen, *, page, hd, group, window, s, q_dtype, kv_dtype):
     vp = torch.randn((n_pages, page, kvh, hd), generator=gen, device="cuda")
     bt = torch.zeros((b, pmax), dtype=torch.int32, device="cuda")
     pos = torch.zeros((b, s), dtype=torch.int32, device="cuda")
-    for lane, st in enumerate(starts):
-        used = -(-(st + s) // page)
+    lanes = [(0, starts[0]), (1, starts[1]), (3, pmax * page - s // 2)]
+    for lane, st in lanes:
+        used = min(pmax, -(-(st + s) // page))
         bt[lane, :used] = torch.randint(1, n_pages, (used,), generator=gen,
                                         device="cuda", dtype=torch.int32)
         pos[lane] = st + torch.arange(s, device="cuda", dtype=torch.int32)
     return (q.to(q_dtype), kp.to(kv_dtype), vp.to(kv_dtype), bt, pos)
 
 
-def check_paged_attention() -> float:
+def _pa_keeps_a_key(pos, table_len, window):
+    """(B, S, 1, 1) bool: the query keeps at least one kv position of
+    its table. One that keeps none (past its table, with a window) has
+    no agreed value in the reference: the Pallas kernel averages V over
+    the pages its lane visits, the oracle (and the port's plain version)
+    over the whole table."""
+    lo = (pos - (window or pos.max().item() + 1) + 1).clamp(min=0)
+    return (lo <= pos.clamp(max=table_len - 1))[:, :, None, None]
+
+
+def check_paged_attention() -> dict:
+    """Each case through both instances (`variant`), against the plain
+    version within PA_TOL; the tile instance on every row, the rows
+    instance on every row that keeps a key (`_pa_keeps_a_key`: the rows
+    instance gives such a row zero or a partial mean). Then the same
+    with the trash page poisoned: no valid lane changes, the idle lane
+    stays finite. Returns the max abs error per instance."""
     import torch
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_ref)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    worst = 0.0
-    n = 0
+    worst = dict.fromkeys(PA_VARIANTS, 0.0)
+    n = dict.fromkeys(PA_VARIANTS, 0)
+    n_blind = 0
     dtypes = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
               (torch.bfloat16, torch.bfloat16)]
     names = {torch.float32: "f32", torch.bfloat16: "bf16"}
-    for page in (4, 8, 16):
-        for hd in (16, 128):
-            for group in (1, 4):
-                for window in (None, 3):
-                    for s in (1, 7, 32):
-                        errs = []
-                        for q_dt, kv_dt in dtypes:
-                            q, kp, vp, bt, pos = _pa_case(
-                                gen, page=page, hd=hd, group=group,
-                                window=window, s=s, q_dtype=q_dt,
-                                kv_dtype=kv_dt)
-                            out = paged_attention(q, kp, vp, bt, pos,
-                                                  window=window)
-                            torch.cuda.synchronize()
-                            ref = paged_attention_ref(q, kp, vp, bt, pos,
-                                                      window=window)
-                            err = (out - ref).abs()
-                            bound = PA_TOL["atol"] + PA_TOL["rtol"] * ref.abs()
-                            if not bool(torch.isfinite(out).all()) or \
-                                    bool((err > bound).any()):
-                                raise AssertionError(
-                                    f"paged_attention disagrees with its "
-                                    f"plain version: page {page} Dh {hd} "
-                                    f"G {group} window {window} S {s} q "
-                                    f"{q_dt} kv {kv_dt}: max err "
-                                    f"{err.max().item():.3e}")
-                            # trash poisoning: valid lanes see none of it,
-                            # the idle lane stays finite
-                            kp2, vp2 = kp.clone(), vp.clone()
-                            kp2[0] = 1e3
-                            vp2[0] = 1e3
-                            out2 = paged_attention(q, kp2, vp2, bt, pos,
-                                                   window=window)
-                            torch.cuda.synchronize()
-                            if not torch.equal(out2[:2], out[:2]) or \
-                                    not bool(torch.isfinite(out2).all()):
-                                raise AssertionError(
-                                    f"trash page leaked into valid lanes: "
-                                    f"page {page} Dh {hd} G {group} window "
-                                    f"{window} S {s}")
-                            errs.append(err.max().item())
-                            n += 1
-                        worst = max(worst, *errs)
-                        log(f"  page {page:2d} Dh {hd:3d} G {group} window "
-                            f"{str(window):4s} S {s:2d} | max err " + " ".join(
-                                f"{names[qd]}/{names[kd]} {e:.2e}"
-                                for (qd, kd), e in zip(dtypes, errs)))
-    log(f"paged_attention: {n} cases within rtol=atol=2e-4 "
-        f"(max abs err {worst:.3e}); trash-poisoned pools change no valid "
-        f"lane")
+    grid = [dict(page=page, hd=hd, group=group, window=window, s=s)
+            for page in (4, 8, 16) for hd in (16, 128) for group in (1, 4)
+            for window in (None, 3)
+            for s in ((1, 7, 32) if group == 1 else (1, 7, 16, 32, 64))]
+    # 2000 keys behind a 32-token chunk: the error stays flat with depth
+    grid += [dict(page=16, hd=128, group=4, window=window, s=32,
+                  starts=[1968, 1000]) for window in (None, 3)]
+    for case in grid:
+        errs = {}
+        for q_dt, kv_dt in dtypes:
+            q, kp, vp, bt, pos = _pa_case(gen, q_dtype=q_dt, kv_dtype=kv_dt,
+                                          **case)
+            window = case["window"]
+            ref = paged_attention_ref(q, kp, vp, bt, pos, window=window)
+            keeps = _pa_keeps_a_key(pos, bt.shape[1] * kp.shape[1], window)
+            kp2, vp2 = kp.clone(), vp.clone()
+            kp2[0] = 1e3
+            vp2[0] = 1e3
+            for variant in PA_VARIANTS:
+                out = paged_attention(q, kp, vp, bt, pos, window=window,
+                                      variant=variant)
+                torch.cuda.synchronize()
+                err = (out - ref).abs()
+                bad = err > PA_TOL["atol"] + PA_TOL["rtol"] * ref.abs()
+                if variant == "rows":
+                    bad &= keeps
+                    err = torch.where(keeps, err, 0.0)
+                if not bool(torch.isfinite(out).all()) or bool(bad.any()):
+                    raise AssertionError(
+                        f"paged_attention ({variant}) disagrees with its "
+                        f"plain version: {case} q {q_dt} kv {kv_dt}: max "
+                        f"err {err.max().item():.3e}")
+                # trash poisoning: valid lanes (0, 1 and 3) see none of
+                # it, the idle lane stays finite
+                out2 = paged_attention(q, kp2, vp2, bt, pos, window=window,
+                                       variant=variant)
+                torch.cuda.synchronize()
+                valid = [0, 1, 3]
+                if not torch.equal(out2[valid], out[valid]) or \
+                        not bool(torch.isfinite(out2).all()):
+                    raise AssertionError(
+                        f"trash page leaked into valid lanes ({variant}): "
+                        f"{case}")
+                errs[variant, q_dt, kv_dt] = err.max().item()
+                worst[variant] = max(worst[variant], errs[variant, q_dt,
+                                                          kv_dt])
+                n[variant] += 1
+            n_blind += int((~keeps).sum().item()) * q.shape[2]
+        log(f"  page {case['page']:2d} Dh {case['hd']:3d} G {case['group']} "
+            f"window {str(case['window']):4s} S {case['s']:2d}"
+            f"{' 2000 keys' if 'starts' in case else ''} | max err " +
+            " | ".join(f"{v} " + " ".join(
+                f"{names[qd]}/{names[kd]} {errs[v, qd, kd]:.2e}"
+                for qd, kd in dtypes) for v in PA_VARIANTS))
+    for v in PA_VARIANTS:
+        log(f"paged_attention ({v}): {n[v]} cases within rtol=atol=2e-4 "
+            f"(max abs err {worst[v]:.3e}); trash-poisoned pools change no "
+            f"valid lane")
+    log(f"  rows that keep no key (past the table, window 3): {n_blind} "
+        f"query-head rows over the cases, held for the tile instance; the "
+        f"rows instance gives them zero or a partial mean, not the plain "
+        f"version's mean over the table (ROADMAP Queue 3)")
     return worst
 
 
@@ -239,11 +283,17 @@ def time_paged_attention(cfg) -> list[dict]:
     """Decode (S=1) and prefill-chunk (S=32) shapes of the qwen3_8b serve
     path: 8 lanes, 288 tokens a lane, page 8, f32 pool, bf16 queries.
     Each call reads another layer's pool (8 layers, 268 MB in all), so
-    the 50 MB L2 holds none of it, as in a forward over 36 layers."""
+    the 50 MB L2 holds none of it, as in a forward over 36 layers. Each
+    shape runs the instance the serve path picks (`kernel_variant`), and
+    the other instance is timed beside it: the rows instance is the
+    prefill chunk's kernel before the tile instance."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_ref)
+    from repro_torch.kernels.paged_attention.paged_attention import (
+        kernel_variant)
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     b, page, n_pages, n_layers, tokens = 8, 8, 512, 8, 288
     pmax = tokens // page + 1
@@ -259,13 +309,18 @@ def time_paged_attention(cfg) -> list[dict]:
     scale = hd ** -0.5
     rows = []
     for label, s in (("decode", 1), ("prefill_chunk", 32)):
+        variant = kernel_variant(h // kvh, s, hd)
         q = torch.randn((b, s, h, hd), generator=gen,
                         device="cuda").to(torch.bfloat16)
         pos = (tokens - s + torch.arange(s, device="cuda",
                                          dtype=torch.int32))[None].repeat(b, 1)
         # the kernel against its plain version at this shape first
+        reset_launch_counts()
         out = paged_attention(q, kp[0], vp[0], bt, pos, scale=scale)
         torch.cuda.synchronize()
+        if launch_counts[f"paged_attention.{variant}"] != 1:
+            raise AssertionError(f"the {label} shape did not run the "
+                                 f"{variant} instance: {dict(launch_counts)}")
         ref = paged_attention_ref(q, kp[0], vp[0], bt, pos, scale=scale)
         err = (out - ref).abs()
         if bool((err > PA_TOL["atol"] + PA_TOL["rtol"] * ref.abs()).any()):
@@ -274,6 +329,10 @@ def time_paged_attention(cfg) -> list[dict]:
                                  f"{err.max().item():.3e}")
         ms = cuda_time_ms(lambda i: paged_attention(
             q, kp[i % n_layers], vp[i % n_layers], bt, pos, scale=scale), 50)
+        other = next(v for v in PA_VARIANTS if v != variant)
+        other_ms = cuda_time_ms(lambda i: paged_attention(
+            q, kp[i % n_layers], vp[i % n_layers], bt, pos, scale=scale,
+            variant=other), 50)
         plain_ms = cuda_time_ms(lambda i: paged_attention_ref(
             q, kp[i % n_layers], vp[i % n_layers], bt, pos, scale=scale), 10)
         # library yardstick: SDPA over the pre-gathered view (the gather
@@ -289,30 +348,47 @@ def time_paged_attention(cfg) -> list[dict]:
         library_ms = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
             qf, kall[i % n_layers], vall[i % n_layers], attn_mask=mask,
             scale=scale, enable_gqa=True), 50)
+        del kall, vall
         # least work these inputs need: each visited K/V row read once
         # (keys 0..max position of the lane), q/tables/positions read
         # once, the f32 context written once; 4*Dh flops per kept key
-        # per query head (q.k and p.v)
+        # per query head (q.k and p.v), priced at the f32 rate of the
+        # CUDA cores and, for the tile instance, at the tf32 tensor
+        # cores' rate times its passes: q.k 1 + (q f32) + (pool f32),
+        # p.v 2 + (pool f32), each pass a full tf32 product
         keys = int(pos[:, -1].sum().item()) + b
         n_bytes = (2 * keys * kvh * hd * kp.element_size()
                    + q.numel() * q.element_size() + bt.numel() * 4
                    + pos.numel() * 4 + b * s * h * hd * 4)
         flops = 4 * hd * h * int((pos.long() + 1).sum().item())
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOPS_PER_S * 1e3
+        t_f32 = flops / F32_FLOPS_PER_S * 1e3
+        qk_passes = 1 + int(q.dtype == torch.float32) + int(
+            kp.dtype == torch.float32)
+        pv_passes = 2 + int(kp.dtype == torch.float32)
+        t_tf32 = (flops / 2 * (qk_passes + pv_passes) / TF32_FLOPS_PER_S
+                  * 1e3)
+        t_ops = t_tf32 if variant == "tile" else t_f32
         bound_ms = max(t_bytes, t_ops)
-        rows.append(dict(
-            shape=label, B=b, S=s, tokens_per_lane=tokens,
+        bound_f32_ms = max(t_bytes, t_f32)
+        row = dict(
+            shape=label, B=b, S=s, tokens_per_lane=tokens, variant=variant,
             max_abs_err=err.max().item(), ms=ms,
+            ms_by_variant={variant: ms, other: other_ms},
             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            bytes=n_bytes, flops=flops))
-        log(f"  {label:13s} B {b} S {s:2d}: max err {err.max().item():.2e} | "
-            f"kernel {ms*1e3:8.2f} us | plain "
-            f"{plain_ms*1e3:8.2f} us | sdpa {library_ms*1e3:8.2f} us | "
-            f"bound {bound_ms*1e3:6.2f} us ({rows[-1]['bound_by']}: "
-            f"{n_bytes/1e6:.1f} MB, {flops/1e9:.3f} GFLOP) | "
-            f"{bound_ms/ms:.1%} of bound")
+            bound_f32_ms=bound_f32_ms, bytes=n_bytes, flops=flops)
+        if variant == "tile":
+            row.update(qk_passes=qk_passes, pv_passes=pv_passes)
+        rows.append(row)
+        log(f"  {label:13s} B {b} S {s:2d} ({variant}): max err "
+            f"{err.max().item():.2e} | kernel {ms*1e3:8.2f} us"
+            + f" ({other} instance {other_ms*1e3:8.2f} us)"
+            + f" | plain {plain_ms*1e3:8.2f} us | sdpa "
+            f"{library_ms*1e3:8.2f} us | bound {bound_ms*1e3:6.2f} us "
+            f"({row['bound_by']}: {n_bytes/1e6:.1f} MB, {flops/1e9:.3f} "
+            f"GFLOP) {bound_ms/ms:.1%} of it | f32 bound "
+            f"{bound_f32_ms*1e3:6.2f} us {bound_f32_ms/ms:.1%} of it")
     del kp, vp
     return rows
 
@@ -792,6 +868,7 @@ def drain(cfg, model, trace, attn_impl: str, policy=None) -> dict:
     m = eng.metrics()
     results = eng.results()
     n_forwards = eng.backend.n_forwards
+    n_prefill_forwards = eng.backend.n_prefill_forwards
     for rid, item in enumerate(trace):
         toks = results[rid]
         if len(toks) != item.max_new_tokens or toks.min() < 0 or \
@@ -803,7 +880,7 @@ def drain(cfg, model, trace, attn_impl: str, policy=None) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return dict(results=results, metrics=m, wall_s=wall, counts=counts,
-                n_forwards=n_forwards)
+                n_forwards=n_forwards, n_prefill_forwards=n_prefill_forwards)
 
 
 def full_width_drain(cfg) -> dict:
@@ -822,6 +899,9 @@ def full_width_drain(cfg) -> dict:
     run = drain(cfg, model, trace, "fused")
     launches = run["counts"].get("paged_attention", 0)
     want = cfg.n_layers * run["n_forwards"]
+    by_variant = {v: run["counts"].get(f"paged_attention.{v}", 0)
+                  for v in PA_VARIANTS}
+    want_tile = cfg.n_layers * run["n_prefill_forwards"]
     m = run["metrics"]
     tok_s = m["n_generated_tokens"] / run["wall_s"]
     log(f"  drained {m['n_done']} requests, {m['n_generated_tokens']} tokens "
@@ -832,13 +912,23 @@ def full_width_drain(cfg) -> dict:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"  paged_attention launches {launches} = {cfg.n_layers} layers x "
         f"{run['n_forwards']} forwards? {launches == want}")
+    log(f"  of them the tile instance {by_variant['tile']} = "
+        f"{cfg.n_layers} layers x {run['n_prefill_forwards']} prefill-chunk "
+        f"forwards? {by_variant['tile'] == want_tile}; the rows instance "
+        f"{by_variant['rows']}")
     if launches != want:
         raise AssertionError(f"paged_attention launched {launches} times, "
                              f"want {want}: the path missed the kernel")
+    if by_variant["tile"] != want_tile or not want_tile or \
+            by_variant["tile"] + by_variant["rows"] != launches:
+        raise AssertionError(f"paged_attention instances {by_variant}: want "
+                             f"the tile instance {want_tile} times (once per "
+                             f"layer of each prefill-chunk forward)")
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(run, tok_s=tok_s, launches=launches)
+    return dict(run, tok_s=tok_s, launches=launches,
+                launches_by_variant=by_variant)
 
 
 def identity_drains(cfg) -> None:
@@ -851,7 +941,9 @@ def identity_drains(cfg) -> None:
     fused = drain(cfg2, model, trace, "fused")
     if gather["counts"]:
         raise AssertionError(f"gather drain launched {gather['counts']}")
-    if fused["counts"].get("paged_attention", 0) != 2 * fused["n_forwards"]:
+    if fused["counts"].get("paged_attention", 0) != 2 * fused["n_forwards"] \
+            or fused["counts"].get("paged_attention.tile", 0) != \
+            2 * fused["n_prefill_forwards"]:
         raise AssertionError(f"fused drain launches {fused['counts']}")
     same = all((gather["results"][r] == fused["results"][r]).all()
                for r in gather["results"])
@@ -1309,14 +1401,14 @@ def main() -> int:
         report = lib.with_suffix('.log').read_text()
         log(f"  ptxas: {ptxas_summary(report)}")
         for name, regs, spill in ptxas_instances(report):
-            if "mma_dot_kernel" in name:
+            if "mma_dot_kernel" in name or "paged_attention_tile" in name:
                 log(f"    {name}: {regs} registers, {spill} bytes spill "
                     f"stores")
                 if spill:
-                    raise AssertionError(f"sc_matmul {name} spills")
+                    raise AssertionError(f"{name} spills")
 
     log("== 3. kernels against their plain versions")
-    max_err = check_paged_attention()
+    pa_err = check_paged_attention()
     n_sc_cases = check_sc_matmul()
     fa_err, n_fa_cases = check_flash_attention()
 
@@ -1356,7 +1448,10 @@ def main() -> int:
                   "paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention/paged_attention.py:58",
         "launches": full["launches"],
-        "max_abs_err": max(max_err, *(r["max_abs_err"] for r in timing)),
+        "launches_by_variant": full["launches_by_variant"],
+        "max_abs_err": max(*pa_err.values(),
+                           *(r["max_abs_err"] for r in timing)),
+        "max_abs_err_by_variant": pa_err,
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
         "library_ms": decode["library_ms"],

@@ -271,7 +271,8 @@ class PagedKVBackend(SequenceBackend):
     writes via the chunk's write_from mask, and a write landing in a
     co-owned page COW-forks it to a private device copy first.
     `n_forwards` counts the step calls (prefill chunks + decode
-    rounds) that ran a model forward.
+    rounds) that ran a model forward, `n_prefill_forwards` the prefill
+    chunks among them.
     """
 
     families = ("dense",)
@@ -294,6 +295,7 @@ class PagedKVBackend(SequenceBackend):
         # matches, invalidated when the index mutates or on release
         self._match_memo: dict[int, tuple[int, int, list[int]]] = {}
         self.n_forwards = 0
+        self.n_prefill_forwards = 0
 
     # -- admission ----------------------------------------------------------
 
@@ -503,6 +505,7 @@ class PagedKVBackend(SequenceBackend):
             self._dev(active), self._dev(wfrom))
         self.cache.kv = kv
         self.n_forwards += 1
+        self.n_prefill_forwards += 1
         for req, n in chunks:
             old_seq = req.seq_len
             req.prefill_pos += n

@@ -170,3 +170,17 @@ def test_unported_families_and_policies_are_refused():
         ServeEngine(cfg, params=model,
                     policy=ArithmeticPolicy("artemis", sigma_analog=0.01),
                     device="cpu")
+
+
+@pytest.mark.parametrize("name", sorted(TRACES))
+def test_backend_counts_prefill_forwards(name):
+    """`n_prefill_forwards` counts the step calls that ran a prefill
+    chunk (a mixed step runs one of each), the rest of `n_forwards` the
+    decode forwards: the chip smoke holds the paged_attention tile
+    instance's launches to layers x prefill forwards."""
+    eng = _drain_port(name, "fused")
+    steps = [e for e in eng.events if hasattr(e, "chunks")]
+    n_chunk = sum(1 for e in steps if e.chunks)
+    n_decode = sum(1 for e in steps if e.decode_rids)
+    assert eng.backend.n_prefill_forwards == n_chunk > 0
+    assert eng.backend.n_forwards == n_chunk + n_decode
