@@ -15,15 +15,17 @@ without printing a result:
   3. hold each kernel against its plain PyTorch version on the card
      over a grid of cases, with the tolerance stated per kernel
      (paged_attention through both its instances, rows and tile, on
-     every case: ragged row counts, chunks past their table, a table of
-     2000 keys; sc_matmul's integer dots also at the edges of their
-     tiles, splits and int32 range);
+     every case and every row: ragged row counts, chunks past their
+     table and rows that keep no key, a table of 2000 keys; sc_matmul's
+     integer dots also at the edges of their tiles, splits and int32
+     range, its artemis path at the edges of its K split and windows and
+     on operands of -128);
   4. at the full-width qwen3_8b shapes of the serve paths, hold each
      kernel against its plain version once more, then time it beside
      its plain version, its bound and one library call (paged_attention
      at a prefill chunk: also its rows instance and the f32 bound;
      sc_matmul int8: the ratio to torch._int_mm; artemis_mxu: the ratio
-     to int8);
+     to int8; artemis: the device time of each of its kernels);
   5. drain the paged-KV engine at the full qwen3_8b width (36 layers,
      bf16, attn_impl="fused") with seeded random weights, with every
      launch count zeroed just before and read just after: each kernel
@@ -81,11 +83,15 @@ F32_FLOPS_PER_S = 67e12          # f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12        # bf16 tensor cores, dense, f32 sums
 TF32_FLOPS_PER_S = 495e12        # tf32 tensor cores, dense, f32 sums
 INT8_OPS_PER_S = 1979e12         # int8 tensor cores, dense
-# integer issue of the CUDA cores: 132 SMs x 64 INT32 lanes x 1.98 GHz
-INT32_INSTR_PER_S = 132 * 64 * 1.98e9
-# sc_matmul's artemis inner loop: 6 integer instructions per pair of
-# products (one IMAD, one shift, two LOP3 masks, two adds)
-ARTEMIS_INSTR_PER_PRODUCT = 3
+# instruction issue of the CUDA cores: 132 SMs x 4 schedulers x 32 lanes
+# x 1.98 GHz (the integer ALU pipe and the FMA pipe, where IMAD runs, are
+# 64 lanes each)
+INSTR_ISSUE_PER_S = 132 * 128 * 1.98e9
+# the least integer instructions of sc_matmul's artemis inner loop: per
+# pair of products (one k, two columns in 16-bit lanes) one IMAD, one PRMT
+# that floors both, one LOP3 that routes the negative ones and one IADD3
+# (two k added at once); the kernel issues 2.25, an IMAD for some adds
+ARTEMIS_INSTR_PER_PRODUCT = 2
 
 PA_TOL = dict(rtol=2e-4, atol=2e-4)   # f32 sums in another order, over
 #                                        up to a few hundred keys
@@ -185,19 +191,18 @@ def _pa_keeps_a_key(pos, table_len, window):
     """(B, S, 1, 1) bool: the query keeps at least one kv position of
     its table. One that keeps none (past its table, with a window) has
     no agreed value in the reference: the Pallas kernel averages V over
-    the pages its lane visits, the oracle (and the port's plain version)
-    over the whole table."""
+    the pages its lane visits, the oracle (and the port's plain version,
+    and both instances of the kernel) over the whole table."""
     lo = (pos - (window or pos.max().item() + 1) + 1).clamp(min=0)
     return (lo <= pos.clamp(max=table_len - 1))[:, :, None, None]
 
 
 def check_paged_attention() -> dict:
     """Each case through both instances (`variant`), against the plain
-    version within PA_TOL; the tile instance on every row, the rows
-    instance on every row that keeps a key (`_pa_keeps_a_key`: the rows
-    instance gives such a row zero or a partial mean). Then the same
-    with the trash page poisoned: no valid lane changes, the idle lane
-    stays finite. Returns the max abs error per instance."""
+    version within PA_TOL on every row, those that keep no key
+    (`_pa_keeps_a_key`) included. Then the same with the trash page
+    poisoned: no valid lane changes, the idle lane stays finite. Returns
+    the max abs error per instance."""
     import torch
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_ref)
@@ -233,9 +238,6 @@ def check_paged_attention() -> dict:
                 torch.cuda.synchronize()
                 err = (out - ref).abs()
                 bad = err > PA_TOL["atol"] + PA_TOL["rtol"] * ref.abs()
-                if variant == "rows":
-                    bad &= keeps
-                    err = torch.where(keeps, err, 0.0)
                 if not bool(torch.isfinite(out).all()) or bool(bad.any()):
                     raise AssertionError(
                         f"paged_attention ({variant}) disagrees with its "
@@ -268,9 +270,8 @@ def check_paged_attention() -> dict:
             f"(max abs err {worst[v]:.3e}); trash-poisoned pools change no "
             f"valid lane")
     log(f"  rows that keep no key (past the table, window 3): {n_blind} "
-        f"query-head rows over the cases, held for the tile instance; the "
-        f"rows instance gives them zero or a partial mean, not the plain "
-        f"version's mean over the table (ROADMAP Queue 3)")
+        f"query-head rows over the cases, held for both instances (the "
+        f"plain version's mean of V over the table)")
     return worst
 
 
@@ -439,6 +440,14 @@ def _sc_compare(a, b, label, **kw):
 SC_DOT_MS = (1, 8, 15, 16, 17, 255, 256, 257)
 SC_DOT_KNS = ((31, 45), (32, 16), (33, 130), (127, 200), (128, 128),
               (129, 257), (12288, 136))
+# artemis's edges at depth 20: M on both sides of the split at 16 (scratch
+# and a scan kernel at or below, the scan in the block above) and of its
+# 8- and 32-row tiles; K one group, a window of groups (4 at decode, 8
+# above) less and more one group, and 12288 with a ragged last group; N
+# below, across and past the 256- and 64-column tiles
+SC_ART_MS = (1, 8, 9, 37, 256)
+SC_ART_KS = (20, 60, 100, 140, 180, 12288 + 13)
+SC_ART_NS = (4, 36, 1028)
 
 
 def _sc_extreme(gen, m, k, n):
@@ -502,18 +511,62 @@ def check_sc_matmul() -> int:
         f"{SC_DOT_MS}, K x N in {SC_DOT_KNS}, int8 and artemis_mxu at "
         f"rbar 63.5 and 60.25; all-extreme operands at K 12288 with dots "
         f"of +-12288 * 127**2 and 12288 * 128**2)")
-    return n + n_dot
+    return n + n_dot + check_sc_artemis_edges(gen)
+
+
+def check_sc_artemis_edges(gen) -> int:
+    """artemis at the edges of its K split (SC_ART_MS x SC_ART_KS x
+    SC_ART_NS at depth 20, readout 8 and ideal), at depths 1 and 128,
+    and on the all-extreme operands with their row of -128 and column of
+    -128 (floor(128 * 128 / 128) = 128 in a product's 8 bits), on both
+    sides of the split at M 16; bit-equal to the plain version."""
+    variants = [dict(mode="artemis", acc_depth=20, readout_bits=r)
+                for r in (8, None)]
+    n = 0
+    for m in SC_ART_MS:
+        for k in SC_ART_KS:
+            for nn in SC_ART_NS:
+                a, b = _int8(gen, m, k), _int8(gen, k, nn)
+                for kw in variants:
+                    _sc_compare(a, b, f"M {m} K {k} N {nn}", **kw)
+                    n += 1
+    for m in (8, 37):
+        a, b = _int8(gen, m, 1000), _int8(gen, 1000, 36)
+        for kw in (dict(acc_depth=1, readout_bits=8),
+                   dict(acc_depth=128, readout_bits=12)):
+            _sc_compare(a, b, f"M {m} K 1000 N 36", mode="artemis", **kw)
+            n += 1
+    n_grid = n
+    for m in (8, 17):
+        a, b = _sc_extreme(gen, m, 12288, 136)
+        for kw in (dict(acc_depth=20, readout_bits=8),
+                   dict(acc_depth=20, readout_bits=None),
+                   dict(acc_depth=128, readout_bits=None)):
+            out = _sc_compare(a, b, f"extreme M {m} K 12288 N 136",
+                              mode="artemis", **kw)
+            n += 1
+            if kw["readout_bits"] is None and \
+                    out[1, 2].item() != 12288 * 128:
+                raise AssertionError("sc_matmul artemis: a row of -128 "
+                                     "against a column of -128 does not "
+                                     "give 12288 products of 128")
+    log(f"sc_matmul: {n_grid} artemis split-edge cases bit-equal (M in "
+        f"{SC_ART_MS}, K in {SC_ART_KS}, N in {SC_ART_NS}, depth 20 at "
+        f"readout 8 and ideal; depths 1 and 128), and {n - n_grid} on "
+        f"all-extreme operands with -128 rows and columns (M 8 and 17, K "
+        f"12288)")
+    return n
 
 
 def _sc_bound(mode, m, k, n):
     """(bound ms, bound_by, bytes, ops): each input read once, the
     output written once; int8 dots at the tensor cores' int8 rate, the
     artemis products at ARTEMIS_INSTR_PER_PRODUCT integer instructions
-    each at the CUDA cores' integer issue rate."""
+    each at the CUDA cores' instruction issue rate."""
     n_bytes = m * k + k * n + 4 * m * n
     if mode == "artemis":
         ops = m * k * n * ARTEMIS_INSTR_PER_PRODUCT
-        t_ops = ops / INT32_INSTR_PER_S * 1e3
+        t_ops = ops / INSTR_ISSUE_PER_S * 1e3
     else:
         ops = 2 * m * k * n * (2 if mode == "artemis_mxu" else 1)
         t_ops = ops / INT8_OPS_PER_S * 1e3
@@ -541,9 +594,9 @@ def _graph_ms(fn, n_calls=20, replays=5):
     fn(0)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    # relaxed: the artemis launch sets its kernel's shared-memory limit
-    # on every call, which a global-mode capture may refuse
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+    # global mode: every launch sets its kernels up at its first call on
+    # the device (fn(0) above), so nothing in a captured call may sync
+    with torch.cuda.graph(graph):
         for i in range(n_calls):
             fn(i)
     graph.replay()
@@ -557,6 +610,26 @@ def _graph_ms(fn, n_calls=20, replays=5):
     ms = start.elapsed_time(stop) / (replays * n_calls)
     del graph
     return ms
+
+
+def _kernel_us(fn, n_calls=10) -> dict:
+    """Mean device µs per call of each kernel fn(i) launches, by name,
+    from a profile of n_calls calls after one warm-up call."""
+    import torch
+    fn(0)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(n_calls):
+            fn(i)
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if evt.self_device_time_total > 0:
+            found = re.search(r"\w*kernel\w*", evt.key)
+            name = found.group(0) if found else evt.key[:40]
+            out[name] = out.get(name, 0.0) + evt.self_device_time_total / n_calls
+    return out
 
 
 def time_sc_matmul() -> list[dict]:
@@ -605,6 +678,9 @@ def time_sc_matmul() -> list[dict]:
                            plain_ms=plain_ms,
                            library_ms=library_ms, bound_ms=bound_ms,
                            bound_by=bound_by, bytes=n_bytes, ops=ops)
+                if mode == "artemis":   # products and (decode) the scan
+                    row["kernel_us"] = _kernel_us(lambda i: sc_matmul_quantized(
+                        a, bs[i % copies], mode=mode))
                 lib_txt = ""
                 if library_ms is not None:
                     row["library_ratio"] = ms / library_ms
@@ -616,6 +692,10 @@ def time_sc_matmul() -> list[dict]:
                     row["device_over_int8"] = device_ms / int8["device_ms"]
                     lib_txt = (f" | {ms / int8['ms']:.2f}x int8 (device "
                                f"{device_ms / int8['device_ms']:.2f}x)")
+                if "kernel_us" in row:
+                    lib_txt = " | " + ", ".join(
+                        f"{name} {us:.2f} us"
+                        for name, us in row["kernel_us"].items())
                 rows.append(row)
                 log(f"  {mode:11s} {label:13s} M {m:3d} K {k:5d} N {n:5d}:"
                     f" kernel {ms*1e3:9.2f} us (device {device_ms*1e3:8.2f})"
@@ -1219,7 +1299,8 @@ PROFILE_SCOPES = ("sc_matmul", "quantize", "int_einsum", "quant_einsum",
                   "artemis_matmul")
 GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::matmul",
             "aten::baddbmm")
-SC_KERNEL_NAMES = ("dot_kernel", "artemis_kernel", "mxu_epilogue")
+SC_KERNEL_NAMES = ("dot_kernel", "artemis_kernel", "artemis_scan_kernel",
+                   "mxu_epilogue")
 
 
 @contextlib.contextmanager
@@ -1401,7 +1482,8 @@ def main() -> int:
         report = lib.with_suffix('.log').read_text()
         log(f"  ptxas: {ptxas_summary(report)}")
         for name, regs, spill in ptxas_instances(report):
-            if "mma_dot_kernel" in name or "paged_attention_tile" in name:
+            if any(k in name for k in ("mma_dot_kernel", "artemis_kernel",
+                                       "paged_attention_tile")):
                 log(f"    {name}: {regs} registers, {spill} bytes spill "
                     f"stores")
                 if spill:

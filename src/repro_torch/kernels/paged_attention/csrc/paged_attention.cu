@@ -37,7 +37,8 @@
 //   * the block reads its own block table and positions and walks only
 //     the kv positions its rows can see: [first row's p - window + 1,
 //     last row's p], clipped to the table (positions are monotone within
-//     a row), never all Pmax pages;
+//     a row), never all Pmax pages unless a row keeps no key (then the
+//     whole table, as the plain version averages it);
 //   * keys go through shared memory 32 at a time, staged as f32 with
 //     16-byte loads; each warp owns up to 4 query rows and keeps their
 //     running m, l and o[Dh] in registers: lane j scores key j, then the
@@ -156,11 +157,18 @@ paged_attention_kernel(const QT* __restrict__ q,
   __syncthreads();
 
   // kv positions any row of this tile can keep (rows are in position
-  // order): [q_lo - window + 1, q_hi], inside the table's Pmax * page.
+  // order): [q_lo - window + 1, q_hi], inside the table's Pmax * page. A
+  // row that keeps no key at all (past the table, with a window) averages
+  // V over the whole table, as the plain version's softmax over all -1e30
+  // does, so such a tile walks it all; its other rows' masked keys are
+  // wiped by their first kept key (alpha = 0).
   const int q_lo = pos_s[0];
   const int q_hi = pos_s[n_rows - 1];
-  const int t_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
-  const int t_end = min(q_hi, pmax * page - 1);
+  const int table_end = pmax * page - 1;
+  const bool any_blind = window > 0 && q_hi - window + 1 > table_end;
+  const int t_begin =
+      window > 0 && !any_blind ? max(0, q_lo - window + 1) : 0;
+  const int t_end = min(q_hi, table_end);
 
   float m[kRowsPerWarp], l[kRowsPerWarp], o[kRowsPerWarp][DV];
 #pragma unroll
@@ -234,7 +242,8 @@ paged_attention_kernel(const QT* __restrict__ q,
       }
       const float m_new = fmaxf(m[i], warp_max(sc));
       const float alpha = expf(m[i] - m_new);
-      const float pr = expf(sc - m_new);
+      // keys past the table count for no row (not even one that keeps none)
+      const float pr = t <= t_end ? expf(sc - m_new) : 0.f;
       l[i] = l[i] * alpha + warp_sum(pr);
       m[i] = m_new;
 #pragma unroll

@@ -45,29 +45,38 @@
 //     second accumulator (A's from a tile signed once per stage, B's from
 //     its fragments) and finishes in a small epilogue kernel.
 //   artemis: instruction issue. Every product is a multiply, a floor
-//     and a signed accumulate that no tensor core does. Two columns
-//     share one 32-bit register in 16-bit lanes, so one IMAD forms two
-//     products; a shift and a mask floor both; one LOP3 against the
-//     sign masks routes the negative ones: 3 integer instructions per
-//     product. The group readout is a lookup in a shared-memory table
-//     of the levels of all acc_depth * 127 + 1 possible sums, built once
-//     per block with the exact f32 arithmetic. The f32 group scan is sequential
-//     per output, so K cannot be split: small grids (decode) take small
-//     tiles for more blocks.
-// Later work: wgmma with TMA and a producer warp for the dot, and an
-// artemis split over K that scans the exact group sums in order.
+//     and a signed accumulate that no tensor core does. Two columns share
+//     one 32-bit register in 16-bit lanes and A's magnitude is doubled, so
+//     one IMAD forms two products, one PRMT floors both (the lanes' high
+//     bytes), one LOP3 against the sign masks routes the negative ones,
+//     and the sums take an IADD3 for two k of negative ones and an IMAD a
+//     k of all ones: 2.25 integer instructions a product, 1.25 of them on
+//     the integer ALU pipe that bounds the loop, the IMADs on the FMA pipe.
+//     Each MOMCAP group's sums are exact integers, so any warp or block may
+//     form any group's sums in any order: K is split over the slices
+//     (warps) of a block and, at decode, over blocks, and only the readouts
+//     and the f32 scan run in group order, per output. A block stages a
+//     window of consecutive groups (A and B by 16-byte cp.async, the next
+//     window landing while this one is in use), each slice forms one
+//     group's sums, and then either the block scans the window's sums from
+//     shared memory in order (M > 16), or (decode) every group's sums go
+//     to scratch and a second, small kernel scans them, so that even N =
+//     1024 fills the card. The readout is a lookup in a table of the
+//     levels of all acc_depth * 128 + 1 possible sums, built once per
+//     device by the wrapper with the exact f32 arithmetic.
+// Later work: wgmma with TMA and a producer warp for the dot.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
 constexpr int kModeInt8 = 0;
 constexpr int kModeMxu = 1;
 constexpr int kModeArtemis = 2;
-constexpr int kBK = 32;                      // k per shared-memory tile
-constexpr int kMaxAccDepth = 128;            // 16-bit lanes, table size
-constexpr uint32_t kLaneMask = 0x007F007Fu;  // one product per 16-bit lane
+constexpr int kMaxAccDepth = 128;  // 16-bit lanes, table size
 
 // T consecutive 32-bit words from shared memory (16-byte aligned when T
 // is a multiple of 4, 8-byte aligned when it is even).
@@ -158,13 +167,19 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Per-byte sign of four packed int8 (+1, 0 or -1 in each byte): prmt's
-// sign-replicating selectors (0x8-0xB) give 0xFF in each negative byte;
-// bit 7 of (u & 0x7F..) + 0x7F.. is set in each byte whose low 7 bits are
-// not all 0, which in a byte that is not negative makes it positive.
+// 0xFF in each negative byte of four packed int8, 0 elsewhere: prmt's
+// sign-replicating selectors (0x8-0xB)
+__device__ __forceinline__ uint32_t negative_bytes(uint32_t u) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, 0, 0xBA98;" : "=r"(r) : "r"(u));
+  return r;
+}
+
+// Per-byte sign of four packed int8 (+1, 0 or -1 in each byte): bit 7 of
+// (u & 0x7F..) + 0x7F.. is set in each byte whose low 7 bits are not all
+// 0, which in a byte that is not negative makes it positive.
 __device__ __forceinline__ uint32_t sign_bytes(uint32_t u) {
-  uint32_t neg;
-  asm("prmt.b32 %0, %1, 0, 0xBA98;" : "=r"(neg) : "r"(u));
+  const uint32_t neg = negative_bytes(u);
   const uint32_t low = (u & 0x7F7F7F7Fu) + 0x7F7F7F7Fu;
   return neg | ((low >> 7) & 0x01010101u);
 }
@@ -393,8 +408,38 @@ __global__ void mxu_epilogue(const int* __restrict__ value,
 }
 
 // ---------------------------------------------------------------------------
-// artemis: MOMCAP groups on the CUDA cores
+// artemis: MOMCAP groups on the CUDA cores, K split over warps and blocks
 // ---------------------------------------------------------------------------
+
+constexpr int kArtTile = 8;         // a thread's outputs: 8 rows x 8 columns
+constexpr int kArtKGranule = 16;    // the wrapper pads K to 16-byte A rows
+constexpr int kArtMaxWindow = 160;  // k rows a block stages per window
+constexpr int kArtSplitMaxM = 16;   // M up to which the groups' sums meet
+                                    // in scratch (else in shared memory)
+
+// Two products floor(|a||b| / 128) at once. am = 2|a| (at most 256) and
+// bm = |b0| | |b1| << 16 (each at most 128), so am * bm = 2|a||b0| +
+// (2|a||b1| << 16) with both halves below 2^16 and no carry between them,
+// and the floors are the halves' high bytes: (x >> 8) & 0x00FF00FF, one
+// PRMT. Eight bits of floor hold 128 * 128 / 128 = 128.
+__device__ __forceinline__ uint32_t floor_pair(uint32_t am, uint32_t bm) {
+  return __byte_perm(am * bm, 0u, 0x4341);
+}
+
+// One word of B (int8 columns c..c+3 of one k) as the column pairs (c,
+// c+2) and (c+1, c+3): magnitudes in 16-bit lanes, and masks that are
+// 0xFF in the low byte of each lane whose column is negative.
+__device__ __forceinline__ void b_pairs(uint32_t x, uint32_t& m02,
+                                        uint32_t& m13, uint32_t& n02,
+                                        uint32_t& n13) {
+  const uint32_t s = negative_bytes(x);
+  // |b| bytewise, ~b + 1 where negative: -128 gives 0x80, no carry out
+  const uint32_t mag = (x ^ s) + (s & 0x01010101u);
+  m02 = __byte_perm(mag, 0u, 0x4240);
+  m13 = __byte_perm(mag, 0u, 0x4341);
+  n02 = s;       // bytes 0 and 2: columns c and c + 2
+  n13 = s >> 8;  // bytes 0 and 2: columns c + 1 and c + 3
+}
 
 // One group's NSC step: acc + pos_r - neg_r (levels times delta, fused).
 __device__ __forceinline__ float readout_step(float acc, float pos, float neg,
@@ -403,140 +448,291 @@ __device__ __forceinline__ float readout_step(float acc, float pos, float neg,
   return __fmaf_rn(-neg, delta, __fmaf_rn(pos, delta, acc));
 }
 
-template <int BM, int BN, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
+// k rows kk (and kk + 1 when kTwo) of a thread's 8 x 8 tile: tot gathers
+// every floor product, neg the ones of negative sign, both in the 16-bit
+// lanes of the column pairs (a group sums to at most 128 * 128). neg adds
+// two k at once (one IADD3); tot adds each k with an IMAD by `one` (1 at
+// run time, so not folded into an add), which issues on the FMA pipe
+// beside the IMAD of the products, sparing the integer ALU pipe (PRMT,
+// LOP3, IADD3) that bounds the loop.
+template <bool kTwo, int BM, int BN>
+__device__ __forceinline__ void artemis_rows(const uint8_t* br,
+                                             const uint32_t* am_p,
+                                             const uint32_t* an_p,
+                                             uint32_t one,
+                                             uint32_t (&tot)[kArtTile][4],
+                                             uint32_t (&neg)[kArtTile][4]) {
+  constexpr int NK = kTwo ? 2 : 1;
+  uint32_t am[NK][kArtTile], an[NK][kArtTile], bm[NK][4], bn[NK][4];
+#pragma unroll
+  for (int q = 0; q < NK; ++q) {
+    const uint2 b = *reinterpret_cast<const uint2*>(br + q * BN);
+    b_pairs(b.x, bm[q][0], bm[q][1], bn[q][0], bn[q][1]);
+    b_pairs(b.y, bm[q][2], bm[q][3], bn[q][2], bn[q][3]);
+    load_words<kArtTile>(am_p + q * BM, am[q]);
+    load_words<kArtTile>(an_p + q * BM, an[q]);
+  }
+#pragma unroll
+  for (int i = 0; i < kArtTile; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t y0 = floor_pair(am[0][i], bm[0][j]);
+      tot[i][j] = y0 * one + tot[i][j];
+      if constexpr (kTwo) {
+        const uint32_t y1 = floor_pair(am[1][i], bm[1][j]);
+        tot[i][j] = y1 * one + tot[i][j];
+        neg[i][j] += (y0 & (an[0][i] ^ bn[0][j])) +
+                     (y1 & (an[1][i] ^ bn[1][j]));
+      } else {
+        neg[i][j] += y0 & (an[0][i] ^ bn[0][j]);
+      }
+    }
+}
+
+// Shared memory of a block at a window of wk k rows, in bytes, each part
+// a multiple of 16: two raw A tiles and two raw B tiles (cp.async lands
+// window w + 1 while window w is in use), A as words, then, for the scan
+// in the block, a window's group sums and the readout table.
+struct ArtLayout {
+  int a_stride, a_raw, b_raw, a_words, sums, table, bytes;
+  __host__ __device__ ArtLayout(int bm, int bn, int ks, int wk, int table_len,
+                                bool split) {
+    a_stride = (wk + 15) / 16 * 16 + 16;  // the window from a 16-byte start
+    a_raw = 0;
+    b_raw = a_raw + 2 * bm * a_stride;
+    a_words = b_raw + 2 * wk * bn;
+    sums = a_words + 2 * wk * bm * 4;
+    table = sums + (split ? 0 : ks * bm * bn * 4);
+    bytes = table + (split ? 0 : (table_len * 4 + 15) / 16 * 16);
+  }
+};
+
+// Each block: a BM x BN output tile (RM x CN threads a slice, 8 x 8
+// outputs each) over the groups of its split (blockIdx.z), in windows of
+// `slices` consecutive groups, one group per slice of KS. A slice forms
+// its group's exact sums; they are integers, so the slices may form them
+// in any order. Then only the readouts and the f32 scan run in group
+// order: kSplit writes every group's sums (pos | neg << 16 per output) to
+// `sums` ((groups, M, N)) for artemis_scan_kernel; otherwise the block
+// itself scans each window's sums from shared memory, in order, after a
+// barrier.
+template <int RM, int CN, int KS, bool kSplit>
+__global__ void __launch_bounds__(KS * RM * CN)
     artemis_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
-                   float* __restrict__ out, int M, int N, int K,
-                   int acc_depth, int readout_bits, float levels,
-                   float delta) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  constexpr int BP = BN / 2, TP = TN / 2;  // column pairs: block, thread
-  __shared__ __align__(16) uint32_t Am[kBK][BM];  // |a|
-  __shared__ __align__(16) uint32_t An[kBK][BM];  // kLaneMask where a < 0
-  __shared__ __align__(16) uint32_t Bm[kBK][BP];  // |b0| | |b1| << 16
-  __shared__ __align__(16) uint32_t Bn[kBK][BP];  // 0x7f per lane with b < 0
-  extern __shared__ float table[];  // level of each group sum 0..full scale
+                   float* __restrict__ out, uint32_t* __restrict__ sums,
+                   const float* __restrict__ table, int M, int N, int K,
+                   int depth, int slices, int groups_per_split, float delta,
+                   int ideal, uint32_t one) {
+  constexpr int T0 = RM * CN, T = KS * T0;
+  constexpr int BM = kArtTile * RM, BN = kArtTile * CN;
+  constexpr int kPer = kSplit ? 1 : BM * BN / T;  // outputs a thread scans
+  static_assert(T0 % 32 == 0 && (BM * BN) % T == 0, "whole warps, outputs");
+  const int groups = (K + depth - 1) / depth;
+  const int wk = slices * depth;
+  const int table_len = depth * 128 + 1;
+  const ArtLayout lay(BM, BN, KS, wk, table_len, kSplit);
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint32_t* const a_mag = reinterpret_cast<uint32_t*>(smem + lay.a_words);
+  uint32_t* const a_neg = a_mag + wk * BM;
+  uint32_t* const s_sums = reinterpret_cast<uint32_t*>(smem + lay.sums);
+  float* const s_table = reinterpret_cast<float*>(smem + lay.table);
 
   const int tid = threadIdx.x;
-  const int full_scale = acc_depth * 127;
-  const bool ideal = readout_bits < 0;
-  for (int x = tid; x <= full_scale; x += NT) {
-    const float v = __int2float_rn(x);
-    table[x] = ideal ? v
-                     : fminf(fmaxf(rintf(__fdiv_rn(v, delta)), 0.0f), levels);
-  }  // published by the first tile's __syncthreads
-
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
+  const int slice = tid / T0, rm = (tid % T0) / CN, cn = tid % CN;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  // per column pair, two 16-bit lanes: the group's sum of all products
-  // and of the negative ones (positive = all - negative)
-  uint32_t tot[TM][TP], neg[TM][TP];
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-#pragma unroll
-    for (int j = 0; j < TP; ++j) tot[i][j] = neg[i][j] = 0u;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-  }
+  const int g_begin = blockIdx.z * groups_per_split;
+  const int g_end = min(groups, g_begin + groups_per_split);
+  const int windows = (g_end - g_begin + slices - 1) / slices;
+  if (!kSplit)  // published by the first window's barriers
+    for (int i = tid; i < table_len; i += T) s_table[i] = table[i];
 
-  int left = acc_depth;  // products left in the current group
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int i = tid; i < BM * kBK; i += NT) {
-      const int r = i / kBK, kk = i % kBK;
-      const int m = m0 + r, k = k0 + kk;
-      const int a = (m < M && k < K) ? (int)A[(size_t)m * K + k] : 0;
-      Am[kk][r] = (uint32_t)abs(a);
-      An[kk][r] = a < 0 ? kLaneMask : 0u;
+  // window w's raw tiles: A rows from the 16-byte boundary at or before
+  // its first k, B rows whole; K and N are multiples of 16, so a 16-byte
+  // chunk is all in or all out (zero-filled: the ragged last group)
+  auto stage = [&](int w) {
+    const int k0 = (g_begin + w * slices) * depth, a0 = k0 & ~15;
+    const uint32_t as =
+        smem_addr(smem + lay.a_raw) + (w & 1) * BM * lay.a_stride;
+    const int a_chunks = lay.a_stride / 16;
+    for (int i = tid; i < BM * a_chunks; i += T) {
+      const int r = i / a_chunks, c = i % a_chunks;
+      const int m = m0 + r, k = a0 + 16 * c;
+      const bool in = m < M && k < K;
+      cp_async16(as + r * lay.a_stride + 16 * c,
+                 in ? A + (size_t)m * K + k : A, in);
     }
-    for (int i = tid; i < kBK * BP; i += NT) {
-      const int kk = i / BP, p = i % BP;
-      const int k = k0 + kk, n = n0 + 2 * p;
-      int b0 = 0, b1 = 0;
-      if (k < K && n < N) {  // N is even
-        const char2 v = *reinterpret_cast<const char2*>(B + (size_t)k * N + n);
-        b0 = v.x;
-        b1 = v.y;
+    const uint32_t bs = smem_addr(smem + lay.b_raw) + (w & 1) * wk * BN;
+    for (int i = tid; i < wk * (BN / 16); i += T) {
+      const int r = i / (BN / 16), c = i % (BN / 16);
+      const int k = k0 + r, n = n0 + 16 * c;
+      const bool in = k < K && n < N;
+      cp_async16(bs + r * BN + 16 * c, in ? B + (size_t)k * N + n : B, in);
+    }
+  };
+
+  float acc[kPer];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) acc[q] = 0.0f;
+
+  stage(0);
+  cp_async_commit();
+  for (int w = 0; w < windows; ++w) {
+    if (w + 1 < windows) stage(w + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of window w landed
+    __syncthreads();     // everyone's; window w - 1 is consumed
+    {  // A as words, [k][m]: 2|a| and the sign mask, once per block
+      const int k0 = (g_begin + w * slices) * depth;
+      const uint8_t* ar =
+          smem + lay.a_raw + (w & 1) * BM * lay.a_stride + (k0 & 15);
+      for (int i = tid; i < wk * BM; i += T) {
+        const int a = static_cast<int8_t>(ar[(i % BM) * lay.a_stride + i / BM]);
+        a_mag[i] = 2u * static_cast<uint32_t>(abs(a));
+        a_neg[i] = a < 0 ? 0xFFFFFFFFu : 0u;
       }
-      Bm[kk][p] = (uint32_t)abs(b0) | ((uint32_t)abs(b1) << 16);
-      Bn[kk][p] = (b0 < 0 ? 0x7Fu : 0u) | (b1 < 0 ? 0x7F0000u : 0u);
     }
     __syncthreads();
-    const int kt = min(kBK, K - k0);
-    for (int kk = 0; kk < kt; ++kk) {
-      uint32_t am[TM], an[TM], bm[TP], bn[TP];
-      load_words<TM>(&Am[kk][ty * TM], am);
-      load_words<TM>(&An[kk][ty * TM], an);
-      load_words<TP>(&Bm[kk][tx * TP], bm);
-      load_words<TP>(&Bn[kk][tx * TP], bn);
+    const int g = g_begin + w * slices + slice;
+    if (slice < slices && g < g_end) {
+      uint32_t tot[kArtTile][4], neg[kArtTile][4];
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < kArtTile; ++i)
 #pragma unroll
-        for (int j = 0; j < TP; ++j) {
-          // two products, 14 bits each, in their lanes; >> 7 floors both
-          // (the low lane takes 7 stray bits of the high one, masked off)
-          const uint32_t y = (am[i] * bm[j]) >> 7;
-          tot[i][j] += y & kLaneMask;
-          neg[i][j] += y & (an[i] ^ bn[j]);
+        for (int j = 0; j < 4; ++j) tot[i][j] = neg[i][j] = 0u;
+      const uint8_t* br =
+          smem + lay.b_raw + (w & 1) * wk * BN + kArtTile * cn;
+      const int kb = slice * depth, ke = kb + depth;
+      int kk = kb;
+      for (; kk + 1 < ke; kk += 2)
+        artemis_rows<true, BM, BN>(br + kk * BN, a_mag + kk * BM + 8 * rm,
+                                   a_neg + kk * BM + 8 * rm, one, tot, neg);
+      if (kk < ke)
+        artemis_rows<false, BM, BN>(br + kk * BN, a_mag + kk * BM + 8 * rm,
+                                    a_neg + kk * BM + 8 * rm, one, tot, neg);
+      // one word per output, pos | neg << 16, in column order: pair j
+      // holds columns (c, c + 2) or (c + 1, c + 3) of its 4-column word
+#pragma unroll
+      for (int i = 0; i < kArtTile; ++i) {
+        const int r = kArtTile * rm + i;
+        uint32_t lo[4], hi[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t pos = tot[i][j] - neg[i][j];
+          lo[j] = __byte_perm(pos, neg[i][j], 0x5410);
+          hi[j] = __byte_perm(pos, neg[i][j], 0x7632);
         }
-      if (--left == 0) {  // the group is complete: read it out
-        left = acc_depth;
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TP; ++j) {
-            const uint32_t n_lo = neg[i][j] & 0xFFFFu, n_hi = neg[i][j] >> 16;
-            const uint32_t p_lo = (tot[i][j] & 0xFFFFu) - n_lo;
-            const uint32_t p_hi = (tot[i][j] >> 16) - n_hi;
-            acc[i][2 * j] = readout_step(acc[i][2 * j], table[p_lo],
-                                         table[n_lo], delta, ideal);
-            acc[i][2 * j + 1] = readout_step(acc[i][2 * j + 1], table[p_hi],
-                                             table[n_hi], delta, ideal);
-            tot[i][j] = neg[i][j] = 0u;
-          }
+        uint4* dst;
+        if constexpr (kSplit) {
+          if (m0 + r >= M || n0 + kArtTile * cn >= N) continue;
+          dst = reinterpret_cast<uint4*>(
+              sums + ((size_t)g * M + m0 + r) * N + n0 + kArtTile * cn);
+        } else {
+          dst = reinterpret_cast<uint4*>(s_sums + (slice * BM + r) * BN +
+                                         kArtTile * cn);
+        }
+        dst[0] = make_uint4(lo[0], lo[1], hi[0], hi[1]);
+        dst[1] = make_uint4(lo[2], lo[3], hi[2], hi[3]);
       }
     }
-    __syncthreads();
+    __syncthreads();  // the raw tiles are free; the window's sums are in
+    if constexpr (!kSplit) {
+      // the scan, in group order: slice s holds group g_begin + w *
+      // slices + s. Every lookup first, then the FMA chain
+      const int here = min(slices, g_end - (g_begin + w * slices));
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        float pl[KS], nl[KS];
+#pragma unroll
+        for (int s = 0; s < KS; ++s)
+          if (s < here) {
+            const uint32_t v = s_sums[s * BM * BN + tid + T * q];
+            pl[s] = s_table[v & 0xFFFFu];
+            nl[s] = s_table[v >> 16];
+          }
+#pragma unroll
+        for (int s = 0; s < KS; ++s)
+          if (s < here)
+            acc[q] = readout_step(acc[q], pl[s], nl[s], delta, ideal != 0);
+      }
+    }
   }
-
+  if constexpr (!kSplit) {
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx * TN + j;
-      if (n < N) out[(size_t)m * N + n] = acc[i][j];
+    for (int q = 0; q < kPer; ++q) {
+      const int o = tid + T * q, m = m0 + o / BN, n = n0 + o % BN;
+      if (m < M && n < N) out[(size_t)m * N + n] = acc[q];
     }
   }
 }
 
-int num_sms() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess || n < 1)
-    n = 132;
-  return n;
+// The scan of kSplit: one output a thread, 256 a block; the groups'
+// sums ((groups, M, N), so a group's 256 words are contiguous) land in
+// shared memory kScanChunk groups at a time through a ring of cp.async
+// stages, and each thread reads its output's sums out in group order.
+constexpr int kScanThreads = 256, kScanChunk = 32, kScanStages = 3;
+
+__host__ __device__ constexpr int scan_table_bytes(int table_len) {
+  return (table_len * 4 + 15) / 16 * 16;
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+    artemis_scan_kernel(const uint32_t* __restrict__ sums,
+                        const float* __restrict__ table,
+                        float* __restrict__ out, int mn, int groups,
+                        int table_len, float delta, int ideal) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* const s_table = reinterpret_cast<float*>(smem);
+  uint32_t* const ring =
+      reinterpret_cast<uint32_t*>(smem + scan_table_bytes(table_len));
+  const int tid = threadIdx.x, o0 = blockIdx.x * kScanThreads;
+  for (int i = tid; i < table_len; i += kScanThreads) s_table[i] = table[i];
+  const int chunks = (groups + kScanChunk - 1) / kScanChunk;
+  auto stage = [&](int c) {  // M * N is a multiple of 16
+    const uint32_t dst =
+        smem_addr(ring) + (c % kScanStages) * kScanChunk * kScanThreads * 4;
+    for (int i = tid; i < kScanChunk * kScanThreads / 4; i += kScanThreads) {
+      const int r = i / (kScanThreads / 4), q = i % (kScanThreads / 4);
+      const int g = c * kScanChunk + r, o = o0 + 4 * q;
+      const bool in = g < groups && o < mn;
+      cp_async16(dst + (r * kScanThreads + 4 * q) * 4,
+                 in ? sums + (size_t)g * mn + o : sums, in);
+    }
+  };
+#pragma unroll
+  for (int c = 0; c < kScanStages - 1; ++c) {
+    if (c < chunks) stage(c);
+    cp_async_commit();
+  }
+  float acc = 0.0f;
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<kScanStages - 2>();  // chunk c landed (this thread's)
+    __syncthreads();                   // everyone's; chunk c - 1 consumed
+    if (c + kScanStages - 1 < chunks) stage(c + kScanStages - 1);
+    cp_async_commit();
+    const uint32_t* rw =
+        ring + (c % kScanStages) * kScanChunk * kScanThreads + tid;
+    const int n = min(kScanChunk, groups - c * kScanChunk);
+#pragma unroll 8
+    for (int r = 0; r < n; ++r) {
+      const uint32_t v = rw[r * kScanThreads];
+      acc = readout_step(acc, s_table[v & 0xFFFFu], s_table[v >> 16], delta,
+                         ideal != 0);
+    }
+  }
+  if (o0 + tid < mn) out[o0 + tid] = acc;
+}
+
+int num_sms(int dev) {
+  static int n[kMaxDevices] = {};
+  if (!n[dev] && (cudaDeviceGetAttribute(&n[dev],
+                                         cudaDevAttrMultiProcessorCount,
+                                         dev) != cudaSuccess ||
+                  n[dev] < 1))
+    n[dev] = 132;
+  return n[dev];
 }
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-template <int BM, int BN, int TM, int TN>
-cudaError_t launch_artemis(const int8_t* A, const int8_t* B, float* out,
-                           int M, int N, int K, int acc_depth,
-                           int readout_bits, float levels, float delta,
-                           cudaStream_t st) {
-  auto kernel = artemis_kernel<BM, BN, TM, TN>;
-  const int smem = (acc_depth * 127 + 1) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(cdiv(N, BN), cdiv(M, BM));
-  kernel<<<grid, (BM / TM) * (BN / TN), smem, st>>>(
-      A, B, out, M, N, K, acc_depth, readout_bits, levels, delta);
-  return cudaGetLastError();
-}
 
 // The K split (whole stages per split) whose waves of blocks end soonest:
 // a block takes its stages plus about kSplitCost stages of prologue and
@@ -608,46 +804,131 @@ cudaError_t launch_int_dot(const int8_t* A, const int8_t* B, int* value,
                                               sms, st);
 }
 
+// Groups a window stages: as many as fit kArtMaxWindow k rows, at most KS.
+int artemis_slices(int ks, int depth) {
+  return std::min(ks, std::max(1, kArtMaxWindow / depth));
+}
+
+// At decode (M <= kArtSplitMaxM) 8 x 256 tiles, 4 single-warp slices a
+// block, K split over blocks so that the waves of blocks end soonest, the
+// sums meeting in scratch for artemis_scan_kernel; above, 32 x 64 tiles,
+// 4 or 8 single-warp slices a block, each block scanning its own sums.
+template <int RM, int CN, int KS, bool kSplit>
+cudaError_t launch_artemis(const int8_t* A, const int8_t* B, float* out,
+                           uint32_t* sums, const float* table, int M, int N,
+                           int K, int depth, float delta, int ideal, int dev,
+                           int sms, cudaStream_t st) {
+  auto kernel = artemis_kernel<RM, CN, KS, kSplit>;
+  constexpr int T = KS * RM * CN, BM = kArtTile * RM, BN = kArtTile * CN;
+  const int slices = artemis_slices(KS, depth);
+  const int groups = cdiv(K, depth), table_len = depth * 128 + 1;
+  const ArtLayout lay(BM, BN, KS, slices * depth, table_len, kSplit);
+  // set up once per device: the shared-memory opt-ins; once per depth the
+  // blocks that fit one SM
+  static bool ready[kMaxDevices] = {};
+  static int per_sm[kMaxDevices][kMaxAccDepth + 1] = {};
+  cudaError_t err = cudaSuccess;
+  if (!ready[dev]) {
+    int optin = 0;
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err == cudaSuccess && kSplit)
+      err = cudaFuncSetAttribute(artemis_scan_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 optin);
+    if (err != cudaSuccess) return err;
+    ready[dev] = true;
+  }
+  int& fit = per_sm[dev][depth];
+  if (!fit) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel, T,
+                                                        lay.bytes);
+    if (err != cudaSuccess) return err;
+    if (fit < 1) return cudaErrorInvalidConfiguration;
+  }
+  const int gn = cdiv(N, BN), gm = cdiv(M, BM);
+  int per_split = groups;
+  if (kSplit) {
+    const int windows = cdiv(groups, slices);
+    per_split = cdiv(windows, choose_splits(gn * gm, windows, fit * sms)) *
+                slices;
+  }
+  dim3 grid(gn, gm, cdiv(groups, per_split));
+  kernel<<<grid, T, lay.bytes, st>>>(A, B, out, sums, table, M, N, K, depth,
+                                     slices, per_split, delta, ideal, 1u);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !kSplit) return err;
+  const int scan_smem = scan_table_bytes(table_len) +
+                        kScanStages * kScanChunk * kScanThreads * 4;
+  artemis_scan_kernel<<<cdiv(M * N, kScanThreads), kScanThreads, scan_smem,
+                        st>>>(sums, table, out, M * N, groups, table_len,
+                              delta, ideal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// C entry point, loaded with ctypes. A: (M, K) int8, B: (K, N) int8, both
-// contiguous and 16-byte aligned. int8, artemis_mxu: K a multiple of 32 and N
-// of 16 (whole mma depths, whole 16-byte copies); artemis: K a multiple of
-// acc_depth and N of 4. out: (M, N) int32 for int8, f32 otherwise. scratch:
-// 2 * M * N int32 for artemis_mxu (unused otherwise). readout_bits < 0 means
-// ideal readout; levels = 2^bits - 1 and delta = acc_depth * 127 / levels
-// rounded to f32 by the caller. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
-extern "C" int sc_matmul_launch(const void* A, const void* B, void* out,
-                                void* scratch, int M, int N, int K, int mode,
-                                int acc_depth, int readout_bits, float levels,
-                                float delta, float rbar, void* stream) {
-  if (M < 1 || N < 1 || K < 1 || N % 4 != 0)
-    return (int)cudaErrorInvalidValue;
-  const int8_t* a = static_cast<const int8_t*>(A);
-  const int8_t* b = static_cast<const int8_t*>(B);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int sms = num_sms();
-  // the 64 x 128 tiles where they fill the card twice, else small tiles
-  const bool large = cdiv(M, 64) * cdiv(N, 128) >= 2 * sms;
+// C entry points, loaded with ctypes. A: (M, K) int8, B: (K, N) int8, both
+// contiguous and 16-byte aligned, N a multiple of 16 (whole 16-byte
+// copies); K a multiple of 32 for int8 and artemis_mxu (whole mma depths)
+// and of 16 for artemis (the kernel zero-fills its ragged last group).
+// out: (M, N) int32 for int8, f32 otherwise. scratch:
+// sc_matmul_scratch_bytes(...) bytes (unused when 0). table (artemis):
+// acc_depth * 128 + 1 f32 levels, clamp(rint(x / delta), 0, levels) for
+// each possible group sum x, or x itself for readout_bits < 0 (ideal
+// readout); delta = acc_depth * 127 / levels rounded to f32 by the caller.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
+extern "C" long long sc_matmul_scratch_bytes(int M, int N, int K, int mode,
+                                             int acc_depth) {
+  if (mode == kModeMxu) return 2LL * M * N * (long long)sizeof(int);
+  if (mode == kModeArtemis && M <= kArtSplitMaxM && acc_depth >= 1)
+    return (long long)cdiv(K, acc_depth) * M * N * (long long)sizeof(uint32_t);
+  return 0;
+}
 
-  if (mode == kModeArtemis) {
-    if (acc_depth < 1 || acc_depth > kMaxAccDepth || K % acc_depth != 0)
-      return (int)cudaErrorInvalidValue;
-    float* o = static_cast<float*>(out);
-    if (large)
-      return (int)launch_artemis<64, 128, 8, 8>(
-          a, b, o, M, N, K, acc_depth, readout_bits, levels, delta, st);
-    return (int)launch_artemis<8, 32, 2, 4>(a, b, o, M, N, K, acc_depth,
-                                            readout_bits, levels, delta, st);
-  }
-  if ((mode != kModeInt8 && mode != kModeMxu) || K % kKGranule != 0 ||
-      N % kNGranule != 0 || reinterpret_cast<uintptr_t>(A) % 16 != 0 ||
+extern "C" int sc_matmul_launch(const void* A, const void* B, void* out,
+                                void* scratch, const void* table, int M,
+                                int N, int K, int mode, int acc_depth,
+                                int readout_bits, float delta, float rbar,
+                                void* stream) {
+  if (M < 1 || N < 1 || K < 1 || N % kNGranule != 0 ||
+      reinterpret_cast<uintptr_t>(A) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(B) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices)
     return (int)cudaErrorInvalidDevice;
+  const int8_t* a = static_cast<const int8_t*>(A);
+  const int8_t* b = static_cast<const int8_t*>(B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int sms = num_sms(dev);
+
+  if (mode == kModeArtemis) {
+    if (acc_depth < 1 || acc_depth > kMaxAccDepth || K % kArtKGranule != 0 ||
+        table == nullptr || (M <= kArtSplitMaxM && scratch == nullptr))
+      return (int)cudaErrorInvalidValue;
+    float* o = static_cast<float*>(out);
+    const float* t = static_cast<const float*>(table);
+    const int ideal = readout_bits < 0;
+    if (M <= kArtSplitMaxM)
+      return (int)launch_artemis<1, 32, 4, true>(
+          a, b, o, static_cast<uint32_t*>(scratch), t, M, N, K, acc_depth,
+          delta, ideal, dev, sms, st);
+    // 4 slices a block (78 KB at depth 20: two blocks share an SM and
+    // overlap their barriers) where that fills the card twice, else 8
+    if (cdiv(M, 32) * cdiv(N, 64) >= 2 * sms)
+      return (int)launch_artemis<4, 8, 4, false>(a, b, o, nullptr, t, M, N,
+                                                 K, acc_depth, delta, ideal,
+                                                 dev, sms, st);
+    return (int)launch_artemis<4, 8, 8, false>(a, b, o, nullptr, t, M, N, K,
+                                               acc_depth, delta, ideal, dev,
+                                               sms, st);
+  }
+  if ((mode != kModeInt8 && mode != kModeMxu) || K % kKGranule != 0)
+    return (int)cudaErrorInvalidValue;
   const size_t mn = (size_t)M * N;
   const bool mxu = mode == kModeMxu;
   int* value = mxu ? static_cast<int*>(scratch) : static_cast<int*>(out);

@@ -50,6 +50,21 @@ def _readout_level(x: torch.Tensor, delta: torch.Tensor,
     return torch.clamp(torch.round(x.float() / delta), 0, levels)
 
 
+def readout_table(acc_depth: int, readout_bits: int | None,
+                  device=None) -> torch.Tensor:
+    """(acc_depth * 128 + 1,) f32: the readout level of every group sum
+    a MOMCAP group of int8 products can reach (0 to acc_depth * 128,
+    -128 included), by `_readout_level`; the sum itself for the ideal
+    readout (None). The CUDA kernel looks each sum up here."""
+    x = torch.arange(acc_depth * SC_LEVELS + 1, dtype=torch.float32,
+                     device=device)
+    if readout_bits is None:
+        return x
+    levels = 2**readout_bits - 1
+    return _readout_level(x, _f32(acc_depth * (SC_LEVELS - 1) / levels, x),
+                          levels)
+
+
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """f32 a * b + c with one rounding (see the module docstring)."""
     return (a.double() * b.double() + c.double()).float()

@@ -348,6 +348,63 @@ def _chunk_operands(seed, *, s, window):
     return q, kp, vp, bt, pos
 
 
+def _rows_emulation(q, kp, vp, bt, pos, *, window=None, rows=16, keys=32,
+                    walk_blind=True):
+    """The rows instance's algorithm in torch (f32): blocks of 16 query
+    rows of one (lane, kv head) in (position, head-in-group) order; a walk
+    over [first row's p - window + 1, last row's p] clipped to the table
+    in tiles of 32 keys, the whole table when a row of the block keeps no
+    key (`walk_blind`; without it, the walk before the fix); an online
+    softmax per row with -1e30 masking, keys past the table counting for
+    no row."""
+    b, s, h, hd = q.shape
+    n_pages, page, kvh, _ = kp.shape
+    g = h // kvh
+    scale = hd ** -0.5
+    table_end = bt.shape[1] * page - 1
+    out = torch.zeros((b, s, h, hd))
+    for bi in range(b):
+        for kh in range(kvh):
+            qr = q[bi, :, kh * g:(kh + 1) * g].reshape(s * g, hd).float()
+            pr = pos[bi].long().repeat_interleave(g)
+            for r0 in range(0, s * g, rows):
+                p_blk = pr[r0:r0 + rows]
+                q_lo, q_hi = int(p_blk[0]), int(p_blk[-1])
+                blind = (walk_blind and bool(window)
+                         and q_hi - window + 1 > table_end)
+                t_begin = (max(0, q_lo - window + 1)
+                           if window and not blind else 0)
+                t_end = min(q_hi, table_end)
+                m = torch.full((len(p_blk),), -1e30)
+                lsum = torch.zeros(len(p_blk))
+                o = torch.zeros((len(p_blk), hd))
+                for t0 in range(t_begin, t_end + 1, keys):
+                    t = torch.arange(t0, t0 + keys)
+                    present = t <= t_end
+                    tc = t.clamp(max=t_end)
+                    pid = bt[bi, tc // page].long().clamp(0, n_pages - 1)
+                    kk = kp[pid, tc % page, kh].float() * present[:, None]
+                    vv = vp[pid, tc % page, kh].float() * present[:, None]
+                    keep = present & (t[None] <= p_blk[:, None])
+                    if window:
+                        keep &= t[None] > p_blk[:, None] - window
+                    sc = torch.where(keep, (qr[r0:r0 + rows] @ kk.T) * scale,
+                                     torch.tensor(-1e30))
+                    m_new = torch.maximum(m, sc.amax(1))
+                    alpha = torch.exp(m - m_new)
+                    pexp = torch.exp(sc - m_new[:, None])
+                    if walk_blind:
+                        pexp = torch.where(present, pexp, torch.tensor(0.0))
+                    lsum = lsum * alpha + pexp.sum(1)
+                    o = o * alpha[:, None] + pexp @ vv
+                    m = m_new
+                res = o / lsum.clamp(min=1e-30)[:, None]
+                for i in range(len(p_blk)):
+                    row = r0 + i
+                    out[bi, row // g, kh * g + row % g] = res[i]
+    return out
+
+
 def _keeps_a_key(pos, pmax, page, window):
     """(B, S) bool: the query keeps at least one kv position of its
     table."""
@@ -405,3 +462,30 @@ def test_tile_emulation_long_table():
     want = paged_attention_ref(q, kp, vp, bt, pos)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4,
                                atol=2e-4)
+
+
+@pytest.mark.parametrize("window", [None, 3])
+@pytest.mark.parametrize("s", [1, 7, 32])
+def test_rows_emulation_matches_reference_on_every_row(s, window):
+    """The rows instance's algorithm, emulated, within 2e-4 of the plain
+    version and of the JAX oracle on every row, those that keep no key
+    (lane 3 past its table, with a window) included: its block walks the
+    whole table, as the tile instance does. The walk before that fix
+    gave those rows zero or a partial mean."""
+    q, kp, vp, bt, pos = _chunk_operands(s * 11 + (window or 0), s=s,
+                                         window=window)
+    tq, tk, tv, tb, tp = (torch.from_numpy(a) for a in (q, kp, vp, bt, pos))
+    got = _rows_emulation(tq, tk, tv, tb, tp, window=window).numpy()
+    plain = paged_attention_ref(tq, tk, tv, tb, tp, window=window).numpy()
+    oracle = np.asarray(jax_paged_ref(*[jnp.asarray(a) for a in
+                                        (q, kp, vp, bt, pos)],
+                                      window=window))
+    tol = dict(rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got, plain, **tol)
+    np.testing.assert_allclose(got, oracle, **tol)
+    keeps = _keeps_a_key(pos, bt.shape[1], kp.shape[1], window)
+    before = _rows_emulation(tq, tk, tv, tb, tp, window=window,
+                             walk_blind=False).numpy()
+    np.testing.assert_allclose(before[keeps], plain[keeps], **tol)
+    if not keeps.all():
+        assert not np.allclose(before[~keeps], plain[~keeps], **tol)
