@@ -16,14 +16,18 @@ without printing a result:
      over a grid of cases, with the tolerance stated per kernel
      (paged_attention through both its instances, rows and tile, on
      every case and every row: ragged row counts, chunks past their
-     table and rows that keep no key, a table of 2000 keys; sc_matmul's
+     table and rows that keep no key, a table of 2000 keys;
+     flash_attention through its rows instance on every case and its
+     tile instance on every case it takes (bf16 q, bf16-valued K/V),
+     the static prefill's own shape at batch 2 included; sc_matmul's
      integer dots also at the edges of their tiles, splits and int32
      range, its artemis path at the edges of its K split and windows and
      on operands of -128);
   4. at the full-width qwen3_8b shapes of the serve paths, hold each
      kernel against its plain version once more, then time it beside
      its plain version, its bound and one library call (paged_attention
-     at a prefill chunk: also its rows instance and the f32 bound;
+     at a prefill chunk and flash_attention at the static prefill: also
+     the other instance and the f32 bound;
      sc_matmul int8: the ratio to torch._int_mm; artemis_mxu: the ratio
      to int8; artemis: the device time of each of its kernels);
   5. drain the paged-KV engine at the full qwen3_8b width (36 layers,
@@ -45,8 +49,10 @@ without printing a result:
      the full qwen3_8b width: bf16, f32 cache, batch 8, prompt 1024,
      gen 32, exact policy, counts zeroed just before and read just
      after: flash_attention once per layer of every forward (36 x 33),
-     paged_attention and sc_matmul never; then profile one static
-     prefill forward and one decode forward (device time by group);
+     its tile instance at the prefill (36) and its rows instance at the
+     decodes (36 x 32), paged_attention and sc_matmul never; then
+     profile one static prefill forward and one decode forward (device
+     time by group);
   9. the static path at float32 through 2 layers of the full width
      with the flash and the gather core: the greedy tokens must be
      identical; then one short int8 static run at the full width,
@@ -56,9 +62,10 @@ without printing a result:
 Kernels: paged_attention (exact engine path; its rows instance at
 decode, its tensor-core tile instance at a prefill chunk), sc_matmul
 (the ARTEMIS MAC of the quantized policies) and flash_attention (exact
-static path), all CUDA C++ for sm_90a, built in parallel. sc_matmul is held
-bit for bit against its plain version, the attention kernels within
-2e-4.
+static path; its bf16 tensor-core tile instance at the prefill, its
+rows instance at decode), all CUDA C++ for sm_90a, built in parallel.
+sc_matmul is held bit for bit against its plain version, the attention
+kernels within 2e-4.
 
 The script imports nothing of `repro` (the JAX package) or of jax.
 """
@@ -735,17 +742,27 @@ def _fa_errors(out, ref):
     return err, bad
 
 
-def check_flash_attention() -> tuple[float, int]:
+FA_VARIANTS = ("rows", "tile")       # the kernel's two instances
+
+
+def check_flash_attention() -> tuple[dict, dict]:
     """Every combination of Sq in {1, 8, 33, 128, 200}, Sk in {Sq,
     Sq + 40, 1056}, (causal, window) in FA_WINDOWS, kv_len unset or
     set, q_offset in {0, Sk - Sq, mid}, group in {1, 4}, D in {64, 128},
     q in {bf16, f32} and K/V in {f32, bf16}; tiles cycle over FA_TILES,
     every other case reads strided (B, S, H, D) views, and every third
-    case with f32 K/V rounds them to bf16 (`kv_cast`). o and lse within
-    FA_TOL of the plain version, nvis equal."""
+    case with f32 K/V rounds them to bf16 (`kv_cast`). Then the static
+    prefill's own shape at batch 2: Sq 1024 over an f32 cache of 1056
+    slots read as strided views, kv_len 1024, `kv_cast` bf16, the ops
+    wrapper's tiles. Each case through the rows instance, and through
+    the tile instance where it takes the case (`tile_takes`); o and lse
+    within FA_TOL of the plain version, nvis equal. Returns (max abs
+    error, cases) per instance."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_all,
                                                      flash_attention_ref)
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        tile_takes)
     from repro_torch.kernels.flash_attention.ops import effective_tiles
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
@@ -753,7 +770,9 @@ def check_flash_attention() -> tuple[float, int]:
     combos = [(g, d, qd, kd) for g in (1, 4) for d in (64, 128)
               for qd in (bf16, f32) for kd in (f32, bf16)]
     b, hkv = 2, 2
-    n, worst = 0, 0.0
+    n = 0
+    worst = dict.fromkeys(FA_VARIANTS, 0.0)
+    counts = dict.fromkeys(FA_VARIANTS, 0)
 
     def operand(heads, s, d, dtype, strided):
         if strided:
@@ -761,6 +780,35 @@ def check_flash_attention() -> tuple[float, int]:
             return x.to(dtype).transpose(1, 2)
         return torch.randn((b, heads, s, d), generator=gen,
                            device="cuda").to(dtype)
+
+    def run(q, k, v, kw, label, cases):
+        ref = flash_attention_ref(q, k, v, **kw)
+        variants = [v_ for v_ in FA_VARIANTS if v_ == "rows" or tile_takes(
+            q.dtype, k.dtype, kw["kv_cast"], q.shape[-1])]
+        for variant in variants:
+            err, bad = _fa_errors(
+                flash_attention_all(q, k, v, variant=variant, **kw), ref)
+            cases.append((kw | label, variant, err, bad))
+
+    def settle(cases, what):
+        torch.cuda.synchronize()
+        errs = torch.stack([e for _, _, e, _ in cases]).cpu()
+        bads = torch.stack([x for _, _, _, x in cases]).cpu()
+        if bool(bads.any()):
+            i = int(bads.nonzero()[0, 0])
+            raise AssertionError(
+                f"flash_attention ({cases[i][1]}) disagrees with its plain "
+                f"version: {cases[i][0]}: max err {errs[i].item():.3e} (or "
+                f"nvis)")
+        line = []
+        for variant in FA_VARIANTS:
+            mine = [float(e) for (_, v_, _, _), e in zip(cases, errs)
+                    if v_ == variant]
+            counts[variant] += len(mine)
+            worst[variant] = max(worst[variant], *mine, 0.0)
+            line.append(f"{variant} {len(mine)} cases (max abs err "
+                        f"{max(mine, default=0.0):.2e})")
+        log(f"  {what}: " + " | ".join(line) + ", nvis equal")
 
     for sq in (1, 8, 33, 128, 200):
         cases = []
@@ -782,45 +830,54 @@ def check_flash_attention() -> tuple[float, int]:
                             kw = dict(causal=causal, window=window,
                                       kv_len=kv_len, q_offset=q_offset,
                                       bq=bq, bk=bk, kv_cast=kv_cast)
-                            err, bad = _fa_errors(
-                                flash_attention_all(q, k, v, **kw),
-                                flash_attention_ref(q, k, v, **kw))
-                            cases.append((kw | dict(sq=sq, sk=sk, G=group,
-                                                    D=d, q=q_dt, kv=kv_dt,
-                                                    strided=strided),
-                                          err, bad))
+                            run(q, k, v, kw, dict(sq=sq, sk=sk, G=group, D=d,
+                                                  q=q_dt, kv=kv_dt,
+                                                  strided=strided), cases)
                             n += 1
-        torch.cuda.synchronize()
-        errs = torch.stack([e for _, e, _ in cases]).cpu()
-        bads = torch.stack([x for _, _, x in cases]).cpu()
-        if bool(bads.any()):
-            i = int(bads.nonzero()[0, 0])
-            raise AssertionError(
-                f"flash_attention disagrees with its plain version: "
-                f"{cases[i][0]}: max err {errs[i].item():.3e} (or nvis)")
-        worst = max(worst, errs.max().item())
-        log(f"  Sq {sq:3d}: {len(cases)} cases within rtol=atol=2e-4, nvis "
-            f"equal (max abs err {errs.max().item():.2e})")
-    log(f"flash_attention: {n} cases within rtol=atol=2e-4 of the plain "
-        f"version, block counts equal (max abs err {worst:.3e})")
-    return worst, n
+        settle(cases, f"Sq {sq:3d}")
+    # the static prefill's shape (qwen3_8b's heads) at batch 2
+    hq, hkv_s, d, sq, smax = 32, 8, 128, 1024, 1056
+    q = torch.randn((2, sq, hq, d), generator=gen, device="cuda").to(
+        bf16).transpose(1, 2)
+    k, v = (torch.randn((2, smax, hkv_s, d), generator=gen,
+                        device="cuda").transpose(1, 2) for _ in range(2))
+    bq, bk = effective_tiles(sq, smax)
+    kw = dict(causal=True, window=None, kv_len=sq, q_offset=0, bq=bq, bk=bk,
+              kv_cast=bf16, scale=d ** -0.5)
+    cases = []
+    run(q, k, v, kw, dict(sq=sq, sk=smax, B=2), cases)
+    settle(cases, "static prefill, B 2, Sq 1024, Smax 1056, f32 cache")
+    del q, k, v
+    for variant in FA_VARIANTS:
+        log(f"flash_attention ({variant}): {counts[variant]} cases within "
+            f"rtol=atol=2e-4 of the plain version, block counts equal (max "
+            f"abs err {worst[variant]:.3e})")
+    return worst, counts
 
 
 def _fa_bound(b, hq, hkv, sq, d, kv_rows, pairs, q_bytes, kv_bytes,
-              qk_bf16):
+              qk_bf16, variant="rows"):
     """(bound ms, bound_by, bytes, flops): q and the kv_rows K/V rows read
     once, o, lse and nvis written once; 2 * D flops of q.k and 2 * D of
-    p.v per kept (query head, key) pair. q.k of bf16 operands (`qk_bf16`:
-    bf16 q, K bf16 or rounded to it) is exact on the bf16 tensor cores
-    with f32 sums, so it is priced at their rate; p.v multiplies f32
-    probabilities and q.k of f32 operands is f32, both priced at the CUDA
-    cores' f32 rate. The two units run side by side, so the operations
-    take the longer of the two times."""
+    p.v per kept (query head, key) pair.
+
+    "rows" (the f32 bound): q.k of bf16 operands (`qk_bf16`: bf16 q, K
+    bf16 or rounded to it) is exact on the bf16 tensor cores with f32
+    sums, so it is priced at their rate; p.v multiplies f32
+    probabilities and q.k of f32 operands is f32, both priced at the
+    CUDA cores' f32 rate. The two units run side by side, so the
+    operations take the longer of the two times.
+
+    "tile" (bf16 operands only): q.k in one bf16 tensor-core pass and
+    p.v in two (P = hi + lo, V bf16-valued: the same work to f32
+    accuracy), all at the bf16 rate."""
     n_bytes = (b * hq * sq * d * q_bytes + 2 * b * kv_rows * hkv * d
                * kv_bytes + b * hq * sq * (d + 2) * 4)
     half = 2 * d * hq * b * pairs
     flops = 2 * half
-    if qk_bf16:
+    if variant == "tile":
+        t_ops = 3 * half / BF16_FLOPS_PER_S * 1e3
+    elif qk_bf16:
         t_ops = max(half / BF16_FLOPS_PER_S, half / F32_FLOPS_PER_S) * 1e3
     else:
         t_ops = flops / F32_FLOPS_PER_S * 1e3
@@ -837,11 +894,18 @@ def time_flash_attention(cfg) -> list[dict]:
     calls it. Each call reads another of 4 layers' caches (69 MB each),
     so the 50 MB L2 holds none of it. The cache holds bf16 values, as
     the path's does, so the library call (SDPA on f32, GQA, keys sliced
-    to kv_len) computes the same function."""
+    to kv_len) computes the same function. Each shape runs the instance
+    the path picks (`kernel_variant`: rows at decode, tile at the
+    prefill), held against the plain version, and the other instance is
+    held and timed beside it; the prefill's f32 bound is the rows
+    instance's, kept beside the tile instance's."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.flash_attention import (flash_attention_all,
                                                      flash_attention_ref)
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        kernel_variant)
     b, hq, hkv, d = 8, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     smax, n_layers = 1056, 4
     gen = torch.Generator(device="cuda")
@@ -864,15 +928,28 @@ def time_flash_attention(cfg) -> list[dict]:
 
         kw = dict(causal=True, kv_len=kv_len, q_offset=q_offset,
                   scale=scale, kv_cast=torch.bfloat16)
+        variant = kernel_variant(q.dtype, ck.dtype, torch.bfloat16, sq, d)
+        other = next(v_ for v_ in FA_VARIANTS if v_ != variant)
+        reset_launch_counts()
         out = flash_attention_all(q, *kv(0), **kw)
         torch.cuda.synchronize()
+        if launch_counts[f"flash_attention.{variant}"] != 1:
+            raise AssertionError(f"the {label} shape did not run the "
+                                 f"{variant} instance: {dict(launch_counts)}")
         ref = flash_attention_ref(q, *kv(0), **kw)
-        err, bad = _fa_errors(out, ref)
-        if bool(bad):
-            raise AssertionError(f"flash_attention disagrees with its plain "
-                                 f"version at the {label} shape: max err "
-                                 f"{err.item():.3e}")
+        errs = {}
+        for v_, o_ in ((variant, out),
+                       (other, flash_attention_all(q, *kv(0), variant=other,
+                                                   **kw))):
+            err, bad = _fa_errors(o_, ref)
+            if bool(bad):
+                raise AssertionError(f"flash_attention ({v_}) disagrees with "
+                                     f"its plain version at the {label} "
+                                     f"shape: max err {err.item():.3e}")
+            errs[v_] = err.item()
         ms = _adaptive_ms(lambda i: flash_attention_all(q, *kv(i), **kw))
+        other_ms = _adaptive_ms(lambda i: flash_attention_all(
+            q, *kv(i), variant=other, **kw))
         plain_ms = _adaptive_ms(lambda i: flash_attention_ref(q, *kv(i),
                                                               **kw),
                                 budget_s=1.0, most=10)
@@ -887,20 +964,27 @@ def time_flash_attention(cfg) -> list[dict]:
         lib_err = (sdpa(0) - out[0]).abs().max().item()
         library_ms = _adaptive_ms(sdpa)
         pairs = sum(min(kv_len, r + q_offset + 1) for r in range(sq))
+        args = (b, hq, hkv, sq, d, kv_len, pairs, 2, 4)
         bound_ms, bound_by, n_bytes, flops = _fa_bound(
-            b, hq, hkv, sq, d, kv_len, pairs, 2, 4, qk_bf16=True)
+            *args, qk_bf16=True, variant=variant)
+        bound_f32_ms = _fa_bound(*args, qk_bf16=True)[0]
         rows.append(dict(shape=label, B=b, Sq=sq, Smax=smax,
-                         q_offset=q_offset, kv_len=kv_len,
-                         max_abs_err=err.item(), ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms, library_max_abs_diff=lib_err,
-                         bound_ms=bound_ms, bound_by=bound_by,
+                         q_offset=q_offset, kv_len=kv_len, variant=variant,
+                         max_abs_err=errs[variant],
+                         max_abs_err_by_variant=errs, ms=ms,
+                         ms_by_variant={variant: ms, other: other_ms},
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         library_max_abs_diff=lib_err, bound_ms=bound_ms,
+                         bound_by=bound_by, bound_f32_ms=bound_f32_ms,
                          bytes=n_bytes, flops=flops))
         log(f"  {label:7s} Sq {sq:4d} q_offset {q_offset:4d} kv_len "
-            f"{kv_len}: max err {err.item():.2e} | kernel {ms*1e3:9.2f} us "
-            f"| plain {plain_ms*1e3:10.2f} us | sdpa {library_ms*1e3:9.2f} "
-            f"us (max diff {lib_err:.1e}) | bound {bound_ms*1e3:8.2f} us "
-            f"({bound_by}: {n_bytes/1e6:.1f} MB, {flops/1e9:.2f} GFLOP) | "
-            f"{bound_ms/ms:.1%} of bound")
+            f"{kv_len} ({variant}): max err {errs[variant]:.2e} | kernel "
+            f"{ms*1e3:9.2f} us ({other} instance {other_ms*1e3:9.2f} us, "
+            f"max err {errs[other]:.2e}) | plain {plain_ms*1e3:10.2f} us | "
+            f"sdpa {library_ms*1e3:9.2f} us (max diff {lib_err:.1e}) | "
+            f"bound {bound_ms*1e3:8.2f} us ({bound_by}: {n_bytes/1e6:.1f} "
+            f"MB, {flops/1e9:.2f} GFLOP) {bound_ms/ms:.1%} of it | f32 "
+            f"bound {bound_f32_ms*1e3:8.2f} us {bound_f32_ms/ms:.1%} of it")
     del ck, cv
     gc.collect()
     torch.cuda.empty_cache()
@@ -1175,28 +1259,39 @@ def static_drain(cfg) -> dict:
     log(f"  prefill {run['prefill_s']*1e3:.2f} ms (8 x 1024 tokens) | decode "
         f"{run['decode_tok_per_s']:.2f} tok/s, {step_ms:.2f} ms per step | "
         f"peak device memory {peak:.2f} GiB")
+    by_variant = {v: counts.get(f"flash_attention.{v}", 0)
+                  for v in FA_VARIANTS}
+    want_by_variant = {"tile": cfg.n_layers, "rows": cfg.n_layers * 32}
     log(f"  launches: flash_attention {counts.get('flash_attention', 0)} = "
         f"{cfg.n_layers} layers x (1 prefill + 32 decode) forwards? "
-        f"{counts.get('flash_attention', 0) == want}; paged_attention "
+        f"{counts.get('flash_attention', 0) == want}; tile "
+        f"{by_variant['tile']} = {cfg.n_layers} x 1 prefill? "
+        f"{by_variant['tile'] == want_by_variant['tile']}; rows "
+        f"{by_variant['rows']} = {cfg.n_layers} x 32 decodes? "
+        f"{by_variant['rows'] == want_by_variant['rows']}; paged_attention "
         f"{counts.get('paged_attention', 0)}, sc_matmul "
         f"{counts.get('sc_matmul', 0)}")
     if counts.get("flash_attention", 0) != want:
         raise AssertionError(f"flash_attention launched "
                              f"{counts.get('flash_attention', 0)} times, "
                              f"want {want}: the path missed the kernel")
+    if by_variant != want_by_variant:
+        raise AssertionError(f"flash_attention's instances launched "
+                             f"{by_variant}, want {want_by_variant}")
     if counts.get("paged_attention", 0) or counts.get("sc_matmul", 0):
         raise AssertionError(f"the exact static path launched {counts}")
     return dict(model=model, prefill_ms=run["prefill_s"] * 1e3,
                 decode_tok_s=run["decode_tok_per_s"], step_ms=step_ms,
                 peak_gib=peak, launches=counts["flash_attention"],
+                launches_by_variant=by_variant,
                 profile=profile_static(cfg, model))
 
 
 def profile_static(cfg, model) -> dict:
     """Device time by group of one static prefill forward (8 x 1024
     tokens) and one decode forward (8 lanes at index 1024) of the exact
-    path: flash_attention (its kernel, by name), the matrix products
-    (the kernels of aten GEMM operators) and the rest."""
+    path: flash_attention (its two instances' kernels, by name), the
+    matrix products (the kernels of aten GEMM operators) and the rest."""
     import torch
     from torch.autograd import DeviceType
     from repro_torch.launch import steps
@@ -1233,7 +1328,7 @@ def profile_static(cfg, model) -> dict:
                 continue
             total += evt.self_device_time_total
             n_kernels += evt.count
-            if "flash_attention_kernel" in evt.key:
+            if any(k in evt.key for k in FA_KERNEL_NAMES):
                 flash += evt.self_device_time_total
         matmul = sum(k.duration for evt in prof.events()
                      if evt.device_type == DeviceType.CPU
@@ -1264,7 +1359,9 @@ def static_checks(cfg, model) -> dict:
     runs = {impl: static_run(cfg2, model2, batch=8, prompt_len=256,
                              gen_len=16, attn_impl=impl)
             for impl in ("flash", "gather")}
-    if runs["flash"]["counts"] != {"flash_attention": 2 * 17}:
+    # f32 operands: the rows instance at the prefill too
+    if runs["flash"]["counts"] != {"flash_attention": 2 * 17,
+                                   "flash_attention.rows": 2 * 17}:
         raise AssertionError(f"flash run launches {runs['flash']['counts']}")
     if runs["gather"]["counts"]:
         raise AssertionError(f"gather run launches {runs['gather']['counts']}")
@@ -1301,6 +1398,7 @@ GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::matmul",
             "aten::baddbmm")
 SC_KERNEL_NAMES = ("dot_kernel", "artemis_kernel", "artemis_scan_kernel",
                    "mxu_epilogue")
+FA_KERNEL_NAMES = ("flash_attention_kernel", "flash_attention_tile_kernel")
 
 
 @contextlib.contextmanager
@@ -1483,7 +1581,8 @@ def main() -> int:
         log(f"  ptxas: {ptxas_summary(report)}")
         for name, regs, spill in ptxas_instances(report):
             if any(k in name for k in ("mma_dot_kernel", "artemis_kernel",
-                                       "paged_attention_tile")):
+                                       "paged_attention_tile",
+                                       "flash_attention_tile")):
                 log(f"    {name}: {regs} registers, {spill} bytes spill "
                     f"stores")
                 if spill:
@@ -1555,12 +1654,19 @@ def main() -> int:
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:48",
         "launches": static["launches"],
-        "max_abs_err": max(fa_err, *(r["max_abs_err"] for r in fa_rows)),
+        "launches_by_variant": static["launches_by_variant"],
+        "max_abs_err": max(*fa_err.values(),
+                           *(e for r in fa_rows
+                             for e in r["max_abs_err_by_variant"].values())),
+        "max_abs_err_by_variant": {v: max(fa_err[v], *(
+            r["max_abs_err_by_variant"][v] for r in fa_rows))
+            for v in FA_VARIANTS},
         "ms": fa_rows[0]["ms"], "plain_ms": fa_rows[0]["plain_ms"],
         "bound_ms": fa_rows[0]["bound_ms"],
         "bound_by": fa_rows[0]["bound_by"],
         "library_ms": fa_rows[0]["library_ms"],
-        "cases_within_tol": n_fa_cases + len(fa_rows),
+        "cases_within_tol": {v: n_fa_cases[v] + len(fa_rows)
+                             for v in FA_VARIANTS},
         "shapes": fa_rows,
     }]
     log(json.dumps({"kernels": kernels,

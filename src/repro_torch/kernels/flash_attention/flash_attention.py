@@ -17,7 +17,14 @@ Entries, as in the reference:
 Dispatch is by the tensors' device, explicitly: CPU tensors go to the
 plain version (`ref.flash_attention_ref`), CUDA tensors to the kernel,
 and anything the kernel does not take raises. There is no fallback
-from the kernel to the plain version.
+from the kernel to the plain version, nor from one kernel instance to
+the other.
+
+The kernel has two instances (`kernel_variant` picks one per call):
+"tile", bf16 tensor-core tiles of 128 query rows, for bf16 q over K/V
+that are bf16 or rounded to it (`kv_cast`) with at least 16 query rows
+(the static path's prefill), and "rows", f32 on the CUDA cores, for
+everything else (its decode steps, f32 operands).
 """
 from __future__ import annotations
 
@@ -33,6 +40,32 @@ NAME = "flash_attention"
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 MAX_HEAD_DIM = 256
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
+VARIANTS = ("rows", "tile")          # the C entry's variant 0 and 1
+# the tile instance takes a call with at least this many query rows, at
+# one of these head dims
+TILE_MIN_ROWS = 16
+TILE_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def tile_takes(q_dtype, kv_dtype, kv_cast, head_dim: int) -> bool:
+    """Whether the tile instance computes this call's function: bf16 q,
+    K/V bf16 or f32 rounded to bf16 by `kv_cast` (bf16-valued operands,
+    so its bf16 products are exact), and D one of TILE_HEAD_DIMS."""
+    kv_bf16 = kv_dtype == torch.bfloat16 or (
+        kv_dtype == torch.float32 and kv_cast == torch.bfloat16)
+    return (q_dtype == torch.bfloat16 and kv_bf16
+            and head_dim in TILE_HEAD_DIMS)
+
+
+def kernel_variant(q_dtype, kv_dtype, kv_cast, sq: int,
+                   head_dim: int) -> str:
+    """The kernel instance a call takes: "tile" when `tile_takes` and
+    the Sq query rows fill at least a 16-row mma tile (the static path's
+    prefill), "rows" otherwise (its decode steps, f32 operands)."""
+    if sq >= TILE_MIN_ROWS and tile_takes(q_dtype, kv_dtype, kv_cast,
+                                          head_dim):
+        return "tile"
+    return "rows"
 
 
 def _entry():
@@ -42,14 +75,15 @@ def _entry():
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 6
-                       + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_float] + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
     return fn
 
 
-def _validate(q, k, v, *, causal, window, kv_len, bq, bk):
+def _validate(q, k, v, *, causal, window, kv_len, bq, bk, kv_cast,
+              variant):
     """The reference's checks (Hq % Hkv, window requires causal, window
-    >= 1), and the shapes, before anything is read."""
+    >= 1), the shapes and the kernel instance, before anything is read."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention takes q (B, Hq, Sq, D) and k, v "
                          f"(B, Hkv, Sk, D), got q {tuple(q.shape)}, k "
@@ -71,6 +105,14 @@ def _validate(q, k, v, *, causal, window, kv_len, bq, bk):
         raise ValueError(f"block sizes must be >= 1, got bq={bq}, bk={bk}")
     if kv_len is not None and kv_len < 0:
         raise ValueError(f"kv_len must be >= 0, got {kv_len}")
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got "
+                         f"{variant!r}")
+    if variant == "tile" and not tile_takes(q.dtype, k.dtype, kv_cast, d):
+        raise ValueError(f"the tile instance takes bf16 q, K/V bf16 or "
+                         f"rounded to it (kv_cast) and D in "
+                         f"{TILE_HEAD_DIMS}, got q {q.dtype}, k {k.dtype}, "
+                         f"kv_cast {kv_cast}, D {d}")
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -82,7 +124,7 @@ def _aligned(t: torch.Tensor) -> bool:
 
 
 def _launch(q, k, v, *, causal, window, kv_len, q_offset, scale, bq, bk,
-            kv_cast):
+            kv_cast, variant):
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     if q.dtype not in _FLOAT_TYPES or k.dtype not in _FLOAT_TYPES \
@@ -108,6 +150,7 @@ def _launch(q, k, v, *, causal, window, kv_len, q_offset, scale, bq, bk,
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     nvis = torch.empty_like(lse)
     round_kv = int(kv_cast == torch.bfloat16 and k.dtype == torch.float32)
+    variant = variant or kernel_variant(q.dtype, k.dtype, kv_cast, sq, d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -115,18 +158,20 @@ def _launch(q, k, v, *, causal, window, kv_len, q_offset, scale, bq, bk,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         int(causal), window or 0, kv_len, q_offset, bq, bk, float(scale),
         int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-        round_kv, stream)
+        round_kv, VARIANTS.index(variant), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention kernel ({variant}) launch "
+                           f"failed: CUDA error {err}")
     build.launch_counts[NAME] += 1
+    build.launch_counts[f"{NAME}.{variant}"] += 1
     return o, lse, nvis
 
 
 def flash_attention_all(q, k, v, *, causal: bool = True,
                         window: int | None = None, kv_len: int | None = None,
                         q_offset: int = 0, scale: float | None = None,
-                        bq: int = 128, bk: int = 128, kv_cast=None):
+                        bq: int = 128, bk: int = 128, kv_cast=None,
+                        variant: str | None = None):
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D), Hq % Hkv == 0.
 
     Query row r sits at key position r + q_offset. It keeps key c when
@@ -135,14 +180,16 @@ def flash_attention_all(q, k, v, *, causal: bool = True,
     zeros to multiples of (bq, bk), the tiles of the Pallas kernel's
     block skip; padded keys are masked. `kv_cast` (bf16) rounds f32 K/V
     to bf16 before use. See `ref.flash_attention_ref` for the edge
-    values.
+    values. `variant`, "rows" or "tile", names the kernel instance; None
+    (the static path) takes `kernel_variant`'s choice. It is checked on
+    every device; the plain version computes the same function for both.
 
     Returns (o (B, Hq, Sq, D) f32, lse (B, Hq, Sq) f32, nvis (B, Hq, Sq)
     f32: the K tiles each row's query tile executed). On CUDA, o is a
     view of a (B, Sq, Hq, D) tensor.
     """
     _validate(q, k, v, causal=causal, window=window, kv_len=kv_len, bq=bq,
-              bk=bk)
+              bk=bk, kv_cast=kv_cast, variant=variant)
     sk = k.shape[2]
     kv_len = sk if kv_len is None else min(int(kv_len), sk)
     if scale is None:
@@ -157,7 +204,7 @@ def flash_attention_all(q, k, v, *, causal: bool = True,
                for t in tensors):
         raise ValueError(f"flash_attention: all operands must be on one "
                          f"device, got {[str(t.device) for t in tensors]}")
-    return _launch(q, k, v, **kw)
+    return _launch(q, k, v, variant=variant, **kw)
 
 
 def _check_multiples(q, k, bq, bk):
