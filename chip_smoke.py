@@ -57,7 +57,33 @@ without printing a result:
      with the flash and the gather core: the greedy tokens must be
      identical; then one short int8 static run at the full width,
      sc_matmul once per dense projection and flash_attention never;
- 10. print the kernels line, the card line, then the result line.
+ 10. the sampler on the card against the same sampler on CPU copies of
+     the same (8, 151936) logits over a grid of temperature, top-k,
+     top-p, seeds and positions: the lanes' random bits and uniforms
+     equal exactly, the tokens equal but for near ties (perturbed
+     scores within 1e-5 relative), each printed and counted;
+ 11. phase 5's drain with half of its requests sampled (temperature
+     0.8, top-k 50, top-p 0.9), twice: sampled tokens drawn, the two
+     drains token-identical, paged_attention counted as in phase 5;
+ 12. qwen2_moe_a2_7b at its full width (24 layers, d_model 2048, 16
+     heads and KV heads, 60 routed experts padded to 64, top-4, 4
+     shared, d_ff 1408): the mixed trace through the engine (bf16, f32
+     pool, exact, fused core), paged_attention once per layer of every
+     forward, sc_matmul and flash_attention never; then the f32 check
+     of phase 6 through 2 layers of its width;
+ 13. its static path at batch 8, prompt 1024, gen 32: flash_attention
+     24 x 33 times (tile 24, rows 24 x 32);
+ 14. a short int8 drain (4 requests, 8 new tokens): sc_matmul 208 times
+     a layer of every forward (4 attention projections and 3 for each
+     of the 64 padded and 4 shared experts, each quantized on its own),
+     paged_attention never;
+ 15. the device time by group of one MoE decode forward (routing and
+     dispatch, expert products, attention, the rest) beside the bytes
+     it must read at the card's memory rate;
+ 16. print the kernels line, the card line, then the result line.
+Each phase's seconds are logged as it ends. Phase 4 also times each
+kernel at the qwen2_moe_a2_7b shapes (4b), and phase 3 holds sc_matmul
+to its plain version at the expert products' shapes.
 
 Kernels: paged_attention (exact engine path; its rows instance at
 decode, its tensor-core tile instance at a prefill chunk), sc_matmul
@@ -411,6 +437,23 @@ SC_MODES = ("int8", "artemis_mxu", "artemis")
 # prefill chunk (8 lanes x 32 tokens)
 SC_SHAPES = ((4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096))
 SC_ROWS = (("decode", 8), ("prefill_chunk", 256))
+# qwen2_moe_a2_7b's products as (K, N): the expert FFN's w_gate and w_up,
+# its w_down, and the attention's wq, wk, wv and wo (16 x 128 = 2048 on
+# both sides). Each routed expert gets its capacity in rows: 1 at a
+# decode of 8 lanes (max(int(1.25 * 8 * 4 / 64), 1)), 20 at a prefill
+# chunk of 8 x 32 tokens; the shared experts and the attention take all
+# 8 rows of a decode and all 256 of a chunk
+MOE_SC_SHAPES = ((2048, 1408), (1408, 2048), (2048, 2048))
+MOE_SC_ROWS = (("decode_expert", 1), ("decode_shared", 8),
+               ("prefill_expert", 20), ("prefill_shared", 256))
+# the policy's defaults, which a call may leave out
+SC_DEFAULTS = dict(acc_depth=20, readout_bits=8, rbar=63.5)
+# (M, K, N, kwargs) of every call held bit for bit against the plain version
+SC_CHECKED: set = set()
+
+
+def _sc_key(m, k, n, kw) -> tuple:
+    return (m, k, n, tuple(sorted(dict(SC_DEFAULTS, **kw).items())))
 
 
 def _int8(gen, *shape):
@@ -429,6 +472,7 @@ def _sc_compare(a, b, label, **kw):
     out = sc_matmul_quantized(a, b, **kw)
     torch.cuda.synchronize()
     ref = sc_matmul_ref(a, b, **kw)
+    SC_CHECKED.add(_sc_key(*a.shape, b.shape[1], kw))
     if out.shape != ref.shape or out.dtype != ref.dtype:
         raise AssertionError(f"sc_matmul {label} {kw}: {out.shape} "
                              f"{out.dtype} vs plain {ref.shape} {ref.dtype}")
@@ -518,7 +562,63 @@ def check_sc_matmul() -> int:
         f"{SC_DOT_MS}, K x N in {SC_DOT_KNS}, int8 and artemis_mxu at "
         f"rbar 63.5 and 60.25; all-extreme operands at K 12288 with dots "
         f"of +-12288 * 127**2 and 12288 * 128**2)")
-    return n + n_dot + check_sc_artemis_edges(gen)
+    return n + n_dot + check_sc_artemis_edges(gen) + check_sc_moe_shapes(gen)
+
+
+def check_sc_moe_shapes(gen) -> int:
+    """qwen2_moe_a2_7b's expert and attention products (MOE_SC_SHAPES:
+    K 1408 gives artemis a ragged last group of 8) at the rows they take
+    (MOE_SC_ROWS), in every mode; bit-equal to the plain version."""
+    n = 0
+    for k, nn in MOE_SC_SHAPES:
+        for _, m in MOE_SC_ROWS:
+            a, b = _int8(gen, m, k), _int8(gen, k, nn)
+            for mode in SC_MODES:
+                _sc_compare(a, b, f"M {m} K {k} N {nn}", mode=mode)
+                n += 1
+    log(f"sc_matmul: {n} cases at the qwen2_moe_a2_7b shapes "
+        f"bit-equal (K x N in {MOE_SC_SHAPES}, M in "
+        f"{tuple(m for _, m in MOE_SC_ROWS)}, every mode)")
+    return n
+
+
+@contextlib.contextmanager
+def sc_path_shapes(into: set):
+    """Records the (M, K, N, kwargs) of every sc_matmul call made inside
+    the block, through the name `core.artemis_matmul` calls; the wrapper
+    itself, and its launch count, run as they are."""
+    import importlib
+    # the module, not the function of that name the package exports
+    am = importlib.import_module("repro_torch.core.artemis_matmul")
+    real = am.sc_matmul_quantized
+
+    def recording(aq, bq, **kw):
+        into.add(_sc_key(aq.shape[0], aq.shape[1], bq.shape[1], kw))
+        return real(aq, bq, **kw)
+
+    am.sc_matmul_quantized = recording
+    try:
+        yield into
+    finally:
+        am.sc_matmul_quantized = real
+
+
+def check_sc_path_shapes(shapes: set) -> dict:
+    """Every sc_matmul shape and setting the main path ran, held against
+    the plain version: those phases 3-4 compared are counted, the rest
+    compared now on random operands."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    new = sorted(shapes - SC_CHECKED, key=str)
+    for m, k, n, kw in new:
+        _sc_compare(_int8(gen, m, k), _int8(gen, k, n),
+                    f"path shape M {m} K {k} N {n}", **dict(kw))
+    log(f"sc_matmul: the main path ran {len(shapes)} shapes and settings; "
+        f"{len(shapes) - len(new)} were compared in phases 3-4, {len(new)} "
+        f"now, all bit-equal: "
+        + ", ".join(f"{dict(kw)['mode']} {m}x{k}x{n}" for m, k, n, kw in new))
+    return dict(n_shapes=len(shapes), n_compared_here=len(new))
 
 
 def check_sc_artemis_edges(gen) -> int:
@@ -639,7 +739,8 @@ def _kernel_us(fn, n_calls=10) -> dict:
     return out
 
 
-def time_sc_matmul() -> list[dict]:
+def time_sc_matmul(shapes=SC_SHAPES, m_rows=SC_ROWS,
+                   model="qwen3_8b") -> list[dict]:
     """Each full-width projection shape at decode and prefill-chunk M,
     in every mode: the kernel against its plain version once more (bit
     equality), then kernel (per call, and on the device alone), plain
@@ -653,9 +754,9 @@ def time_sc_matmul() -> list[dict]:
     gen.manual_seed(3)
     copies = 4
     rows = []
-    for k, n in SC_SHAPES:
+    for k, n in shapes:
         bs = [_int8(gen, k, n) for _ in range(copies)]
-        for label, m in SC_ROWS:
+        for label, m in m_rows:
             a = _int8(gen, m, k)
             # torch._int_mm takes M > 16: decode rows are zero-padded
             # to 32, and only the first M rows of its result are used
@@ -680,8 +781,8 @@ def time_sc_matmul() -> list[dict]:
                     library_ms = _adaptive_ms(lambda i: torch._int_mm(
                         a_lib, bs[i % copies]))
                 bound_ms, bound_by, n_bytes, ops = _sc_bound(mode, m, k, n)
-                row = dict(mode=mode, shape=label, M=m, K=k, N=n,
-                           max_abs_err=0.0, ms=ms, device_ms=device_ms,
+                row = dict(model=model, mode=mode, shape=label, M=m, K=k,
+                           N=n, max_abs_err=0.0, ms=ms, device_ms=device_ms,
                            plain_ms=plain_ms,
                            library_ms=library_ms, bound_ms=bound_ms,
                            bound_by=bound_by, bytes=n_bytes, ops=ops)
@@ -996,12 +1097,16 @@ def time_flash_attention(cfg) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 
-def smoke_trace(cfg):
+# the sampled lanes of the mixed drains: half of the requests
+MIXED = dict(sampled_fraction=0.5, temperature=0.8, top_k=50, top_p=0.9)
+
+
+def smoke_trace(cfg, **sampling):
     from repro_torch.serve import TrafficConfig, synth_trace
     return synth_trace(TrafficConfig(
         n_requests=8, arrival_rate=1e9, prompt_len_min=128,
         prompt_len_max=256, gen_len_min=32, gen_len_max=32,
-        vocab_size=cfg.vocab_size, seed=0))
+        vocab_size=cfg.vocab_size, seed=0, **sampling))
 
 
 def engine_config(attn_impl: str):
@@ -1392,6 +1497,373 @@ def static_checks(cfg, model) -> dict:
                 int8_sc_matmul_launches=counts["sc_matmul"])
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the sampler on the card
+# ---------------------------------------------------------------------------
+
+SAMPLER_NEAR_TIE = 1e-5     # relative gap of two perturbed scores
+# (temperature, top_k, top_p) of the grid; every lane its own seed and
+# position, two sets of them
+SAMPLER_GRID = [(t, k, p) for t in (0.0, 0.5, 0.8, 1.3)
+                for k, p in ((0, 1.0), (50, 0.9), (1000, 0.3), (1, 1.0))]
+
+
+def check_sampler(cfg) -> dict:
+    """The sampler on CUDA against the same sampler on CPU copies of the
+    same (8, vocab) logits, over SAMPLER_GRID x 2 sets of per-lane seeds
+    and positions: the lanes' random bits and uniforms equal exactly,
+    the tokens equal. Two tokens may differ only where their perturbed
+    scores, computed on the CPU, lie within SAMPLER_NEAR_TIE relative of
+    each other (the two devices' exp and log round their last bits
+    apart); each such near tie is printed and counted."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.serve import sampler
+    b, v = 8, cfg.vocab_size
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    logits = (torch.randn((b, v), generator=gen, device="cuda") * 3).to(
+        torch.bfloat16)
+    logits_cpu = logits.cpu()
+    lane_sets = [(np.asarray([0, 42, 2**32 - 1, 7, 7, 123456, 1, 2],
+                             np.uint32),
+                  np.asarray([0, 3, 9, 0, 1, 31, 255, 4], np.int32)),
+                 (np.arange(8, dtype=np.uint32) * 1000003,
+                  np.arange(8, dtype=np.int32) * 17)]
+    n_tokens = n_near = n_sampled = 0
+    for temp, top_k, top_p in SAMPLER_GRID:
+        for seed, pos in lane_sets:
+            args = (np.full(b, temp, np.float32), np.full(b, top_k, np.int32),
+                    np.full(b, top_p, np.float32), seed, pos)
+            keys = sampler.lane_key(torch.from_numpy(seed.astype(np.int64)),
+                                    torch.from_numpy(pos.astype(np.int64)))
+            for fn in (prng.random_bits, prng.uniform):
+                got, want = fn(keys.cuda(), (v,)).cpu(), fn(keys, (v,))
+                if not torch.equal(got, want):
+                    raise AssertionError(f"sampler: {fn.__name__} differ "
+                                         f"between CUDA and the CPU")
+            got = sampler.sample_tokens(logits, *args)
+            want = sampler.sample_tokens(logits_cpu, *args)
+            n_tokens += b
+            n_sampled += b if temp > 0 else 0
+            for lane in np.flatnonzero(got != want):
+                scores = sampler.perturbed_scores(
+                    logits_cpu, *sampler.lane_tensors("cpu", *args))[lane]
+                s_got, s_want = (float(scores[int(got[lane])]),
+                                 float(scores[int(want[lane])]))
+                gap = abs(s_got - s_want) / max(abs(s_got), abs(s_want),
+                                                1e-30)
+                if temp <= 0 or not np.isfinite(gap) or \
+                        gap > SAMPLER_NEAR_TIE:
+                    raise AssertionError(
+                        f"sampler: lane {lane} at (t {temp}, top_k {top_k}, "
+                        f"top_p {top_p}) draws {got[lane]} on CUDA and "
+                        f"{want[lane]} on the CPU, scores {s_got} and "
+                        f"{s_want} (relative gap {gap:.2e})")
+                n_near += 1
+                log(f"  near tie: lane {lane} (t {temp}, top_k {top_k}, "
+                    f"top_p {top_p}): {got[lane]} vs {want[lane]}, relative "
+                    f"gap {gap:.2e}")
+    t_ms = cuda_time_ms(lambda i: sampler.sample_tokens(
+        logits, np.full(b, 0.8, np.float32), np.full(b, 50, np.int32),
+        np.full(b, 0.9, np.float32), lane_sets[0][0], lane_sets[0][1]), 10)
+    log(f"  {len(SAMPLER_GRID) * len(lane_sets)} configurations x {b} lanes "
+        f"of {v} logits ({n_sampled} sampled lanes): bits and uniforms "
+        f"equal; tokens equal but for {n_near} near ties | one sampled "
+        f"call {t_ms:.2f} ms")
+    return dict(n_tokens=n_tokens, n_near_ties=n_near, sample_ms=t_ms)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: a mixed greedy/sampled drain at the full qwen3_8b width
+# ---------------------------------------------------------------------------
+
+
+def check_paged_counts(cfg, run, label) -> dict:
+    """paged_attention once per layer of every forward, its tile
+    instance once per layer of every prefill-chunk forward; the other
+    kernels never."""
+    counts = run["counts"]
+    launches = counts.get("paged_attention", 0)
+    by_variant = {v: counts.get(f"paged_attention.{v}", 0)
+                  for v in PA_VARIANTS}
+    want = cfg.n_layers * run["n_forwards"]
+    want_tile = cfg.n_layers * run["n_prefill_forwards"]
+    log(f"  {label}: paged_attention launches {launches} = {cfg.n_layers} "
+        f"layers x {run['n_forwards']} forwards? {launches == want}; tile "
+        f"{by_variant['tile']} = {cfg.n_layers} x {run['n_prefill_forwards']}"
+        f" prefill-chunk forwards? {by_variant['tile'] == want_tile}; rows "
+        f"{by_variant['rows']}; sc_matmul {counts.get('sc_matmul', 0)}, "
+        f"flash_attention {counts.get('flash_attention', 0)}")
+    if launches != want or by_variant["tile"] != want_tile or \
+            not want_tile or sum(by_variant.values()) != launches:
+        raise AssertionError(f"{label}: paged_attention launches "
+                             f"{by_variant}, want {want} of which tile "
+                             f"{want_tile}")
+    if counts.get("sc_matmul", 0) or counts.get("flash_attention", 0):
+        raise AssertionError(f"{label}: the exact engine path launched "
+                             f"{counts}")
+    return dict(launches=launches, launches_by_variant=by_variant)
+
+
+def mixed_drain(cfg) -> dict:
+    """Phase 5's drain with half of the requests sampled, twice on the
+    same weights: sampled tokens are drawn, the two drains give the
+    same tokens, and paged_attention runs as in phase 5."""
+    import torch
+    from repro_torch.models import transformer
+    trace = smoke_trace(cfg, **MIXED)
+    model = transformer.init(cfg, seed=0, device="cuda")
+    drain(cfg, model, trace[:1], "fused")                 # warm-up
+    runs = [drain(cfg, model, trace, "fused") for _ in range(2)]
+    m = runs[0]["metrics"]
+    tok_s = m["n_generated_tokens"] / runs[0]["wall_s"]
+    same = all((runs[0]["results"][r] == runs[1]["results"][r]).all()
+               for r in runs[0]["results"])
+    log(f"  drained {m['n_done']} requests, {m['n_generated_tokens']} tokens "
+        f"({m['n_sampled_tokens']} sampled) in {runs[0]['wall_s']:.3f} s "
+        f"wall ({tok_s:.1f} tok/s; again {runs[1]['wall_s']:.3f} s); the "
+        f"two drains token-identical? {same}")
+    if not m["n_sampled_tokens"]:
+        raise AssertionError("the mixed drain sampled no token")
+    if not same:
+        raise AssertionError("two drains of the mixed trace diverged")
+    counts = check_paged_counts(cfg, runs[0], "mixed drain")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(counts, tok_s=tok_s, wall_s=runs[0]["wall_s"],
+                n_forwards=runs[0]["n_forwards"],
+                n_sampled_tokens=m["n_sampled_tokens"])
+
+
+# ---------------------------------------------------------------------------
+# phases 12-15: qwen2_moe_a2_7b at full width
+# ---------------------------------------------------------------------------
+
+
+def moe_layer_products(cfg) -> int:
+    """sc_matmul launches of one MoE layer under a quantized policy: the
+    4 attention projections and 3 for each of the padded and shared
+    experts' FFNs (each expert quantized on its own)."""
+    return 4 + 3 * (cfg.padded_experts + cfg.n_shared_experts)
+
+
+def moe_drain(cfg, model) -> dict:
+    """The mixed trace through the MoE engine at full width, bf16, f32
+    pool, exact, fused core; then, at f32 through 2 layers of the full
+    width, the gather and fused drains of the same trace must give the
+    same tokens."""
+    import torch
+    from repro_torch.models import transformer
+    trace = smoke_trace(cfg, **MIXED)
+    drain(cfg, model, trace[:1], "fused")                 # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    run = drain(cfg, model, trace, "fused")
+    m = run["metrics"]
+    tok_s = m["n_generated_tokens"] / run["wall_s"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  drained {m['n_done']} requests, {m['n_generated_tokens']} tokens "
+        f"({m['n_sampled_tokens']} sampled) in {run['wall_s']:.3f} s wall "
+        f"({tok_s:.2f} tok/s; {run['n_forwards']} forwards, "
+        f"{run['wall_s'] / run['n_forwards'] * 1e3:.2f} ms each); "
+        f"{m['n_preemptions']} preemptions; peak device memory "
+        f"{peak:.2f} GiB | {card_line()}")
+    if not m["n_sampled_tokens"]:
+        raise AssertionError("the MoE drain sampled no token")
+    counts = check_paged_counts(cfg, run, "qwen2_moe drain")
+    cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    model2 = transformer.init(cfg2, seed=0, device="cuda")
+    gather = drain(cfg2, model2, trace, "gather")
+    fused = drain(cfg2, model2, trace, "fused")
+    if gather["counts"]:
+        raise AssertionError(f"gather drain launched {gather['counts']}")
+    check_paged_counts(cfg2, fused, "f32 fused drain")
+    same = all((gather["results"][r] == fused["results"][r]).all()
+               for r in gather["results"])
+    n_tok = sum(len(v) for v in fused["results"].values())
+    log(f"  f32, 2 layers of the full width: gather and fused drains "
+        f"token-identical over {n_tok} tokens "
+        f"({fused['metrics']['n_sampled_tokens']} sampled)? {same}")
+    if not same:
+        raise AssertionError("the fused MoE drain diverged from gather")
+    del model2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(counts, tok_s=tok_s, wall_s=run["wall_s"],
+                n_forwards=run["n_forwards"],
+                n_prefill_forwards=run["n_prefill_forwards"],
+                n_sampled_tokens=m["n_sampled_tokens"], peak_gib=peak)
+
+
+def moe_static(cfg, model) -> dict:
+    """`--mode static` at batch 8, prompt 1024, gen 32, exact: the flash
+    tile instance once per layer at the prefill, its rows instance once
+    per layer of every decode."""
+    static_run(cfg, model, batch=8, prompt_len=64, gen_len=2)   # warm-up
+    run = static_run(cfg, model, batch=8, prompt_len=1024, gen_len=32)
+    counts = run["counts"]
+    by_variant = {v: counts.get(f"flash_attention.{v}", 0)
+                  for v in FA_VARIANTS}
+    want = {"tile": cfg.n_layers, "rows": cfg.n_layers * 32}
+    step_ms = run["decode_s"] / 32 * 1e3
+    log(f"  prefill {run['prefill_s']*1e3:.2f} ms (8 x 1024 tokens) | decode "
+        f"{run['decode_tok_per_s']:.2f} tok/s, {step_ms:.2f} ms per step | "
+        f"{card_line()}")
+    log(f"  launches: flash_attention {counts.get('flash_attention', 0)} = "
+        f"{cfg.n_layers} x 33? tile {by_variant['tile']}, rows "
+        f"{by_variant['rows']} (want {want}); paged_attention "
+        f"{counts.get('paged_attention', 0)}, sc_matmul "
+        f"{counts.get('sc_matmul', 0)}")
+    if by_variant != want or counts.get("flash_attention", 0) != \
+            cfg.n_layers * 33:
+        raise AssertionError(f"MoE static run: flash_attention launches "
+                             f"{by_variant}, want {want}")
+    if counts.get("paged_attention", 0) or counts.get("sc_matmul", 0):
+        raise AssertionError(f"the exact static path launched {counts}")
+    return dict(prefill_ms=run["prefill_s"] * 1e3,
+                decode_tok_s=run["decode_tok_per_s"], step_ms=step_ms,
+                launches=counts["flash_attention"],
+                launches_by_variant=by_variant)
+
+
+def moe_int8_drain(cfg, model) -> dict:
+    """4 requests, 8 new tokens each, int8, gather core: sc_matmul once
+    per product of every layer of every forward (each expert on its
+    own), paged_attention never."""
+    from repro_torch.core.policy import ArithmeticPolicy
+    trace = short_trace(cfg)
+    run = drain(cfg, model, trace, "gather", ArithmeticPolicy(mode="int8"))
+    per_layer = moe_layer_products(cfg)
+    want = per_layer * cfg.n_layers * run["n_forwards"]
+    launches = run["counts"].get("sc_matmul", 0)
+    m = run["metrics"]
+    tok_s = m["n_generated_tokens"] / run["wall_s"]
+    log(f"  int8: {m['n_done']} requests, {m['n_generated_tokens']} tokens "
+        f"in {run['wall_s']:.3f} s wall ({tok_s:.2f} tok/s; "
+        f"{run['n_forwards']} forwards, "
+        f"{run['wall_s'] / run['n_forwards'] * 1e3:.2f} ms each) | "
+        f"sc_matmul launches {launches} = {per_layer} x {cfg.n_layers} "
+        f"layers x {run['n_forwards']} forwards? {launches == want}; "
+        f"paged_attention {run['counts'].get('paged_attention', 0)}")
+    if launches != want or run["counts"].get("paged_attention", 0) or \
+            run["counts"].get("flash_attention", 0):
+        raise AssertionError(f"MoE int8 drain launches {run['counts']}, "
+                             f"want sc_matmul {want} and nothing else")
+    return dict(tok_s=tok_s, wall_s=run["wall_s"],
+                n_forwards=run["n_forwards"], launches=launches)
+
+
+@contextlib.contextmanager
+def moe_scopes():
+    """Profiler ranges around the MoE layer and its expert products, for
+    the profiled forward only."""
+    import importlib
+    import torch
+    moe = importlib.import_module("repro_torch.models.moe")
+    saved = [(name, getattr(moe, name)) for name in ("moe_ffn", "expert_ffn")]
+
+    def scoped(fn, label):
+        def wrapper(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return wrapper
+
+    for name, fn in saved:
+        setattr(moe, name, scoped(fn, name))
+    try:
+        yield
+    finally:
+        for name, fn in saved:
+            setattr(moe, name, fn)
+
+
+def profile_moe_decode(cfg, model) -> dict:
+    """Device time by group of one MoE decode forward (8 lanes at
+    position 160, exact, fused core, f32 pool): routing and dispatch
+    (the MoE layer's kernels outside its expert products), expert
+    products (the routed and shared experts' FFNs), attention (the
+    paged_attention kernel) and the rest; beside the bytes a decode
+    forward must read, the weights (every expert runs, as in the
+    reference) and the lanes' keys, at the card's memory rate."""
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.core.policy import ArithmeticPolicy
+    from repro_torch.serve.backend import _paged_steps
+    from repro_torch.serve.paged_cache import init_paged_cache
+    b, page, pmax, seq = 8, 8, 21, 160
+    _, decode = _paged_steps(cfg, ArithmeticPolicy(), "fused")
+    kv = init_paged_cache(cfg, b * pmax + 1, page, device="cuda").kv
+    bt = (1 + torch.arange(b * pmax, device="cuda", dtype=torch.int32)
+          ).reshape(b, pmax)
+    tokens = torch.randint(0, cfg.vocab_size, (b, 1), device="cuda",
+                           dtype=torch.int32)
+    seq_lens = torch.full((b,), seq, dtype=torch.int32, device="cuda")
+    full = torch.ones(b, dtype=torch.bool, device="cuda")
+
+    def fn():
+        return decode(model, tokens, kv, bt, seq_lens, full)
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with moe_scopes(), torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = attn = 0.0
+    for evt in prof.key_averages():
+        us = evt.self_device_time_total
+        if evt.device_type != DeviceType.CUDA or us <= 0 or \
+                evt.key in ("moe_ffn", "expert_ffn"):
+            continue
+        total += us
+        if "paged_attention" in evt.key:
+            attn += us
+    groups = {"routing and dispatch": 0.0, "expert products": 0.0}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CPU or not evt.kernels:
+            continue
+        node, scope = evt, None
+        while node is not None:
+            if node.name == "expert_ffn":
+                scope = "expert products"
+                break
+            if node.name == "moe_ffn":
+                scope = scope or "routing and dispatch"
+            node = node.cpu_parent
+        if scope:
+            groups[scope] += sum(k.duration for k in evt.kernels)
+    groups["attention"] = attn
+    groups["rest"] = total - sum(groups.values())
+    groups = {k: v * 1e-3 for k, v in groups.items()}
+    total *= 1e-3
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    embed = model.embed.numel() * model.embed.element_size()
+    keys = 2 * cfg.n_layers * b * (seq + 1) * cfg.n_kv_heads * \
+        cfg.resolved_head_dim * kv["k"].element_size()
+    n_bytes = weights - embed + b * model.embed[0].numel() * \
+        model.embed.element_size() + keys
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  profile, MoE decode forward: wall {wall_ms:.2f} ms, device "
+        f"{total:.2f} ms ({total / wall_ms:.1%} busy) | " + " | ".join(
+            f"{g} {ms:.2f}" for g, ms in groups.items())
+        + f" | byte bound {bound_ms:.2f} ms ({n_bytes / 1e9:.2f} GB: the "
+        f"weights, all {cfg.padded_experts} experts, and the keys) = "
+        f"{bound_ms / total:.1%} of the device time | {card_line()}")
+    if total <= 0 or groups["expert products"] <= 0 or attn <= 0:
+        raise AssertionError(f"the MoE decode profile is missing a group: "
+                             f"{groups}")
+    del kv
+    return dict(wall_ms=wall_ms, device_ms=total, groups=groups,
+                bound_ms=bound_ms, bytes=n_bytes)
+
+
 PROFILE_SCOPES = ("sc_matmul", "quantize", "int_einsum", "quant_einsum",
                   "artemis_matmul")
 GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::matmul",
@@ -1534,6 +2006,25 @@ def profile_forwards(cfg, model, mode) -> dict:
     return out
 
 
+class Phases:
+    """Logs each phase's title, and when the next one starts (or at
+    `mark(None)`) the seconds the last one took, kept by its number."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+        self._title, self._t0 = None, 0.0
+
+    def mark(self, title: str | None) -> None:
+        now = time.perf_counter()
+        if self._title is not None:
+            num = self._title.split(" ", 1)[0].rstrip(".")
+            self.seconds[num] = now - self._t0
+            log(f"  (phase {num}: {now - self._t0:.1f} s)")
+        self._title, self._t0 = title, now
+        if title is not None:
+            log(f"== {title}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1556,14 +2047,15 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    phases = Phases()
 
-    log("== 1. card")
+    phases.mark("1. card")
     card = card_line()
     log(f"  {card} | capability {torch.cuda.get_device_capability(0)}")
     if torch.cuda.get_device_capability(0) != (9, 0):
         raise AssertionError("the kernels are built for sm_90a (Hopper)")
 
-    log("== 2. build (one nvcc per source, all started together)")
+    phases.mark("2. build (one nvcc per source, all started together)")
     sources = [sys.modules[fn.__module__].SOURCE
                for fn in (paged_attention, sc_matmul_quantized,
                           flash_attention_all)]
@@ -1588,75 +2080,139 @@ def main() -> int:
                 if spill:
                     raise AssertionError(f"{name} spills")
 
-    log("== 3. kernels against their plain versions")
+    phases.mark("3. kernels against their plain versions")
     pa_err = check_paged_attention()
     n_sc_cases = check_sc_matmul()
     fa_err, n_fa_cases = check_flash_attention()
 
     cfg = configs.get_config("qwen3_8b")
-    log("== 4. kernel timing at the full-width qwen3_8b shapes")
+    moe_cfg = configs.get_config("qwen2_moe_a2_7b")
+    phases.mark("4. kernel timing at the full-width qwen3_8b shapes")
     timing = time_paged_attention(cfg)
     sc_rows = time_sc_matmul()
     fa_rows = time_flash_attention(cfg)
+    phases.mark("4b. kernel timing at the full-width qwen2_moe_a2_7b "
+                "shapes (G = 1, Hq = Hkv = 16; the expert products)")
+    moe_rows = {"paged_attention": time_paged_attention(moe_cfg),
+                "sc_matmul": time_sc_matmul(MOE_SC_SHAPES, MOE_SC_ROWS,
+                                            "qwen2_moe_a2_7b"),
+                "flash_attention": time_flash_attention(moe_cfg)}
+    for rows in (moe_rows["paged_attention"], moe_rows["flash_attention"]):
+        for row in rows:
+            row["model"] = "qwen2_moe_a2_7b"
 
-    log("== 5. full-width qwen3_8b drain: bf16, attn_impl=fused")
+    phases.mark("5. full-width qwen3_8b drain: bf16, attn_impl=fused")
     full = full_width_drain(cfg)
 
-    log("== 6. f32 token identity: gather vs fused")
+    phases.mark("6. f32 token identity: gather vs fused")
     identity_drains(cfg)
 
-    log("== 7. full-width qwen3_8b drains under the quantized policies: "
-        "bf16, attn_impl=gather")
-    quant = quantized_drains(cfg, sc_rows, full["n_forwards"])
+    phases.mark("7. full-width qwen3_8b drains under the quantized "
+                "policies: bf16, attn_impl=gather")
+    path_sc = set()
+    with sc_path_shapes(path_sc):
+        quant = quantized_drains(cfg, sc_rows, full["n_forwards"])
 
-    log("== 8. full-width qwen3_8b static path: bf16, f32 cache, batch 8, "
-        "prompt 1024, gen 32, exact (flash)")
+    phases.mark("8. full-width qwen3_8b static path: bf16, f32 cache, "
+                "batch 8, prompt 1024, gen 32, exact (flash)")
     static = static_drain(cfg)
 
-    log("== 9. static path: f32 token identity (flash vs gather), int8 run")
-    static.update(static_checks(cfg, static.pop("model")))
+    phases.mark("9. static path: f32 token identity (flash vs gather), "
+                "int8 run")
+    with sc_path_shapes(path_sc):
+        static.update(static_checks(cfg, static.pop("model")))
     gc.collect()
     torch.cuda.empty_cache()
+
+    phases.mark("10. the sampler on the card: CUDA against the CPU, (8, "
+                "151936) logits")
+    samp = check_sampler(cfg)
+
+    phases.mark("11. full-width qwen3_8b mixed drain: half the requests "
+                "sampled (t 0.8, top-k 50, top-p 0.9), bf16, "
+                "attn_impl=fused, twice")
+    mixed = mixed_drain(cfg)
+
+    phases.mark("12. full-width qwen2_moe_a2_7b drain: bf16, f32 pool, "
+                "exact, attn_impl=fused, half the requests sampled")
+    from repro_torch.models import transformer
+    t0 = time.perf_counter()
+    moe_model = transformer.init(moe_cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  weights: {sum(p.numel() for p in moe_model.parameters())/1e9:.3f}"
+        f" B parameters ({moe_cfg.padded_experts} experts stored), "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    moe = moe_drain(moe_cfg, moe_model)
+    phases.mark("13. full-width qwen2_moe_a2_7b static path: batch 8, "
+                "prompt 1024, gen 32, exact (flash)")
+    moe.update(static=moe_static(moe_cfg, moe_model))
+    phases.mark("14. full-width qwen2_moe_a2_7b int8 drain: 4 requests, 8 "
+                "new tokens, attn_impl=gather")
+    with sc_path_shapes(path_sc):
+        moe.update(int8=moe_int8_drain(moe_cfg, moe_model))
+    phases.mark("15. profile of one qwen2_moe_a2_7b decode forward (exact, "
+                "fused)")
+    moe.update(profile=profile_moe_decode(moe_cfg, moe_model))
+    del moe_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases.mark("16. sc_matmul at every shape the main path gave it")
+    sc_path = check_sc_path_shapes(path_sc)
+    phases.mark(None)
 
     decode = timing[0]
     # sc_matmul's headline row: int8 at the decode shape of w_gate/w_up,
     # the one with a library call; every mode and shape is in "shapes"
     head = next(r for r in sc_rows if r["mode"] == "int8"
                 and r["M"] == 8 and (r["K"], r["N"]) == (4096, 12288))
+    pa_paths = {"qwen3_8b engine": full["launches"],
+                "qwen3_8b mixed engine": mixed["launches"],
+                "qwen2_moe_a2_7b engine": moe["launches"]}
+    sc_paths = {**{f"qwen3_8b {k} engine": q["launches"]
+                   for k, q in quant.items()},
+                "qwen2_moe_a2_7b int8 engine": moe["int8"]["launches"]}
+    fa_paths = {"qwen3_8b static": static["launches"],
+                "qwen2_moe_a2_7b static": moe["static"]["launches"]}
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/paged_attention/csrc/"
                   "paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention/paged_attention.py:58",
-        "launches": full["launches"],
+        "launches": sum(pa_paths.values()),
+        "launches_by_path": pa_paths,
         "launches_by_variant": full["launches_by_variant"],
-        "max_abs_err": max(*pa_err.values(),
-                           *(r["max_abs_err"] for r in timing)),
+        "max_abs_err": max(*pa_err.values(), *(
+            r["max_abs_err"] for r in timing + moe_rows["paged_attention"])),
         "max_abs_err_by_variant": pa_err,
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
         "library_ms": decode["library_ms"],
-        "shapes": timing,
+        "shapes": timing + moe_rows["paged_attention"],
     }, {
         "name": "sc_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/sc_matmul/csrc/sc_matmul.cu",
         "replaces": "src/repro/kernels/sc_matmul/sc_matmul.py:49",
-        "launches": sum(q["launches"] for q in quant.values()),
+        "launches": sum(sc_paths.values()),
+        "launches_by_path": sc_paths,
         "max_abs_err": 0.0, "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "launches_by_mode": {k: q["launches"] for k, q in quant.items()},
-        "cases_bit_equal": n_sc_cases + len(sc_rows),
-        "shapes": sc_rows,
+        "cases_bit_equal": n_sc_cases + len(sc_rows)
+        + len(moe_rows["sc_matmul"]) + sc_path["n_compared_here"],
+        "path_shapes": sc_path,
+        "shapes": sc_rows + moe_rows["sc_matmul"],
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:48",
-        "launches": static["launches"],
+        "launches": sum(fa_paths.values()),
+        "launches_by_path": fa_paths,
         "launches_by_variant": static["launches_by_variant"],
         "max_abs_err": max(*fa_err.values(),
-                           *(e for r in fa_rows
+                           *(e for r in fa_rows + moe_rows["flash_attention"]
                              for e in r["max_abs_err_by_variant"].values())),
         "max_abs_err_by_variant": {v: max(fa_err[v], *(
             r["max_abs_err_by_variant"][v] for r in fa_rows))
@@ -1665,16 +2221,19 @@ def main() -> int:
         "bound_ms": fa_rows[0]["bound_ms"],
         "bound_by": fa_rows[0]["bound_by"],
         "library_ms": fa_rows[0]["library_ms"],
-        "cases_within_tol": {v: n_fa_cases[v] + len(fa_rows)
-                             for v in FA_VARIANTS},
-        "shapes": fa_rows,
+        "cases_within_tol": {
+            v: n_fa_cases[v] + len(fa_rows) + len(moe_rows["flash_attention"])
+            for v in FA_VARIANTS},
+        "shapes": fa_rows + moe_rows["flash_attention"],
     }]
     log(json.dumps({"kernels": kernels,
                     "drain": {"tok_s": full["tok_s"],
                               "wall_s": full["wall_s"],
                               "n_forwards": full["n_forwards"]},
                     "quantized_drains": quant,
-                    "static": static}))
+                    "static": static, "sampler": samp,
+                    "mixed_drain": mixed, "qwen2_moe_a2_7b": moe,
+                    "phase_s": phases.seconds}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

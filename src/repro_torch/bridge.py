@@ -4,7 +4,11 @@
 The reference keeps its weights as a nested dict of arrays whose
 `"layers"` subtree is stacked on a leading L axis (it scans over
 layers); the port holds one `Block` per layer. `params_from_numpy`
-unstacks that axis, `params_to_numpy` restacks it. Both take and give
+unstacks that axis, `params_to_numpy` restacks it. The port's modules
+carry the reference's leaf names, so a path maps to an attribute path:
+`layers/moe/experts/w_up` (L, E, d, f) is `layers[i].moe.experts.w_up`
+(E, d, f), and likewise the router (L, d, E) and the shared experts
+(L, Ns, d, f). Both take and give
 numpy arrays only, so this module needs no JAX: a caller converts with
 `jax.tree.map(np.asarray, params)` on its side.
 """

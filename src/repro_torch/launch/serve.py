@@ -14,7 +14,12 @@
                   driven by a synthetic Poisson trace, over the paged KV
                   backend (COW prefix sharing, `--prefix-groups` et
                   al.). `--attn-impl fused` runs attention through the
-                  hand-written paged-attention kernel. Greedy decoding.
+                  hand-written paged-attention kernel. With
+                  `--temperature > 0` a share of the requests
+                  (`--sampled-fraction`) decodes stochastically on
+                  per-request RNG lanes (`--top-k`, `--top-p`,
+                  `--sample-seed`); `--trace-json` exports the run's
+                  event log as Chrome trace-event JSON.
                   `--policy int8|artemis|artemis_mxu` runs every dense
                   projection through the hand-written sc_matmul kernel
                   and the attention contractions through the int8
@@ -24,8 +29,8 @@ It prints the same summary lines as `repro.launch.serve`. Weights are
 random, drawn from `--seed` with a torch generator on `--device`
 (default cuda), and so are the static prompts (from `--seed` + 1, as
 the reference draws them with jax.random): the port's tokens differ
-from the reference's for the same seed. MoE, the recurrent families
-and sampled decoding are not ported yet.
+from the reference's for the same seed. The dense and MoE families
+run; the recurrent and multimodal ones are not ported yet.
 
 Wall-clock use here is intentional: the CLI reports real prefill,
 decode and drain seconds next to the virtual-clock metrics.
@@ -44,7 +49,8 @@ from repro_torch.launch import steps as stepslib
 from repro_torch.models import model as modellib
 from repro_torch.models import transformer
 from repro_torch.serve import (EngineConfig, ServeEngine, TrafficConfig,
-                               synth_trace)
+                               export_chrome_trace, synth_trace)
+from repro_torch.serve.traffic import trace_stats
 
 
 def _sync(dev: torch.device) -> None:
@@ -112,20 +118,31 @@ def serve_engine(arch: str = "qwen3_8b", smoke: bool = True,
                  max_batch: int = 8, scheduler: str = "cost",
                  prefill_chunk: int = 32, prefix_sharing: bool = True,
                  prefix_groups: int = 0, prefix_len: int = 0,
+                 sampled_fraction: float = 0.0, temperature: float = 0.8,
+                 top_k: int = 0, top_p: float = 1.0, sample_seed: int = -1,
+                 observability: str = "metrics",
+                 trace_json: str | None = None,
                  attn_impl: str = "gather", device="cuda",
                  params=None) -> dict:
-    """Continuous-batching serving over a synthetic Poisson trace with
-    greedy decoding; the trace is the reference CLI's for the same
-    arguments."""
+    """Continuous-batching serving over a synthetic Poisson trace; the
+    trace is the reference CLI's for the same arguments. With
+    `sampled_fraction > 0` that share of the requests decodes
+    stochastically (temperature/top-k/top-p on per-request RNG lanes,
+    deterministic for a fixed trace seed); the rest stay greedy.
+    `trace_json` (which implies observability="trace") exports the
+    run's event log as Chrome trace-event JSON over the virtual
+    clock."""
     dev = resolve_device(device)
     cfg = configs.get_config(arch, smoke=smoke)
+    if trace_json is not None:
+        observability = "trace"
     max_len = prefix_len + prompt_len + gen_len
     ecfg = EngineConfig(
         page_size=page_size, n_pages=n_pages, max_batch=max_batch,
         max_pages_per_seq=max(1, -(-max_len // page_size)) + 1,
         prefill_chunk=prefill_chunk, scheduler=scheduler,
         prefix_sharing=prefix_sharing, max_seq_len=max(max_len + 1, 2),
-        attn_impl=attn_impl)
+        observability=observability, attn_impl=attn_impl)
     if params is None:
         params = transformer.init(cfg, seed=seed, device=dev)
     eng = ServeEngine(cfg, params=params,
@@ -136,7 +153,9 @@ def serve_engine(arch: str = "qwen3_8b", smoke: bool = True,
         prompt_len_min=max(1, prompt_len // 2), prompt_len_max=prompt_len,
         gen_len_min=max(1, gen_len // 2), gen_len_max=gen_len,
         vocab_size=cfg.vocab_size, seed=seed,
-        n_prefix_groups=prefix_groups, prefix_len=prefix_len))
+        n_prefix_groups=prefix_groups, prefix_len=prefix_len,
+        sampled_fraction=sampled_fraction, temperature=temperature,
+        top_k=top_k, top_p=top_p, sample_seed=sample_seed))
     eng.submit_trace(trace)
     _sync(dev)
     t0 = time.perf_counter()
@@ -148,8 +167,14 @@ def serve_engine(arch: str = "qwen3_8b", smoke: bool = True,
     m["wall_tok_per_s"] = m["n_generated_tokens"] / max(wall, 1e-9)
     m["device"] = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu")
+    if trace_json is not None:
+        export_chrome_trace(
+            eng.events, trace_json,
+            metadata={"arch": arch, "seed": seed,
+                      "scheduler": scheduler, **trace_stats(trace)})
     return {"metrics": m, "results": eng.results(),
-            "attribution": eng.attribution(), "engine": eng}
+            "events": eng.events, "attribution": eng.attribution(),
+            "engine": eng}
 
 
 def summary_lines(m: dict) -> list[str]:
@@ -209,6 +234,30 @@ def main(argv: list[str] | None = None) -> None:
                     help="tokens shared within a prefix group")
     ap.add_argument("--seed", type=int, default=0,
                     help="weights + synthetic trace seed")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="engine: sampling temperature for sampled "
+                         "requests (0 = all-greedy trace)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="engine: top-k truncation for sampled "
+                         "requests (0 = none)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="engine: nucleus mass for sampled requests "
+                         "(1.0 = none)")
+    ap.add_argument("--sample-seed", type=int, default=-1,
+                    help="engine: fixed RNG-lane seed for every "
+                         "sampled request (-1 = per-request seeds "
+                         "from the trace rng)")
+    ap.add_argument("--sampled-fraction", type=float, default=None,
+                    help="engine: fraction of requests decoded "
+                         "stochastically (default: 1.0 when "
+                         "--temperature > 0, else 0)")
+    ap.add_argument("--observability", default="metrics",
+                    choices=["metrics", "trace"],
+                    help="engine: 'trace' retains the structured "
+                         "event log (span assembly / Perfetto export)")
+    ap.add_argument("--trace-json", default=None, metavar="PATH",
+                    help="engine: export the run as Chrome trace-event "
+                         "JSON to PATH (implies --observability trace)")
     ap.add_argument("--attn-impl", default="gather",
                     choices=["gather", "fused"],
                     help="engine: paged attention core; 'fused' walks "
@@ -219,6 +268,12 @@ def main(argv: list[str] | None = None) -> None:
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
+    sampled_fraction = args.sampled_fraction
+    if sampled_fraction is None:
+        sampled_fraction = 1.0 if args.temperature > 0 else 0.0
+    elif sampled_fraction > 0 and args.temperature <= 0:
+        ap.error("--sampled-fraction > 0 requires --temperature > 0")
+
     if args.mode == "static":
         out = serve(arch=args.arch, smoke=not args.full, batch=args.batch,
                     prompt_len=args.prompt_len, gen_len=args.gen_len,
@@ -237,9 +292,17 @@ def main(argv: list[str] | None = None) -> None:
         scheduler=args.scheduler, prefill_chunk=args.prefill_chunk,
         prefix_sharing=not args.no_prefix_sharing,
         prefix_groups=args.prefix_groups, prefix_len=args.prefix_len,
+        sampled_fraction=sampled_fraction, temperature=args.temperature,
+        top_k=args.top_k, top_p=args.top_p, sample_seed=args.sample_seed,
+        observability=args.observability, trace_json=args.trace_json,
         attn_impl=args.attn_impl, device=args.device)
-    for line in summary_lines(out["metrics"]):
+    m = out["metrics"]
+    for line in summary_lines(m):
         print(line)
+    if args.trace_json:
+        print(f"trace: wrote {args.trace_json} "
+              f"({m['n_events']} counted events) — open at "
+              f"https://ui.perfetto.dev")
 
 
 if __name__ == "__main__":

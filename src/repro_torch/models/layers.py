@@ -20,6 +20,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from repro_torch.core import quantization as q
 from repro_torch.core.artemis_matmul import artemis_matmul
@@ -78,15 +79,22 @@ def qeinsum(spec: str, a: torch.Tensor, b: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# initializers (same distributions as repro.models.layers)
+# parameters and initializers (same distributions as repro.models.layers)
 # ---------------------------------------------------------------------------
 
 
+def param(shape, dtype, device) -> nn.Parameter:
+    """A zeroed, frozen weight (the port serves; it does not train)."""
+    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
-               device, dtype=torch.float32) -> torch.Tensor:
+               device, dtype=torch.float32, lead: tuple = ()) -> torch.Tensor:
+    """A (*lead, d_in, d_out) stack of independent dense weights."""
     scale = (1.0 / d_in) ** 0.5
-    w = torch.randn((d_in, d_out), generator=generator, device=device,
-                    dtype=torch.float32)
+    w = torch.randn((*lead, d_in, d_out), generator=generator,
+                    device=device, dtype=torch.float32)
     return (w * scale).to(dtype)
 
 
@@ -289,10 +297,10 @@ def attention(p, x: torch.Tensor, dims: AttnDims, *, positions,
 # FFN
 # ---------------------------------------------------------------------------
 
-_ACTS = {"silu": F.silu,
-         "gelu": lambda x: F.gelu(x, approximate="tanh"),
-         "relu": F.relu,
-         "relu2": lambda x: torch.square(F.relu(x))}
+ACTS = {"silu": F.silu,
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "relu": F.relu,
+        "relu2": lambda x: torch.square(F.relu(x))}
 
 
 def ffn(p, x: torch.Tensor, act: str, glu: bool,
@@ -300,7 +308,7 @@ def ffn(p, x: torch.Tensor, act: str, glu: bool,
     """p: an object with `w_up`, `w_down` (and `w_gate` when glu)."""
     up = mm(x, p.w_up, policy)
     if glu:
-        up = _ACTS[act](mm(x, p.w_gate, policy)) * up
+        up = ACTS[act](mm(x, p.w_gate, policy)) * up
     else:
-        up = _ACTS[act](up)
+        up = ACTS[act](up)
     return mm(up, p.w_down, policy)

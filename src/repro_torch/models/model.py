@@ -5,9 +5,9 @@
   apply(model, cfg, inputs, ...)           -> (logits, aux, new_cache)
   init_cache(cfg, batch, max_len, ...)     -> the decode carry
 
-Only the dense text family is ported (`models/transformer.py`); the
-others raise NotImplementedError naming their ROADMAP item. `lm_loss`
-comes with training.
+The dense and MoE text families are ported (`models/transformer.py`,
+`models/moe.py`); the others raise NotImplementedError naming their
+ROADMAP item. `lm_loss` comes with training.
 """
 from __future__ import annotations
 
@@ -18,14 +18,13 @@ from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 
 _NOT_PORTED = {
-    "moe": "ROADMAP Queue 1 item 3, MoE",
     "rwkv6": "ROADMAP Queue 1 item 6, recurrent families",
     "zamba2": "ROADMAP Queue 1 item 6, recurrent families",
 }
 
 
 def _check(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in transformer.FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet "
             f"({_NOT_PORTED[cfg.family]})")

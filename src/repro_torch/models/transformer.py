@@ -1,5 +1,5 @@
 """Decoder-only transformer as an `nn.Module` (counterpart of
-`repro.models.transformer`, dense family only).
+`repro.models.transformer`, the dense and MoE families).
 
 The module holds what the reference's parameter pytree holds, with the
 stacked leading L axis of `params["layers"]` unstacked into a
@@ -8,7 +8,8 @@ a Python loop):
 
   embed       (V, d)
   layers[i]   ln1.scale, attn.{wq,wk,wv,wo,q_norm,k_norm}, ln2.scale,
-              ffn.{w_up,w_gate,w_down}
+              and ffn.{w_up,w_gate,w_down} (dense) or
+              moe.{router, experts.*, shared.*} (MoE; `models/moe.py`)
   final_norm  scale (d,)
   head        (d, V); absent if tied
 
@@ -16,8 +17,8 @@ Storage dtypes: the reference casts every matrix that reaches `mm`,
 the embedding and the head to the compute dtype on every call
 (`w.astype(x.dtype)`). This module casts them ONCE, when they are set,
 which is bit-identical and saves re-reading f32 weights each forward.
-The norm scales stay f32: the reference reads them as f32, never in
-the compute dtype.
+The norm scales and the MoE router stay f32: the reference reads them
+as f32, never in the compute dtype.
 
 KV cache layout (decode): {"k"/"v": (L, B, Smax, KV, Dh), "index": int}.
 `apply` is the single forward entry point, as in the reference: no
@@ -34,10 +35,12 @@ from torch import nn
 from repro_torch.core.policy import ArithmeticPolicy
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.config import ModelConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+FAMILIES = ("dense", "moe")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -49,15 +52,10 @@ def torch_dtype(name: str) -> torch.dtype:
                          f"known: {sorted(_DTYPES)}") from None
 
 
-def _param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
-                        requires_grad=False)
-
-
 class RMSNorm(nn.Module):
     def __init__(self, d: int, device):
         super().__init__()
-        self.scale = _param((d,), torch.float32, device)
+        self.scale = L.param((d,), torch.float32, device)
         nn.init.ones_(self.scale)
 
 
@@ -66,13 +64,13 @@ class Attention(nn.Module):
         super().__init__()
         d, hd = cfg.d_model, cfg.resolved_head_dim
         h, kv = cfg.n_heads, cfg.n_kv_heads
-        self.wq = _param((d, h * hd), dtype, device)
-        self.wk = _param((d, kv * hd), dtype, device)
-        self.wv = _param((d, kv * hd), dtype, device)
-        self.wo = _param((h * hd, d), dtype, device)
+        self.wq = L.param((d, h * hd), dtype, device)
+        self.wk = L.param((d, kv * hd), dtype, device)
+        self.wv = L.param((d, kv * hd), dtype, device)
+        self.wo = L.param((h * hd, d), dtype, device)
         if cfg.qk_norm:
-            self.q_norm = _param((hd,), torch.float32, device)
-            self.k_norm = _param((hd,), torch.float32, device)
+            self.q_norm = L.param((hd,), torch.float32, device)
+            self.k_norm = L.param((hd,), torch.float32, device)
             nn.init.ones_(self.q_norm)
             nn.init.ones_(self.k_norm)
 
@@ -81,10 +79,10 @@ class FFN(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
-        self.w_up = _param((d, f), dtype, device)
-        self.w_down = _param((f, d), dtype, device)
+        self.w_up = L.param((d, f), dtype, device)
+        self.w_down = L.param((f, d), dtype, device)
         if cfg.glu:
-            self.w_gate = _param((d, f), dtype, device)
+            self.w_gate = L.param((d, f), dtype, device)
 
 
 class Block(nn.Module):
@@ -93,18 +91,31 @@ class Block(nn.Module):
         self.ln1 = RMSNorm(cfg.d_model, device)
         self.attn = Attention(cfg, dtype, device)
         self.ln2 = RMSNorm(cfg.d_model, device)
-        self.ffn = FFN(cfg, dtype, device)
+        if cfg.family == "moe":
+            self.moe = M.MoE(cfg, dtype, device)
+        else:
+            self.ffn = FFN(cfg, dtype, device)
+
+
+def block_ffn(lp: Block, x: torch.Tensor, cfg: ModelConfig,
+              policy: ArithmeticPolicy):
+    """The FFN half of a block on its normed input x: (out, aux), aux
+    the MoE layer's load-balance loss (None for the dense family)."""
+    if cfg.family == "moe":
+        return M.moe_ffn(lp.moe, x, cfg, policy)
+    return L.ffn(lp.ffn, x, cfg.act, cfg.glu, policy), None
 
 
 class Transformer(nn.Module):
-    """The dense decoder's weights. Build it empty (zeros) and fill it
-    with `init` (seeded random weights) or `repro_torch.bridge`."""
+    """The decoder's weights. Build it empty (zeros) and fill it with
+    `init` (seeded random weights) or `repro_torch.bridge`."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense only)")
+                f"family {cfg.family!r} is not ported yet "
+                f"(ported: {FAMILIES})")
         if cfg.modality != "text":
             raise NotImplementedError(
                 f"modality {cfg.modality!r} is not ported yet (text only)")
@@ -113,11 +124,11 @@ class Transformer(nn.Module):
         self.compute_dtype = torch_dtype(cfg.compute_dtype)
         dt = self.compute_dtype
         v, d = cfg.padded_vocab, cfg.d_model
-        self.embed = _param((v, d), dt, device)
+        self.embed = L.param((v, d), dt, device)
         self.layers = nn.ModuleList(
             Block(cfg, dt, device) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(d, device)
-        self.head = None if cfg.tie_embeddings else _param((d, v), dt, device)
+        self.head = None if cfg.tie_embeddings else L.param((d, v), dt, device)
 
     @property
     def device(self) -> torch.device:
@@ -135,16 +146,25 @@ class Transformer(nn.Module):
         pdt = torch_dtype(cfg.param_dtype)
 
         def dense(w):
-            d_in, d_out = w.shape
-            w.copy_(L.dense_init(generator, d_in, d_out, dev, pdt))
+            # a stack of matrices (experts) draws them all at once
+            *lead, d_in, d_out = w.shape
+            w.copy_(L.dense_init(generator, d_in, d_out, dev, pdt,
+                                 lead=tuple(lead)))
 
         self.embed.copy_(L.embed_init(generator, *self.embed.shape, dev, pdt))
         for blk in self.layers:
             for name in ("wq", "wk", "wv", "wo"):
                 dense(getattr(blk.attn, name))
-            for name in ("w_up", "w_down", "w_gate"):
-                if hasattr(blk.ffn, name):
-                    dense(getattr(blk.ffn, name))
+            if cfg.family == "moe":
+                dense(blk.moe.router)
+                ffns = [f for f in (blk.moe.experts, blk.moe.shared)
+                        if f is not None]
+            else:
+                ffns = [blk.ffn]
+            for ffn in ffns:
+                for name in ("w_up", "w_down", "w_gate"):
+                    if hasattr(ffn, name):
+                        dense(getattr(ffn, name))
         if self.head is not None:
             dense(self.head)
         return self
@@ -197,9 +217,10 @@ def apply(model: Transformer, cfg: ModelConfig, inputs: dict, *,
     attn_impl: see `layers.resolve_attn_impl` ("flash", the kernel, for
     the exact policy by default); explicit positions need "gather",
     because the kernel's mask assumes contiguous ones.
-    Returns (logits (B, S, V), aux_loss (0 for the dense family),
-    new_cache). The cache's K/V tensors are updated IN PLACE, layer by
-    layer, and returned in new_cache with index + S.
+    Returns (logits (B, S, V), aux_loss (the sum of the MoE layers'
+    load-balance losses; 0 for the dense family), new_cache). The
+    cache's K/V tensors are updated IN PLACE, layer by layer, and
+    returned in new_cache with index + S.
     """
     impl = L.resolve_attn_impl(attn_impl, policy)
     positions = inputs.get("positions")
@@ -224,6 +245,7 @@ def apply(model: Transformer, cfg: ModelConfig, inputs: dict, *,
                                    torch.iinfo(torch.int32).max)
 
     attn_dims = _dims(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, lp in enumerate(model.layers):
         ckv = None
         if cache is not None:
@@ -235,11 +257,13 @@ def apply(model: Transformer, cfg: ModelConfig, inputs: dict, *,
             window=cfg.attn_window, norm_eps=cfg.norm_eps, cache=ckv,
             cache_index=index, attn_impl=impl)
         x = x + h
-        x = x + L.ffn(lp.ffn, L.rmsnorm(lp.ln2.scale, x, cfg.norm_eps),
-                      cfg.act, cfg.glu, policy)
+        f, a = block_ffn(lp, L.rmsnorm(lp.ln2.scale, x, cfg.norm_eps), cfg,
+                         policy)
+        x = x + f
+        if a is not None:
+            aux = aux + a
     x = L.rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
     logits = model.logits(x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = None
     if cache is not None:
         new_cache = {"k": cache["k"], "v": cache["v"], "index": index + s}

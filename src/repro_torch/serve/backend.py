@@ -7,7 +7,8 @@ tables, prefix hashes or copy-on-write directly: they talk to a
 the reference's, method for method (see `repro.serve.backend`'s module
 docstring for the full text). One backend is ported:
 
-  PagedKVBackend   — attention families: K/V in a pool of fixed-size
+  PagedKVBackend   — attention families (dense and MoE): K/V in a
+                     pool of fixed-size
                      token pages with a refcounting allocator,
                      PrefixIndex admission matching, copy-on-write forks
                      and trash page 0 for idle lanes.
@@ -15,7 +16,7 @@ docstring for the full text). One backend is ported:
 Every arithmetic policy mode runs (the quantized ones through the
 sc_matmul kernel and the gather core). Not ported yet, and refused by
 `make_backend` with a message that says so: the state-slot backend of
-the recurrent families, MoE, the tensor-parallel mesh
+the recurrent families, the tensor-parallel mesh
 (`mesh_shards > 1`) and the analog readout noise of the artemis mode
 (`sigma_analog > 0`).
 
@@ -35,7 +36,7 @@ import torch
 
 from repro_torch.core.policy import ArithmeticPolicy
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import torch_dtype
+from repro_torch.models.transformer import FAMILIES, torch_dtype
 from repro_torch.serve.obs import CowForkEvent, ShareEvent, Tracer
 from repro_torch.serve.paged_cache import (
     TRASH_PAGE,
@@ -275,7 +276,7 @@ class PagedKVBackend(SequenceBackend):
     chunks among them.
     """
 
-    families = ("dense",)
+    families = FAMILIES
 
     def __init__(self, cfg: ModelConfig, ecfg: EngineConfig,
                  policy: ArithmeticPolicy, params, obs: Tracer, clock):

@@ -53,8 +53,10 @@ throughput is measured separately by the benchmark.
 SAMPLING: every token the engine emits — decode rounds and
 prefill-completion first tokens alike — goes through the one batched
 sampler (`repro_torch.serve.sampler.sample_tokens`) at the
-(max_batch, vocab) shape. Only greedy lanes (`temperature=0`, argmax
-over the raw logits) are ported; `submit` refuses a sampled request.
+(max_batch, vocab) shape, on the RNG lane of each request (its seed
+and its position, nothing else), so a request's sampled stream is
+batch-invariant and replays through preemption; greedy lanes
+(`temperature=0`) are the argmax over the raw logits.
 
 OBSERVABILITY: everything the engine publishes flows through one
 `repro.serve.obs.Tracer` — typed lifecycle events (queued / admit /
@@ -187,10 +189,6 @@ class ServeEngine:
                sampling: SamplingParams | None = None) -> int:
         prompt = self._validate_prompt(prompt)
         sampling = sampling if sampling is not None else SamplingParams()
-        if not sampling.greedy:
-            raise NotImplementedError(
-                f"sampled decoding (temperature={sampling.temperature}) "
-                f"is not ported yet; submit greedy requests")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         self.backend.validate(len(prompt), max_new_tokens)

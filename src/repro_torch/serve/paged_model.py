@@ -36,7 +36,8 @@ trash page 0 and are excluded from every valid query's mask. The pool
 Every arithmetic policy runs: under a quantized one the projections go
 through the sc_matmul kernel (`L.mm`) and the attention contractions
 through `L.qeinsum`, with the gather core (the fused core is exact
-only). Only the dense family is ported.
+only). The dense and MoE families run; an MoE layer routes every row
+of the step, idle lanes and padding included, as the reference does.
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ from repro_torch.core.policy import ArithmeticPolicy
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models import layers as L
 from repro_torch.models import model as modellib
+from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.paged_cache import TRASH_PAGE
 
@@ -53,10 +55,10 @@ NEG_INF = -1e30
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in transformer.FAMILIES:
         raise NotImplementedError(
             f"paged serving of family {cfg.family!r} is not ported yet "
-            f"(dense only)")
+            f"(ported: {transformer.FAMILIES})")
     if cfg.modality != "text":
         raise ValueError(
             f"paged serving supports text modality, got {cfg.modality!r}")
@@ -237,8 +239,9 @@ def _paged_forward(model, cfg: ModelConfig, policy, tokens, kv,
             lp, L.rmsnorm(lp.ln1.scale, x, cfg.norm_eps), cfg, policy,
             positions, kv["k"][li], kv["v"][li], block_tables, page_idx,
             offset, writer, attn_core=attn_core, paged_core=paged_core)
-        x = x + L.ffn(lp.ffn, L.rmsnorm(lp.ln2.scale, x, cfg.norm_eps),
-                      cfg.act, cfg.glu, policy)
+        f, _ = transformer.block_ffn(
+            lp, L.rmsnorm(lp.ln2.scale, x, cfg.norm_eps), cfg, policy)
+        x = x + f
     x = L.rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
     return model.logits(x), kv                                   # (B, S, V)
 

@@ -29,7 +29,7 @@ from repro.serve.traffic import TraceItem as JTraceItem  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.serve import EngineConfig, ServeEngine, TrafficConfig  # noqa: E402
-from repro_torch.serve import SamplingParams, TraceItem, synth_trace  # noqa: E402
+from repro_torch.serve import TraceItem, synth_trace  # noqa: E402
 
 
 @functools.lru_cache(maxsize=None)
@@ -141,13 +141,6 @@ def test_traces_exercise_what_they_name():
     assert max(chunks) == 8 and len(chunks) > 6
 
 
-def test_sampled_requests_are_refused():
-    cfg, _, model = _weights()
-    eng = ServeEngine(cfg, params=model, ecfg=EngineConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="sampled"):
-        eng.submit([3, 4, 5], 2, sampling=SamplingParams(temperature=0.8))
-
-
 def test_multi_device_mesh_is_refused():
     cfg, _, model = _weights()
     with pytest.raises(NotImplementedError, match="mesh"):
@@ -160,7 +153,7 @@ def test_unported_families_and_policies_are_refused():
     from repro_torch.core.policy import ArithmeticPolicy
     from repro_torch.serve.backend import make_backend
     cfg, _, model = _weights()
-    for arch in ("rwkv6_3b", "zamba2_7b", "qwen2_moe_a2_7b"):
+    for arch in ("rwkv6_3b", "zamba2_7b"):
         with pytest.raises(NotImplementedError, match="not ported"):
             make_backend(tconfigs.get_config(arch, smoke=True),
                          EngineConfig(), ArithmeticPolicy(), model,

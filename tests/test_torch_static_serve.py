@@ -402,8 +402,7 @@ def test_unknown_attn_impl_raises():
         TL.resolve_attn_impl("fused", TPolicy())
 
 
-@pytest.mark.parametrize("arch,item", [("qwen2_moe_a2_7b", "item 3"),
-                                       ("rwkv6_3b", "item 6"),
+@pytest.mark.parametrize("arch,item", [("rwkv6_3b", "item 6"),
                                        ("zamba2_7b", "item 6"),
                                        ("musicgen_large", "item 7")])
 def test_model_factory_names_the_roadmap_item(arch, item):
