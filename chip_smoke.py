@@ -80,10 +80,38 @@ without printing a result:
  15. the device time by group of one MoE decode forward (routing and
      dispatch, expert products, attention, the rest) beside the bytes
      it must read at the card's memory rate;
- 16. print the kernels line, the card line, then the result line.
+ 17. rwkv6_3b at its full width (32 layers, d_model 2560, 40 wkv heads
+     of 64, d_ff 8960, vocab 65536; bf16, f32 state) through the
+     state-slot engine: phase 11's mixed trace on 8 lanes, chunk 32, 9
+     slots, every launch count zeroed just before and read just after:
+     no kernel runs; then at f32 through 2 layers of the full width,
+     each greedy request's engine tokens equal its sequential static
+     path;
+ 18. its static path at batch 8, prompt 1024, gen 32 (no kernel); the
+     device time by group of one decode step beside its byte bound;
+ 19. its int8 drain (4 requests, 4 new tokens): sc_matmul 9 times a
+     layer of every single-token apply; the lane check: an int8 decode
+     step of 8 live lanes equals, bit for bit, each lane stepped alone
+     in the 8-lane step;
+ 20. zamba2_7b at its full width (81 Mamba2 layers, d_model 3584, 112
+     SSD heads, a shared attention block every 6 layers with 32 heads
+     of 112, window 4096; bf16, f32 state and ring): the same drain,
+     no kernel; then the f32 pin through 7 layers (one shared
+     invocation and a 1-layer tail) with `attn_window` 64 and prompts
+     of 32-48, so that the ring wraps during decode;
+ 21. its static path at batch 8, prompt 1024, gen 32: flash_attention
+     13 x 33 times, all in its rows instance (D 112); at f32 through 7
+     layers, the flash and gather cores token-identical;
+ 22. the device time by group of one zamba2 decode step beside its byte
+     bound, and its int8 lane check;
+ 16. (last) sc_matmul against its plain version at every shape phases
+     7, 9, 14, 19 and 22 gave it; print the kernels line, the card line,
+     then the result line.
 Each phase's seconds are logged as it ends. Phase 4 also times each
-kernel at the qwen2_moe_a2_7b shapes (4b), and phase 3 holds sc_matmul
-to its plain version at the expert products' shapes.
+kernel at the qwen2_moe_a2_7b shapes (4b) and flash_attention at
+zamba2_7b's static shapes (4c), and phase 3 holds sc_matmul to its
+plain version at the expert products' shapes and flash_attention at
+D 112, G 1.
 
 Kernels: paged_attention (exact engine path; its rows instance at
 decode, its tensor-core tile instance at a prefill chunk), sc_matmul
@@ -936,6 +964,31 @@ def check_flash_attention() -> tuple[dict, dict]:
                                                   strided=strided), cases)
                             n += 1
         settle(cases, f"Sq {sq:3d}")
+    # zamba2's shared attention: D 112 (not a tile head dim: the rows
+    # instance only), G 1, its windows; bf16 q over an f32 ring rounded
+    # by kv_cast (the static path) and f32 throughout
+    cases = []
+    for sq in (1, 8, 33, 128):
+        for sk in sorted({sq, sq + 40, 300}):
+            for window in (None, 16, 64):
+                for q_offset in sorted({0, sk - sq}):
+                    for q_dt, kv_dt, kv_cast in ((bf16, f32, bf16),
+                                                 (f32, f32, None),
+                                                 (bf16, bf16, None)):
+                        tiles = FA_TILES[n % len(FA_TILES)]
+                        bq, bk = tiles or effective_tiles(sq, sk)
+                        strided = n % 2 == 1
+                        q = operand(hkv, sq, 112, q_dt, strided)
+                        k = operand(hkv, sk, 112, kv_dt, strided)
+                        v = operand(hkv, sk, 112, kv_dt, strided)
+                        kw = dict(causal=True, window=window, kv_len=None,
+                                  q_offset=q_offset, bq=bq, bk=bk,
+                                  kv_cast=kv_cast)
+                        run(q, k, v, kw, dict(sq=sq, sk=sk, G=1, D=112,
+                                              q=q_dt, kv=kv_dt,
+                                              strided=strided), cases)
+                        n += 1
+    settle(cases, "D 112, G 1 (zamba2), windows 16 / 64")
     # the static prefill's shape (qwen3_8b's heads) at batch 2
     hq, hkv_s, d, sq, smax = 32, 8, 128, 1024, 1056
     q = torch.randn((2, sq, hq, d), generator=gen, device="cuda").to(
@@ -1006,7 +1059,7 @@ def time_flash_attention(cfg) -> list[dict]:
     from repro_torch.kernels.flash_attention import (flash_attention_all,
                                                      flash_attention_ref)
     from repro_torch.kernels.flash_attention.flash_attention import (
-        kernel_variant)
+        kernel_variant, tile_takes)
     b, hq, hkv, d = 8, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     smax, n_layers = 1056, 4
     gen = torch.Generator(device="cuda")
@@ -1030,7 +1083,11 @@ def time_flash_attention(cfg) -> list[dict]:
         kw = dict(causal=True, kv_len=kv_len, q_offset=q_offset,
                   scale=scale, kv_cast=torch.bfloat16)
         variant = kernel_variant(q.dtype, ck.dtype, torch.bfloat16, sq, d)
-        other = next(v_ for v_ in FA_VARIANTS if v_ != variant)
+        # the other instance where it takes the shape (the tile one takes
+        # only TILE_HEAD_DIMS)
+        other = next((v_ for v_ in FA_VARIANTS if v_ != variant and (
+            v_ == "rows" or tile_takes(q.dtype, ck.dtype, torch.bfloat16,
+                                       d))), None)
         reset_launch_counts()
         out = flash_attention_all(q, *kv(0), **kw)
         torch.cuda.synchronize()
@@ -1039,9 +1096,11 @@ def time_flash_attention(cfg) -> list[dict]:
                                  f"{variant} instance: {dict(launch_counts)}")
         ref = flash_attention_ref(q, *kv(0), **kw)
         errs = {}
-        for v_, o_ in ((variant, out),
-                       (other, flash_attention_all(q, *kv(0), variant=other,
-                                                   **kw))):
+        runs = [(variant, out)]
+        if other:
+            runs.append((other, flash_attention_all(q, *kv(0), variant=other,
+                                                    **kw)))
+        for v_, o_ in runs:
             err, bad = _fa_errors(o_, ref)
             if bool(bad):
                 raise AssertionError(f"flash_attention ({v_}) disagrees with "
@@ -1049,8 +1108,10 @@ def time_flash_attention(cfg) -> list[dict]:
                                      f"shape: max err {err.item():.3e}")
             errs[v_] = err.item()
         ms = _adaptive_ms(lambda i: flash_attention_all(q, *kv(i), **kw))
-        other_ms = _adaptive_ms(lambda i: flash_attention_all(
-            q, *kv(i), variant=other, **kw))
+        ms_by_variant = {variant: ms}
+        if other:
+            ms_by_variant[other] = _adaptive_ms(lambda i: flash_attention_all(
+                q, *kv(i), variant=other, **kw))
         plain_ms = _adaptive_ms(lambda i: flash_attention_ref(q, *kv(i),
                                                               **kw),
                                 budget_s=1.0, most=10)
@@ -1073,15 +1134,18 @@ def time_flash_attention(cfg) -> list[dict]:
                          q_offset=q_offset, kv_len=kv_len, variant=variant,
                          max_abs_err=errs[variant],
                          max_abs_err_by_variant=errs, ms=ms,
-                         ms_by_variant={variant: ms, other: other_ms},
+                         ms_by_variant=ms_by_variant,
                          plain_ms=plain_ms, library_ms=library_ms,
                          library_max_abs_diff=lib_err, bound_ms=bound_ms,
                          bound_by=bound_by, bound_f32_ms=bound_f32_ms,
                          bytes=n_bytes, flops=flops))
+        other_note = (f"{other} instance {ms_by_variant[other]*1e3:9.2f} "
+                      f"us, max err {errs[other]:.2e}" if other
+                      else f"no other instance takes D {d}")
         log(f"  {label:7s} Sq {sq:4d} q_offset {q_offset:4d} kv_len "
             f"{kv_len} ({variant}): max err {errs[variant]:.2e} | kernel "
-            f"{ms*1e3:9.2f} us ({other} instance {other_ms*1e3:9.2f} us, "
-            f"max err {errs[other]:.2e}) | plain {plain_ms*1e3:10.2f} us | "
+            f"{ms*1e3:9.2f} us ({other_note}) | plain "
+            f"{plain_ms*1e3:10.2f} us | "
             f"sdpa {library_ms*1e3:9.2f} us (max diff {lib_err:.1e}) | "
             f"bound {bound_ms*1e3:8.2f} us ({bound_by}: {n_bytes/1e6:.1f} "
             f"MB, {flops/1e9:.2f} GFLOP) {bound_ms/ms:.1%} of it | f32 "
@@ -1116,15 +1180,17 @@ def engine_config(attn_impl: str):
                         attn_impl=attn_impl)
 
 
-def drain(cfg, model, trace, attn_impl: str, policy=None) -> dict:
+def drain(cfg, model, trace, attn_impl: str, policy=None,
+          ecfg=None) -> dict:
     """Drain `trace` through a fresh engine (exact policy unless
-    `policy`); launch counts are zeroed just before the drain and read
-    just after."""
+    `policy`; `engine_config(attn_impl)` unless `ecfg`); launch counts
+    are zeroed just before the drain and read just after."""
     import torch
     from repro_torch.core.policy import ArithmeticPolicy
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serve import ServeEngine
-    eng = ServeEngine(cfg, params=model, ecfg=engine_config(attn_impl),
+    eng = ServeEngine(cfg, params=model,
+                      ecfg=ecfg or engine_config(attn_impl),
                       policy=policy or ArithmeticPolicy())
     eng.submit_trace(trace)
     torch.cuda.synchronize()
@@ -1138,6 +1204,7 @@ def drain(cfg, model, trace, attn_impl: str, policy=None) -> dict:
     results = eng.results()
     n_forwards = eng.backend.n_forwards
     n_prefill_forwards = eng.backend.n_prefill_forwards
+    n_applies = getattr(eng.backend, "n_applies", n_forwards)
     for rid, item in enumerate(trace):
         toks = results[rid]
         if len(toks) != item.max_new_tokens or toks.min() < 0 or \
@@ -1149,7 +1216,8 @@ def drain(cfg, model, trace, attn_impl: str, policy=None) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return dict(results=results, metrics=m, wall_s=wall, counts=counts,
-                n_forwards=n_forwards, n_prefill_forwards=n_prefill_forwards)
+                n_forwards=n_forwards, n_prefill_forwards=n_prefill_forwards,
+                n_applies=n_applies)
 
 
 def full_width_drain(cfg) -> dict:
@@ -1864,6 +1932,386 @@ def profile_moe_decode(cfg, model) -> dict:
                 bound_ms=bound_ms, bytes=n_bytes)
 
 
+# ---------------------------------------------------------------------------
+# phases 17-22: the recurrent families (rwkv6_3b, zamba2_7b) at full width
+# ---------------------------------------------------------------------------
+
+# rwkv6's products through the policy, a layer: td_w1, wr, wk, wv, wg, wo,
+# cm_wk, cm_wv and cm_wr
+RWKV6_LAYER_PRODUCTS = 9
+# the slot engine's max_seq_len: phase 5's longest request (256 + 32) + 1
+SLOT_SEQ_LEN = 289
+
+
+def slot_engine_config(max_seq_len: int = SLOT_SEQ_LEN):
+    """8 lanes, chunk 32, 9 state slots (8 and the trash slot), f32
+    state and ring."""
+    from repro_torch.serve import EngineConfig
+    return EngineConfig(max_batch=8, prefill_chunk=32, n_slots=9,
+                        max_seq_len=max_seq_len, cache_dtype="float32")
+
+
+def init_model(cfg):
+    import torch
+    from repro_torch.models import model as modellib
+    t0 = time.perf_counter()
+    model = modellib.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  weights: {sum(p.numel() for p in model.parameters())/1e9:.3f} B "
+        f"parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
+        f"drawn in {time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def free():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def no_kernel_ran(counts: dict, label: str) -> None:
+    """The exact recurrent paths run none of the three kernels."""
+    if any(counts.values()):
+        raise AssertionError(f"{label} launched {counts}, want no kernel")
+
+
+def sequential_tokens(cfg, model, prompt, n_new: int):
+    """Greedy decode of one request alone on the static path: the whole
+    prompt in one apply, then one token a step, batch 1, f32 cache (the
+    reference's acceptance pin)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import model as modellib
+    prefill = steps.make_prefill_step(cfg)
+    decode = steps.make_decode_step(cfg)
+    cache = modellib.init_cache(cfg, 1, len(prompt) + n_new,
+                                dtype=torch.float32, device="cuda")
+    tokens = torch.from_numpy(np.asarray(prompt)[None]).cuda()
+    logits, cache = prefill(model, {"tokens": tokens}, cache)
+    out = [steps.greedy_sample(logits)]
+    for _ in range(n_new - 1):
+        logits, cache = decode(model, out[-1][:, None], cache)
+        out.append(steps.greedy_sample(logits))
+    return torch.cat(out).cpu().numpy()
+
+
+def slot_drain(cfg, model) -> dict:
+    """Phase 11's mixed trace through the state-slot engine (8 lanes,
+    chunk 32, 9 slots; bf16, f32 state), counts zeroed just before the
+    drain and read just after: no kernel runs."""
+    import torch
+    trace = smoke_trace(cfg, **MIXED)
+    ecfg = slot_engine_config()
+    # warm-up: one short request (a prompt of 256 would be 256 applies)
+    drain(cfg, model, [dataclasses.replace(
+        trace[0], prompt=trace[0].prompt[:8], max_new_tokens=2)], "gather",
+        ecfg=ecfg)
+    torch.cuda.reset_peak_memory_stats()
+    run = drain(cfg, model, trace, "gather", ecfg=ecfg)
+    m = run["metrics"]
+    tok_s = m["n_generated_tokens"] / run["wall_s"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  drained {m['n_done']} requests, {m['n_generated_tokens']} tokens "
+        f"({m['n_sampled_tokens']} sampled) in {run['wall_s']:.3f} s wall "
+        f"({tok_s:.2f} tok/s; {run['n_forwards']} forwards, "
+        f"{run['n_prefill_forwards']} of them prefill chunks, "
+        f"{run['n_applies']} single-token applies, "
+        f"{run['wall_s'] / run['n_applies'] * 1e3:.2f} ms each); peak "
+        f"device memory {peak:.2f} GiB | launches {run['counts']} | "
+        f"{card_line()}")
+    if not m["n_sampled_tokens"]:
+        raise AssertionError("the mixed drain sampled no token")
+    no_kernel_ran(run["counts"], "the recurrent engine drain")
+    return dict(tok_s=tok_s, wall_s=run["wall_s"],
+                n_forwards=run["n_forwards"],
+                n_prefill_forwards=run["n_prefill_forwards"],
+                n_applies=run["n_applies"], peak_gib=peak,
+                launches=dict(run["counts"]))
+
+
+def slot_pin(cfg, trace, max_seq_len: int = SLOT_SEQ_LEN) -> dict:
+    """At f32: every request of the greedy `trace` through the engine
+    gives the tokens of the sequential static path of that request
+    alone."""
+    model = init_model(cfg)
+    run = drain(cfg, model, trace, "gather",
+                ecfg=slot_engine_config(max_seq_len))
+    no_kernel_ran(run["counts"], "the f32 engine drain")
+    same = [bool((run["results"][rid] == sequential_tokens(
+        cfg, model, it.prompt, it.max_new_tokens)).all())
+        for rid, it in enumerate(trace)]
+    n_tok = sum(len(v) for v in run["results"].values())
+    log(f"  f32, {cfg.n_layers} layers of the full width: engine tokens equal "
+        f"the sequential static path for {sum(same)} of {len(trace)} "
+        f"requests ({n_tok} tokens, prompts "
+        f"{min(len(it.prompt) for it in trace)}-"
+        f"{max(len(it.prompt) for it in trace)})")
+    if not all(same):
+        raise AssertionError(f"engine and sequential static path diverged: "
+                             f"{same}")
+    del model
+    free()
+    return dict(n_requests=len(trace), n_tokens=n_tok)
+
+
+def recurrent_static(cfg, model, want_flash: int) -> dict:
+    """`--mode static` at batch 8, prompt 1024, gen 32: flash_attention
+    `want_flash` times, all in its rows instance (zamba2's D 112 is no
+    tile head dim; rwkv6 has no attention), the other kernels never."""
+    import torch
+    static_run(cfg, model, batch=8, prompt_len=64, gen_len=2)   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    run = static_run(cfg, model, batch=8, prompt_len=1024, gen_len=32)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = run["counts"]
+    step_ms = run["decode_s"] / 32 * 1e3
+    want = {"flash_attention": want_flash,
+            "flash_attention.rows": want_flash} if want_flash else {}
+    got = {k: v for k, v in counts.items() if v}
+    log(f"  prefill {run['prefill_s']*1e3:.2f} ms (8 x 1024 tokens) | decode "
+        f"{run['decode_tok_per_s']:.2f} tok/s, {step_ms:.2f} ms per step | "
+        f"peak device memory {peak:.2f} GiB | launches {got} (want {want}) "
+        f"| {card_line()}")
+    if got != want:
+        raise AssertionError(f"static run launched {got}, want {want}")
+    return dict(prefill_ms=run["prefill_s"] * 1e3,
+                decode_tok_s=run["decode_tok_per_s"], step_ms=step_ms,
+                peak_gib=peak, launches=counts.get("flash_attention", 0))
+
+
+def rwkv6_int8(cfg, model) -> dict:
+    """4 requests, prompts 16-32, 4 new tokens, int8: sc_matmul 9 times a
+    layer of every single-token apply and nothing else; then the lane
+    check."""
+    from repro_torch.core.policy import ArithmeticPolicy
+    from repro_torch.serve import TrafficConfig, synth_trace
+    trace = synth_trace(TrafficConfig(
+        n_requests=4, arrival_rate=1e9, prompt_len_min=16, prompt_len_max=32,
+        gen_len_min=4, gen_len_max=4, vocab_size=cfg.vocab_size, seed=0))
+    run = drain(cfg, model, trace, "gather", ArithmeticPolicy(mode="int8"),
+                ecfg=slot_engine_config())
+    per_apply = RWKV6_LAYER_PRODUCTS * cfg.n_layers
+    want = per_apply * run["n_applies"]
+    launches = run["counts"].get("sc_matmul", 0)
+    m = run["metrics"]
+    tok_s = m["n_generated_tokens"] / run["wall_s"]
+    log(f"  int8: {m['n_done']} requests, {m['n_generated_tokens']} tokens in "
+        f"{run['wall_s']:.3f} s wall ({tok_s:.2f} tok/s; "
+        f"{run['n_forwards']} forwards, {run['n_applies']} applies, "
+        f"{run['wall_s'] / run['n_applies'] * 1e3:.2f} ms each) | sc_matmul "
+        f"launches {launches} = {RWKV6_LAYER_PRODUCTS} x {cfg.n_layers} "
+        f"layers x {run['n_applies']} applies? {launches == want}")
+    if launches != want or set(k for k, v in run["counts"].items() if v) \
+            != {"sc_matmul"}:
+        raise AssertionError(f"rwkv6 int8 drain launches {run['counts']}, "
+                             f"want sc_matmul {want} and nothing else")
+    return dict(tok_s=tok_s, wall_s=run["wall_s"],
+                n_forwards=run["n_forwards"], n_applies=run["n_applies"],
+                launches=launches, lane_check=lane_check(cfg, model))
+
+
+def lane_check(cfg, model, prompt_len: int = 16) -> dict:
+    """One int8 decode step of 8 live lanes (8 prompts of `prompt_len`
+    tokens absorbed first), batched, against the same 8 lanes stepped one at a
+    time: each alone in the 8-lane step, the other lanes idle on the
+    trash slot, as the engine steps one live lane. The same kernels run
+    on the same rows, and each lane's values depend on its own row only
+    (its own activation scales), so every lane's logits must equal the
+    batched step's bit for bit, and its token with them. Batch-1 steps
+    (other GEMM kernels) are printed beside, not held."""
+    import numpy as np
+    import torch
+    from repro_torch.core.policy import ArithmeticPolicy
+    from repro_torch.serve import state_model as sm
+    policy = ArithmeticPolicy(mode="int8")
+    pool, _ = sm.init_slot_pool(cfg, 9, 64, device="cuda")
+    prefill = sm.make_slot_prefill_chunk(cfg, policy)
+    decode = sm.make_slot_decode(cfg, policy)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    prompts = torch.randint(2, cfg.vocab_size, (8, prompt_len),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    tok = torch.randint(2, cfg.vocab_size, (8, 1), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    slots = torch.arange(1, 9, device="cuda")
+    prefill(model, prompts, pool, slots, np.full(8, prompt_len),
+            np.ones(8, bool))
+
+    def copy():
+        return sm.gather_lanes(pool, torch.arange(9, device="cuda"))
+
+    batched = decode(model, tok, copy(), slots)[0].float()
+    alone = []
+    for i in range(8):
+        ids = torch.full_like(slots, sm.TRASH_SLOT)
+        ids[i] = slots[i]
+        alone.append(decode(model, tok, copy(), ids)[0][i].float())
+    alone = torch.stack(alone)
+    diff = (batched - alone).abs().max().item()
+    same = bool((batched.argmax(-1) == alone.argmax(-1)).all())
+    batch1 = torch.cat([decode(model, tok[i:i + 1], copy(),
+                               slots[i:i + 1])[0] for i in range(8)]).float()
+    diff1 = (batched - batch1).abs().max().item()
+    same1 = bool((batched.argmax(-1) == batch1.argmax(-1)).all())
+    log(f"  {cfg.name} lane check (int8, 8 live lanes): batched vs each "
+        f"lane alone in "
+        f"the 8-lane step: logits max abs diff {diff:.3e} (tolerance 0, "
+        f"bit-equal), tokens identical? {same} | batch-1 steps (other GEMM "
+        f"kernels): max abs diff {diff1:.3e}, tokens identical? {same1}")
+    if diff != 0.0 or not same:
+        raise AssertionError("a batched slot step differs from its lanes "
+                             "stepped one at a time")
+    return dict(max_abs_diff=diff, tokens_equal=same,
+                batch1_max_abs_diff=diff1, batch1_tokens_equal=same1)
+
+
+@contextlib.contextmanager
+def slot_scopes():
+    """Profiler ranges around the recurrences and the slot gather and
+    scatter, for the profiled apply only."""
+    import importlib
+    import torch
+    targets = [("repro_torch.models.rwkv6", "_wkv_chunked", "recurrence"),
+               ("repro_torch.models.mamba2", "_ssd_chunked", "recurrence"),
+               ("repro_torch.serve.state_model", "gather_lanes",
+                "slot gather/scatter"),
+               ("repro_torch.serve.state_model", "scatter_lanes",
+                "slot gather/scatter")]
+    saved = []
+
+    def scoped(fn, label):
+        def wrapper(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return wrapper
+
+    for mod_name, name, label in targets:
+        mod = importlib.import_module(mod_name)
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, scoped(getattr(mod, name), label))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+SLOT_GROUPS = ("recurrence", "slot gather/scatter")
+
+
+def profile_slot_decode(cfg, model) -> dict:
+    """Device time by group of one decode step of the state-slot engine
+    (8 live lanes, exact): the recurrence (`_wkv_chunked` or
+    `_ssd_chunked`), the slot gather and scatter, the matrix products
+    (GEMM operators elsewhere) and the rest; beside the bytes the step
+    must move at the card's memory rate: the weights (8 embedding rows)
+    read once, the lanes' recurrent state read and written once, and
+    zamba2's rings read once."""
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.core.policy import ArithmeticPolicy
+    from repro_torch.serve import state_model as sm
+    pool, _ = sm.init_slot_pool(cfg, 9, SLOT_SEQ_LEN, device="cuda")
+    decode = sm.make_slot_decode(cfg, ArithmeticPolicy())
+    tok = torch.randint(2, cfg.vocab_size, (8, 1), device="cuda",
+                        dtype=torch.int32)
+    slots = torch.arange(1, 9, device="cuda")
+
+    def fn():
+        return decode(model, tok, pool, slots)
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with slot_scopes(), torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    n_kernels = 0
+    for evt in prof.key_averages():
+        us = evt.self_device_time_total
+        if evt.device_type != DeviceType.CUDA or us <= 0 or \
+                evt.key in SLOT_GROUPS:
+            continue
+        total += us
+        n_kernels += evt.count
+    groups = dict.fromkeys(SLOT_GROUPS + ("products",), 0.0)
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CPU or not evt.kernels:
+            continue
+        node = evt
+        while node is not None and node.name not in SLOT_GROUPS:
+            node = node.cpu_parent
+        group = node.name if node is not None else (
+            "products" if evt.name in GEMM_OPS else None)
+        if group:
+            groups[group] += sum(k.duration for k in evt.kernels)
+    groups["rest"] = total - sum(groups.values())
+    groups = {k: v * 1e-3 for k, v in groups.items()}
+    total *= 1e-3
+    if total <= 0 or groups["recurrence"] <= 0 or groups["products"] <= 0:
+        raise AssertionError(f"the decode profile is missing a group: "
+                             f"{groups}")
+    lanes = sm.gather_lanes(pool, slots)
+    state = sum(t.numel() * t.element_size()
+                for path, t, _ in sm.lane_leaves(lanes)
+                if path[0] not in ("attn_k", "attn_v"))
+    rings = sum(lanes[k].numel() * lanes[k].element_size()
+                for k in ("attn_k", "attn_v") if k in lanes)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    embed = model.embed.numel() * model.embed.element_size()
+    n_bytes = weights - embed + 8 * model.embed[0].numel() \
+        * model.embed.element_size() + 2 * state + rings
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  profile, {cfg.name} decode step (8 lanes): wall {wall_ms:.2f} ms, "
+        f"device {total:.2f} ms ({total / wall_ms:.1%} busy, {n_kernels} "
+        f"kernels) | " + " | ".join(f"{g} {ms:.2f}"
+                                    for g, ms in groups.items())
+        + f" | byte bound {bound_ms:.2f} ms ({n_bytes / 1e9:.2f} GB: "
+        f"weights {(weights - embed) / 1e9:.2f}, state {state / 1e9:.3f} "
+        f"read and written, rings {rings / 1e9:.3f} read) = "
+        f"{bound_ms / total:.1%} of the device time | {card_line()}")
+    del pool, lanes
+    free()
+    return dict(wall_ms=wall_ms, device_ms=total, n_kernels=n_kernels,
+                groups=groups, bound_ms=bound_ms, bytes=n_bytes)
+
+
+def zamba2_pin_trace(cfg):
+    """4 greedy requests, prompts 32-48, 32 new tokens: with a ring of
+    64 the ring wraps during decode while no prompt outruns it."""
+    from repro_torch.serve import TrafficConfig, synth_trace
+    return synth_trace(TrafficConfig(
+        n_requests=4, arrival_rate=1e9, prompt_len_min=32, prompt_len_max=48,
+        gen_len_min=32, gen_len_max=32, vocab_size=cfg.vocab_size, seed=0))
+
+
+def zamba2_static_check(cfg) -> dict:
+    """At f32 through 7 layers of the full width (one shared invocation
+    and a 1-layer tail): the static path with the flash core and with
+    the gather core gives the same tokens."""
+    from repro_torch.launch.serve import serve
+    model = init_model(cfg)
+    runs = {impl: serve(batch=8, prompt_len=256, gen_len=16, params=model,
+                        device="cuda", attn_impl=impl)["generated"]
+            for impl in (None, "gather")}
+    same = bool((runs[None] == runs["gather"]).all())
+    log(f"  f32, {cfg.n_layers} layers of the full width, batch 8, prompt "
+        f"256, gen 16: flash and gather cores token-identical? {same}")
+    if not same:
+        raise AssertionError("zamba2's static path: flash and gather "
+                             "cores diverged")
+    del model
+    free()
+    return dict(tokens_equal=same)
+
+
 PROFILE_SCOPES = ("sc_matmul", "quantize", "int_einsum", "quant_einsum",
                   "artemis_matmul")
 GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::matmul",
@@ -2100,6 +2548,12 @@ def main() -> int:
     for rows in (moe_rows["paged_attention"], moe_rows["flash_attention"]):
         for row in rows:
             row["model"] = "qwen2_moe_a2_7b"
+    zamba_cfg = configs.get_config("zamba2_7b")
+    phases.mark("4c. flash_attention timing at the full-width zamba2_7b "
+                "static shapes (G = 1, Hq = Hkv = 32, D 112: rows)")
+    zamba_fa_rows = time_flash_attention(zamba_cfg)
+    for row in zamba_fa_rows:
+        row["model"] = "zamba2_7b"
 
     phases.mark("5. full-width qwen3_8b drain: bf16, attn_impl=fused")
     full = full_width_drain(cfg)
@@ -2157,6 +2611,48 @@ def main() -> int:
     del moe_model
     gc.collect()
     torch.cuda.empty_cache()
+
+    phases.mark("17. full-width rwkv6_3b engine drain: bf16, f32 state, 8 "
+                "lanes, chunk 32, 9 slots, half the requests sampled; the "
+                "f32 pin through 2 layers")
+    rw_cfg = configs.get_config("rwkv6_3b")
+    rw_model = init_model(rw_cfg)
+    rwkv = dict(drain=slot_drain(rw_cfg, rw_model))
+    rw2 = dataclasses.replace(rw_cfg, n_layers=2, compute_dtype="float32")
+    rwkv.update(pin=slot_pin(rw2, smoke_trace(rw2)))
+    phases.mark("18. full-width rwkv6_3b static path: batch 8, prompt 1024, "
+                "gen 32, exact; profile of one decode step")
+    rwkv.update(static=recurrent_static(rw_cfg, rw_model, 0),
+                profile=profile_slot_decode(rw_cfg, rw_model))
+    phases.mark("19. full-width rwkv6_3b int8 drain (4 requests, 4 new "
+                "tokens) and the lane check")
+    with sc_path_shapes(path_sc):
+        rwkv.update(int8=rwkv6_int8(rw_cfg, rw_model))
+    del rw_model
+    free()
+
+    phases.mark("20. full-width zamba2_7b engine drain: bf16, f32 state and "
+                "ring, 8 lanes, chunk 32, 9 slots, half the requests "
+                "sampled; the f32 pin through 7 layers, attn_window 64")
+    zb_model = init_model(zamba_cfg)
+    zamba = dict(drain=slot_drain(zamba_cfg, zb_model))
+    zb7 = dataclasses.replace(zamba_cfg, n_layers=7, attn_window=64,
+                              compute_dtype="float32")
+    zamba.update(pin=slot_pin(zb7, zamba2_pin_trace(zb7)))
+    phases.mark("21. full-width zamba2_7b static path: batch 8, prompt "
+                "1024, gen 32, exact (flash rows); f32 flash vs gather "
+                "through 7 layers")
+    n_inv = zamba_cfg.n_layers // zamba_cfg.shared_attn_period
+    zamba.update(static=recurrent_static(zamba_cfg, zb_model, n_inv * 33),
+                 static_f32=zamba2_static_check(dataclasses.replace(
+                     zamba_cfg, n_layers=7, compute_dtype="float32")))
+    phases.mark("22. profile of one zamba2_7b decode step; its int8 lane "
+                "check (prompts of 4 tokens)")
+    zamba.update(profile=profile_slot_decode(zamba_cfg, zb_model))
+    with sc_path_shapes(path_sc):
+        zamba.update(lane_check=lane_check(zamba_cfg, zb_model, 4))
+    del zb_model
+    free()
     phases.mark("16. sc_matmul at every shape the main path gave it")
     sc_path = check_sc_path_shapes(path_sc)
     phases.mark(None)
@@ -2171,9 +2667,11 @@ def main() -> int:
                 "qwen2_moe_a2_7b engine": moe["launches"]}
     sc_paths = {**{f"qwen3_8b {k} engine": q["launches"]
                    for k, q in quant.items()},
-                "qwen2_moe_a2_7b int8 engine": moe["int8"]["launches"]}
+                "qwen2_moe_a2_7b int8 engine": moe["int8"]["launches"],
+                "rwkv6_3b int8 engine": rwkv["int8"]["launches"]}
     fa_paths = {"qwen3_8b static": static["launches"],
-                "qwen2_moe_a2_7b static": moe["static"]["launches"]}
+                "qwen2_moe_a2_7b static": moe["static"]["launches"],
+                "zamba2_7b static": zamba["static"]["launches"]}
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/paged_attention/csrc/"
@@ -2213,6 +2711,7 @@ def main() -> int:
         "launches_by_variant": static["launches_by_variant"],
         "max_abs_err": max(*fa_err.values(),
                            *(e for r in fa_rows + moe_rows["flash_attention"]
+                             + zamba_fa_rows
                              for e in r["max_abs_err_by_variant"].values())),
         "max_abs_err_by_variant": {v: max(fa_err[v], *(
             r["max_abs_err_by_variant"][v] for r in fa_rows))
@@ -2223,8 +2722,9 @@ def main() -> int:
         "library_ms": fa_rows[0]["library_ms"],
         "cases_within_tol": {
             v: n_fa_cases[v] + len(fa_rows) + len(moe_rows["flash_attention"])
+            + sum(v in r["max_abs_err_by_variant"] for r in zamba_fa_rows)
             for v in FA_VARIANTS},
-        "shapes": fa_rows + moe_rows["flash_attention"],
+        "shapes": fa_rows + moe_rows["flash_attention"] + zamba_fa_rows,
     }]
     log(json.dumps({"kernels": kernels,
                     "drain": {"tok_s": full["tok_s"],
@@ -2233,6 +2733,7 @@ def main() -> int:
                     "quantized_drains": quant,
                     "static": static, "sampler": samp,
                     "mixed_drain": mixed, "qwen2_moe_a2_7b": moe,
+                    "rwkv6_3b": rwkv, "zamba2_7b": zamba,
                     "phase_s": phases.seconds}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,14 +1,15 @@
 """Numpy bridge between the reference's parameter pytree and the port's
-`Transformer`.
+models (`models.model.empty`: `Transformer`, `RWKV6`, `Zamba2`).
 
 The reference keeps its weights as a nested dict of arrays whose
 `"layers"` subtree is stacked on a leading L axis (it scans over
-layers); the port holds one `Block` per layer. `params_from_numpy`
+layers); the port holds one module per layer. `params_from_numpy`
 unstacks that axis, `params_to_numpy` restacks it. The port's modules
 carry the reference's leaf names, so a path maps to an attribute path:
 `layers/moe/experts/w_up` (L, E, d, f) is `layers[i].moe.experts.w_up`
 (E, d, f), and likewise the router (L, d, E) and the shared experts
-(L, Ns, d, f). Both take and give
+(L, Ns, d, f); rwkv6's `ln0/scale` is `ln0.scale`, zamba2's unstacked
+shared block `shared/attn/wq` is `shared.attn.wq`. Both take and give
 numpy arrays only, so this module needs no JAX: a caller converts with
 `jax.tree.map(np.asarray, params)` on its side.
 """
@@ -17,8 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models import model as modellib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import Transformer
 
 
 def _leaves(tree, prefix=()):
@@ -31,7 +32,7 @@ def _leaves(tree, prefix=()):
             yield prefix + (key,), val
 
 
-def _target(model: Transformer, path: tuple[str, ...],
+def _target(model: torch.nn.Module, path: tuple[str, ...],
             layer: int | None = None) -> torch.Tensor:
     obj = model.layers[layer] if layer is not None else model
     for name in path:
@@ -53,11 +54,11 @@ def _set(dst: torch.Tensor, src: np.ndarray, path) -> None:
 
 @torch.no_grad()
 def params_from_numpy(tree: dict, cfg: ModelConfig,
-                      device="cuda") -> Transformer:
+                      device="cuda") -> torch.nn.Module:
     """The port's model holding the weights of a reference parameter
     tree (numpy leaves). Every leaf of the tree must land somewhere and
     every parameter of the model must be covered."""
-    model = Transformer(cfg, device=device)
+    model = modellib.empty(cfg, device=device)
     covered = set()
     for path, leaf in _leaves(tree):
         if path[0] == "layers":
@@ -79,7 +80,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig,
     return model
 
 
-def params_to_numpy(model: Transformer) -> dict:
+def params_to_numpy(model: torch.nn.Module) -> dict:
     """The reference-layout tree (f32 numpy leaves, layers restacked on
     a leading L axis) of the port's model."""
     tree: dict = {}

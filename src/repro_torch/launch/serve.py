@@ -11,10 +11,13 @@
   --mode engine   the `repro_torch.serve` engine: per-request lifecycles
                   with chunked+batched prefill composed with decode into
                   mixed steps by the ARTEMIS-cost-aware scheduler,
-                  driven by a synthetic Poisson trace, over the paged KV
-                  backend (COW prefix sharing, `--prefix-groups` et
-                  al.). `--attn-impl fused` runs attention through the
-                  hand-written paged-attention kernel. With
+                  driven by a synthetic Poisson trace: the attention
+                  families over the paged KV backend (COW prefix
+                  sharing, `--prefix-groups` et al.), the recurrent
+                  ones (rwkv6, zamba2) over the state-slot backend
+                  (`--n-slots` sizes its pool). `--attn-impl fused`
+                  runs attention through the hand-written
+                  paged-attention kernel. With
                   `--temperature > 0` a share of the requests
                   (`--sampled-fraction`) decodes stochastically on
                   per-request RNG lanes (`--top-k`, `--top-p`,
@@ -29,8 +32,8 @@ It prints the same summary lines as `repro.launch.serve`. Weights are
 random, drawn from `--seed` with a torch generator on `--device`
 (default cuda), and so are the static prompts (from `--seed` + 1, as
 the reference draws them with jax.random): the port's tokens differ
-from the reference's for the same seed. The dense and MoE families
-run; the recurrent and multimodal ones are not ported yet.
+from the reference's for the same seed. The dense, MoE, rwkv6 and
+zamba2 families run; the multimodal ones are not ported yet.
 
 Wall-clock use here is intentional: the CLI reports real prefill,
 decode and drain seconds next to the virtual-clock metrics.
@@ -47,7 +50,6 @@ from repro_torch.core.policy import ArithmeticPolicy
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as stepslib
 from repro_torch.models import model as modellib
-from repro_torch.models import transformer
 from repro_torch.serve import (EngineConfig, ServeEngine, TrafficConfig,
                                export_chrome_trace, synth_trace)
 from repro_torch.serve.traffic import trace_stats
@@ -118,6 +120,7 @@ def serve_engine(arch: str = "qwen3_8b", smoke: bool = True,
                  max_batch: int = 8, scheduler: str = "cost",
                  prefill_chunk: int = 32, prefix_sharing: bool = True,
                  prefix_groups: int = 0, prefix_len: int = 0,
+                 n_slots: int = 0,
                  sampled_fraction: float = 0.0, temperature: float = 0.8,
                  top_k: int = 0, top_p: float = 1.0, sample_seed: int = -1,
                  observability: str = "metrics",
@@ -141,10 +144,11 @@ def serve_engine(arch: str = "qwen3_8b", smoke: bool = True,
         page_size=page_size, n_pages=n_pages, max_batch=max_batch,
         max_pages_per_seq=max(1, -(-max_len // page_size)) + 1,
         prefill_chunk=prefill_chunk, scheduler=scheduler,
-        prefix_sharing=prefix_sharing, max_seq_len=max(max_len + 1, 2),
-        observability=observability, attn_impl=attn_impl)
+        prefix_sharing=prefix_sharing, n_slots=n_slots,
+        max_seq_len=max(max_len + 1, 2), observability=observability,
+        attn_impl=attn_impl)
     if params is None:
-        params = transformer.init(cfg, seed=seed, device=dev)
+        params = modellib.init(cfg, seed=seed, device=dev)
     eng = ServeEngine(cfg, params=params,
                       policy=ArithmeticPolicy(mode=policy_mode),
                       ecfg=ecfg, seed=seed, device=dev)
@@ -192,6 +196,8 @@ def summary_lines(m: dict) -> list[str]:
         line += (f" | prefix hits {m['n_prefix_hits']} "
                  f"(rate {m['prefix_hit_rate']:.2f}) | "
                  f"{m['n_cow_forks']} COW forks")
+    if "n_state_slots" in m:         # state-slot backend extras
+        line += f" | {m['n_state_slots']} state slots"
     return [
         line + f" | {m['n_preemptions']} preemptions",
         (f"energy: {m['total_energy_J']*1e6:.2f} uJ total "
@@ -227,6 +233,9 @@ def main(argv: list[str] | None = None) -> None:
                     choices=["cost", "fcfs"])
     ap.add_argument("--no-prefix-sharing", action="store_true",
                     help="disable COW prefix/page sharing")
+    ap.add_argument("--n-slots", type=int, default=0,
+                    help="engine: state-slot pool size for recurrent "
+                         "archs (0 = auto: batch lanes + 1)")
     ap.add_argument("--prefix-groups", type=int, default=0,
                     help="shared-prefix trace groups (0 = independent "
                          "prompts)")
@@ -292,6 +301,7 @@ def main(argv: list[str] | None = None) -> None:
         scheduler=args.scheduler, prefill_chunk=args.prefill_chunk,
         prefix_sharing=not args.no_prefix_sharing,
         prefix_groups=args.prefix_groups, prefix_len=args.prefix_len,
+        n_slots=args.n_slots,
         sampled_fraction=sampled_fraction, temperature=args.temperature,
         top_k=args.top_k, top_p=args.top_p, sample_seed=args.sample_seed,
         observability=args.observability, trace_json=args.trace_json,

@@ -10,6 +10,13 @@ kernel on CUDA. The attention score/value contractions go through
 policy, through the flash-attention kernel (`attn_impl="flash"`), and
 otherwise through the reference's own math (`attn_impl="gather"`).
 
+A `LanePolicy` (`per_lane(policy)`) marks a batch of independent
+lanes, the state-slot steps' batched form of the reference's per-lane
+vmap at batch 1: `mm` and `qeinsum` then take each lane's activation
+scale over that lane alone (axis 0 is the lane), as the reference's
+per-tensor scale does on its batch-1 lane, so no lane's values depend
+on another's.
+
 Numerics follow the reference op for op: norms and RoPE run in f32 and
 cast back, the norm scales are read as f32, and the FFN activations
 match `jax.nn` (its `gelu` is the tanh approximation).
@@ -33,11 +40,34 @@ from repro_torch.kernels.flash_attention import flash_attention
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True)
+class LanePolicy(ArithmeticPolicy):
+    """An `ArithmeticPolicy` applied to a batch of independent lanes
+    (axis 0): each lane's activations take their own per-tensor scale."""
+
+
+def per_lane(policy: ArithmeticPolicy) -> LanePolicy:
+    """`policy` over independent lanes; it must scale activations per
+    tensor, which per lane it then does."""
+    if policy.act_quant_axis is not None:
+        raise ValueError(
+            f"per-lane scales replace a per-tensor activation scale; "
+            f"act_quant_axis={policy.act_quant_axis} is not per tensor")
+    return LanePolicy(**dataclasses.asdict(policy))
+
+
+def _lane_axes(t: torch.Tensor) -> tuple:
+    return tuple(range(1, t.dim()))
+
+
 def mm(x: torch.Tensor, w: torch.Tensor,
        policy: ArithmeticPolicy) -> torch.Tensor:
-    """x: (..., K) activations, w: (K, N) weights -> (..., N), x.dtype."""
+    """x: (..., K) activations, w: (K, N) weights -> (..., N), x.dtype.
+    Under a `LanePolicy` x is (B, ..., K) over B independent lanes."""
     if policy.mode == "exact":
         return torch.matmul(x, w.to(x.dtype))
+    if isinstance(policy, LanePolicy):
+        policy = dataclasses.replace(policy, act_quant_axis=_lane_axes(x))
     return artemis_matmul(x, w, policy).to(x.dtype)
 
 
@@ -54,14 +84,24 @@ def _quant_einsum(spec: str, a: torch.Tensor, b: torch.Tensor,
     """Batched einsum through the int8 / artemis_mxu ladder, in the
     operands' dtype up to the integer product, as the reference. Only
     artemis_mxu takes the sign correction: every other quantized mode
-    (artemis included) is a plain int8 contraction here."""
-    sa = q.quant_scale(a, 8, policy.act_quant_axis)
-    sb = q.quant_scale(b, 8, policy.act_quant_axis)
+    (artemis included) is a plain int8 contraction here. Under a
+    `LanePolicy` both operands and the output lead with the lane axis,
+    and each lane's operands take their own scales."""
+    lanes = isinstance(policy, LanePolicy)
+    if lanes:
+        sa = q.quant_scale(a, 8, _lane_axes(a))
+        sb = q.quant_scale(b, 8, _lane_axes(b))
+    else:
+        sa = q.quant_scale(a, 8, policy.act_quant_axis)
+        sb = q.quant_scale(b, 8, policy.act_quant_axis)
     aq, bq = q.quantize(a, sa), q.quantize(b, sb)
     dot = _int_einsum(spec, aq, bq)
     if policy.mode == "artemis_mxu":
         sgn = _int_einsum(spec, torch.sign(aq), torch.sign(bq))
         dot = dot - policy.rbar / SC_LEVELS * sgn
+    if lanes:
+        lane = (-1,) + (1,) * (dot.dim() - 1)
+        sa, sb = sa.reshape(lane), sb.reshape(lane)
     out = dot * sa * sb
     if policy.ste:
         exact = torch.einsum(spec, a.float(), b.float())
@@ -211,14 +251,17 @@ def _flash_core(qh, kh, vh, *, window: int, q_offset: int,
 def attention(p, x: torch.Tensor, dims: AttnDims, *, positions,
               kv_positions=None, policy=ArithmeticPolicy(), qk_norm=False,
               rope_theta=1e4, window=0, norm_eps=1e-6, cache=None,
-              cache_index: int = 0, attn_impl: str | None = None):
+              cache_index: int | torch.Tensor = 0,
+              attn_impl: str | None = None):
     """GQA attention (counterpart of `repro.models.layers.attention`).
     x: (B, S, D); p: an object with wq, wk, wv, wo (and q_norm, k_norm
     when qk_norm).
 
     cache: optional dict {"k","v"}: (B, Smax, KV, Dh), UPDATED IN PLACE
     (the reference returns updated copies); cache_index: the host int
-    write offset. Returns (out, the cache dict or None).
+    write offset, or a (B,) tensor of per-lane offsets for one token a
+    lane (S == 1; the gather core; what the reference's per-lane vmap
+    writes at batch 1). Returns (out, the cache dict or None).
 
     attn_impl (see `resolve_attn_impl`): "gather" is the reference's
     math, masked by `positions` / `kv_positions`; "flash" runs the
@@ -228,9 +271,10 @@ def attention(p, x: torch.Tensor, dims: AttnDims, *, positions,
     are those contiguous ones.
     """
     impl = resolve_attn_impl(attn_impl, policy)
-    if impl == "flash" and kv_positions is not None:
+    per_lane = isinstance(cache_index, torch.Tensor)
+    if impl == "flash" and (kv_positions is not None or per_lane):
         raise ValueError("attn_impl='flash' derives the key mask from "
-                         "cache_index; it takes no kv_positions")
+                         "a host cache_index; it takes no kv_positions")
     b, s, _ = x.shape
     h, kv, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
     qh = mm(x, p.wq, policy).reshape(b, s, h, hd)
@@ -258,10 +302,18 @@ def attention(p, x: torch.Tensor, dims: AttnDims, *, positions,
             cv.copy_(vh[:, -smax:])
             kv_positions = None
         else:
-            # dynamic_update_slice clamps the offset so the write fits
-            start = min(max(cache_index, 0), smax - s)
-            ck[:, start:start + s] = kh.to(ck.dtype)
-            cv[:, start:start + s] = vh.to(cv.dtype)
+            if per_lane:
+                if s != 1:
+                    raise ValueError(f"a per-lane cache_index writes one "
+                                     f"token a lane, got S={s}")
+                rows = torch.arange(b, device=x.device)
+                ck[rows, cache_index] = kh[:, 0].to(ck.dtype)
+                cv[rows, cache_index] = vh[:, 0].to(cv.dtype)
+            else:
+                # dynamic_update_slice clamps the offset so the write fits
+                start = min(max(cache_index, 0), smax - s)
+                ck[:, start:start + s] = kh.to(ck.dtype)
+                cv[:, start:start + s] = vh.to(cv.dtype)
             if impl == "flash":
                 q_offset = cache_index
                 kv_len = min(q_offset + s, smax)

@@ -5,18 +5,21 @@ The engine, scheduler, and request lifecycle never touch pages, block
 tables, prefix hashes or copy-on-write directly: they talk to a
 `SequenceBackend` through the narrow protocol below, whose contract is
 the reference's, method for method (see `repro.serve.backend`'s module
-docstring for the full text). One backend is ported:
+docstring for the full text). Both single-device backends are ported:
 
   PagedKVBackend   — attention families (dense and MoE): K/V in a
                      pool of fixed-size
                      token pages with a refcounting allocator,
                      PrefixIndex admission matching, copy-on-write forks
                      and trash page 0 for idle lanes.
+  StateSlotBackend — recurrent families (rwkv6 / zamba2): a fixed pool
+                     of whole per-sequence state slots
+                     (`serve.state_model`), one per in-flight request,
+                     trash slot 0 for idle lanes.
 
 Every arithmetic policy mode runs (the quantized ones through the
 sc_matmul kernel and the gather core). Not ported yet, and refused by
-`make_backend` with a message that says so: the state-slot backend of
-the recurrent families, the tensor-parallel mesh
+`make_backend` with a message that says so: the tensor-parallel mesh
 (`mesh_shards > 1`) and the analog readout noise of the artemis mode
 (`sigma_analog > 0`).
 
@@ -40,6 +43,7 @@ from repro_torch.models.transformer import FAMILIES, torch_dtype
 from repro_torch.serve.obs import CowForkEvent, ShareEvent, Tracer
 from repro_torch.serve.paged_cache import (
     TRASH_PAGE,
+    PageAllocator,
     PrefixIndex,
     cow_copy_page,
     init_paged_cache,
@@ -50,6 +54,14 @@ from repro_torch.serve.paged_model import (
     make_paged_decode,
 )
 from repro_torch.serve.request import Request, RequestState
+from repro_torch.serve.state_model import (
+    TRASH_SLOT,
+    chunk_steps,
+    init_slot_pool,
+    make_slot_decode,
+    make_slot_prefill_chunk,
+    reset_slot,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +69,7 @@ class EngineConfig:
     """Serve configuration: engine-level knobs (batch lanes, chunk
     size, scheduler policy) plus the memory-pool geometry each backend
     interprets — paged backends read the page_* fields, state-slot
-    backends (not ported yet) read n_slots/max_seq_len."""
+    backends read n_slots/max_seq_len."""
     page_size: int = 8
     n_pages: int = 128             # includes the reserved trash page 0
     max_batch: int = 4             # batch lanes
@@ -571,6 +583,184 @@ class PagedKVBackend(SequenceBackend):
 
 
 # ---------------------------------------------------------------------------
+# state-slot backend (recurrent families)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SlotSeqState:
+    """StateSlotBackend's per-request `req.mem`."""
+    slot: int
+
+
+class SlotBudget(BudgetProbe):
+    """Slot-pool planning: a sequence costs exactly ONE slot for its
+    whole lifetime, so continuing chunks are free (the slot is already
+    held) and an admission charges one slot."""
+
+    def __init__(self, free_slots: int):
+        self.free = free_slots
+
+    def grant_continue(self, req: Request, want: int,
+                       forced: bool = False) -> int:
+        return want
+
+    def grant_admit(self, req: Request, want: int) -> int:
+        if self.free <= 0:
+            return 0
+        self.free -= 1
+        return min(want, len(req.effective_prompt()))
+
+
+class StateSlotBackend(SequenceBackend):
+    """Fixed pool of per-lane recurrent state slots.
+
+    A request holds exactly one slot from admission to release; the
+    slot is reset to the family's pristine initial cache on
+    allocation, chunked prefill absorbs the effective prompt into it
+    token by token, and decode advances it one token per step (the
+    steps of `serve.state_model`, on the device of `params`). State is
+    a dense mixture of the whole history, so there is nothing to
+    prefix-share (probe_shared == 0) and nothing to grow: once
+    admitted, a request can always decode to completion, so the only
+    eviction this backend sees is externally forced, and preemption
+    recovers by recompute into a fresh slot. `n_forwards` counts the
+    step calls (`n_prefill_forwards` the prefill chunks among them),
+    `n_applies` the single-token model applies they ran.
+    """
+
+    families = ("rwkv6", "zamba2")
+
+    def __init__(self, cfg: ModelConfig, ecfg: EngineConfig,
+                 policy: ArithmeticPolicy, params, obs: Tracer, clock):
+        self.cfg = cfg
+        self.ecfg = ecfg
+        self.params = params
+        self.device = params.device
+        self.n_slots = ecfg.n_slots or ecfg.max_batch + 1
+        # the page allocator is a generic refcounting free list over
+        # ids [1, n); reused as the slot allocator (slot "size" 1,
+        # refcounts stay at 1: slots are never shared)
+        self.allocator = PageAllocator(self.n_slots, 1)
+        self.pool, self.init_slot = init_slot_pool(
+            cfg, self.n_slots, ecfg.max_seq_len,
+            dtype=torch_dtype(ecfg.cache_dtype), device=self.device)
+        self._prefill_fn = make_slot_prefill_chunk(cfg, policy)
+        self._decode_fn = make_slot_decode(cfg, policy)
+        self._obs = obs
+        self._now = clock
+        self.n_forwards = 0
+        self.n_prefill_forwards = 0
+        self.n_applies = 0
+
+    # -- admission ----------------------------------------------------------
+
+    def validate(self, prompt_len: int, max_new_tokens: int) -> None:
+        # the final sampled token is never fed back into the state
+        total = prompt_len + max_new_tokens - 1
+        if total > self.ecfg.max_seq_len:
+            raise ValueError(
+                f"request absorbs up to {total} tokens, max_seq_len "
+                f"is {self.ecfg.max_seq_len}")
+
+    def admit(self, req: Request) -> AdmitPlan:
+        if not self.allocator.can_alloc(1):
+            # unreachable from engine flow: the scheduler budgets
+            # admissions against free slots via SlotBudget
+            raise MemoryError("state-slot pool dry at admission")
+        [slot] = self.allocator.alloc(1, req.rid)
+        # a freed slot holds its previous occupant's state; reset to
+        # the pristine initial cache before the new prompt lands
+        reset_slot(self.pool, self.init_slot, slot)
+        req.mem = SlotSeqState(slot=slot)
+        reg = self._obs.registry
+        reg.inc("backend/n_admissions")
+        reg.inc("backend/prompt_tokens", len(req.effective_prompt()))
+        return AdmitPlan()
+
+    def probe_shared(self, req: Request) -> int:
+        return 0
+
+    def budget(self) -> SlotBudget:
+        return SlotBudget(self.allocator.n_free)
+
+    def can_fund(self, req: Request, n_tokens: int) -> bool:
+        if req.mem is not None:
+            return True          # the slot absorbs any token count
+        return self.allocator.can_alloc(1)
+
+    def prepare_decode(self, reqs: list[Request], evict) -> None:
+        pass                     # fixed-size state never grows
+
+    def fund_prefill(self, req: Request, want: int, evict) -> int:
+        return want              # the slot was funded at admission
+
+    # -- forwards -----------------------------------------------------------
+
+    def _dev(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(arr).to(self.device)
+
+    def prefill_step(self, chunks: list[tuple[Request, int]]):
+        b, c = self.ecfg.max_batch, self.ecfg.prefill_chunk
+        tokens = np.zeros((b, c), np.int32)
+        slot_ids = np.full((b,), TRASH_SLOT, np.int64)
+        lens = np.zeros((b,), np.int32)
+        active = np.zeros((b,), bool)
+        for i, (req, n) in enumerate(chunks):
+            ep = req.effective_prompt()
+            tokens[i, :n] = ep[req.prefill_pos:req.prefill_pos + n]
+            slot_ids[i] = req.mem.slot
+            lens[i] = n
+            active[i] = True
+        logits, self.pool = self._prefill_fn(
+            self.params, self._dev(tokens), self.pool, self._dev(slot_ids),
+            lens, active)
+        self.n_forwards += 1
+        self.n_prefill_forwards += 1
+        self.n_applies += chunk_steps(lens, active)
+        for req, n in chunks:
+            req.prefill_pos += n
+            req.seq_len = req.prefill_pos
+        return logits
+
+    def decode_step(self, reqs: list[Request]):
+        b = self.ecfg.max_batch
+        tokens = np.zeros((b, 1), np.int32)
+        slot_ids = np.full((b,), TRASH_SLOT, np.int64)
+        for req in reqs:
+            tokens[req.lane, 0] = req.generated[-1]
+            slot_ids[req.lane] = req.mem.slot
+        logits, self.pool = self._decode_fn(
+            self.params, self._dev(tokens), self.pool, self._dev(slot_ids))
+        self.n_forwards += 1
+        self.n_applies += 1
+        return logits
+
+    # -- release / accounting -----------------------------------------------
+
+    def release(self, req: Request) -> None:
+        if req.mem is None:
+            return
+        self.allocator.free([req.mem.slot], owner=req.rid)
+        req.mem = None
+
+    def utilization(self) -> tuple[float, float]:
+        u = self.allocator.n_used / max(self.n_slots - 1, 1)
+        return u, u              # slots are never shared
+
+    def snapshot_metrics(self) -> dict:
+        return {
+            "n_state_slots": self.n_slots - 1,
+            "state_slots_allocated": self.allocator.total_allocated,
+        }
+
+    def check_invariants(self) -> None:
+        self.allocator.check_invariants()
+        assert self.allocator.n_logical == self.allocator.n_used, \
+            "state slots must never be shared across requests"
+
+
+# ---------------------------------------------------------------------------
 # family routing
 # ---------------------------------------------------------------------------
 
@@ -588,12 +778,10 @@ def make_backend(cfg: ModelConfig, ecfg: EngineConfig,
         raise NotImplementedError(
             f"sigma_analog={policy.sigma_analog}: the analog readout "
             f"noise of the artemis mode is not ported yet")
-    if cfg.family in ("rwkv6", "zamba2"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} serves through the state-slot "
-            f"backend, which is not ported yet")
-    if cfg.family in PagedKVBackend.families:
-        return PagedKVBackend(cfg, ecfg, policy, params, obs, clock)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (available: "
-        f"{PagedKVBackend.families})")
+    for backend_cls in (PagedKVBackend, StateSlotBackend):
+        if cfg.family in backend_cls.families:
+            return backend_cls(cfg, ecfg, policy, params, obs, clock)
+    served = PagedKVBackend.families + StateSlotBackend.families
+    raise ValueError(
+        f"no sequence backend serves family {cfg.family!r} "
+        f"(available: {served})")

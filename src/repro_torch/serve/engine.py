@@ -77,7 +77,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.policy import ArithmeticPolicy
-from repro_torch.models import transformer
+from repro_torch.models import model as modellib
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve import sampler
 from repro_torch.serve.backend import EngineConfig, make_backend
@@ -108,15 +108,15 @@ class ServeEngine:
                  policy: ArithmeticPolicy = ArithmeticPolicy(),
                  ecfg: EngineConfig = EngineConfig(), seed: int = 0,
                  device="cuda"):
-        """`params` is the port's `Transformer` (see `repro_torch.bridge`
-        for reference weights); None draws seeded random weights on
+        """`params` is the port's model (`models.model`; see
+        `repro_torch.bridge` for reference weights); None draws seeded random weights on
         `device` (a torch stream, so not the reference's values).
         Steps run on the device of the weights."""
         self.cfg = cfg
         self.ecfg = ecfg
         self.policy = policy
         if params is None:
-            params = transformer.init(cfg, seed=seed, device=device)
+            params = modellib.init(cfg, seed=seed, device=device)
         self.params = params
         self.cost = ArtemisCostModel(cfg, scheme=ecfg.scheme,
                                      n_shards=ecfg.mesh_shards)

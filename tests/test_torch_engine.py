@@ -149,15 +149,20 @@ def test_multi_device_mesh_is_refused():
 
 
 def test_unported_families_and_policies_are_refused():
-    from repro_torch import configs as tconfigs
+    """Every family the reference serves has its backend now (the
+    recurrent ones the state-slot backend, tests/test_torch_state_engine
+    .py); a family no backend serves is refused as the reference refuses
+    it, and so is the artemis readout noise."""
     from repro_torch.core.policy import ArithmeticPolicy
     from repro_torch.serve.backend import make_backend
     cfg, _, model = _weights()
-    for arch in ("rwkv6_3b", "zamba2_7b"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            make_backend(tconfigs.get_config(arch, smoke=True),
-                         EngineConfig(), ArithmeticPolicy(), model,
-                         obs=None, clock=None)
+
+    class _NoSuchFamily:
+        family = "no_such_family"
+
+    with pytest.raises(ValueError, match="no sequence backend"):
+        make_backend(_NoSuchFamily(), EngineConfig(), ArithmeticPolicy(),
+                     model, obs=None, clock=None)
     # the quantized policies run; the artemis readout noise does not
     with pytest.raises(NotImplementedError, match="sigma_analog"):
         ServeEngine(cfg, params=model,

@@ -105,7 +105,8 @@ def _numpy_params(arch, **overrides):
     return cfg, params, jax.tree.map(np.asarray, params)
 
 
-@pytest.mark.parametrize("arch", ["qwen3_8b", "gemma_2b"])
+@pytest.mark.parametrize("arch", ["qwen3_8b", "gemma_2b", "rwkv6_3b",
+                                  "zamba2_7b"])
 def test_bridge_round_trips_every_leaf(arch):
     cfg, _, tree = _numpy_params(arch, compute_dtype="float32")
     model = params_from_numpy(tree, cfg, device="cpu")

@@ -402,9 +402,8 @@ def test_unknown_attn_impl_raises():
         TL.resolve_attn_impl("fused", TPolicy())
 
 
-@pytest.mark.parametrize("arch,item", [("rwkv6_3b", "item 6"),
-                                       ("zamba2_7b", "item 6"),
-                                       ("musicgen_large", "item 7")])
+@pytest.mark.parametrize("arch,item", [("musicgen_large", "item 7"),
+                                       ("internvl2_1b", "item 7")])
 def test_model_factory_names_the_roadmap_item(arch, item):
     cfg = tconfigs.get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match=item):
