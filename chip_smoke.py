@@ -104,9 +104,30 @@ without printing a result:
      layers, the flash and gather cores token-identical;
  22. the device time by group of one zamba2 decode step beside its byte
      bound, and its int8 lane check;
+ 23. training at the full qwen3_8b width through 8 of its 36 layers
+     (reduced: depth; f32 master weights, gradients and AdamW moments,
+     16 B a parameter, do not fit one card at 36): bf16 compute, batch
+     8 x seq 128 from `make_batch`, remat, through `make_train_step`: 4
+     steps exact, then 2 each under int8, artemis_mxu and artemis on the
+     same model; the launch counts zeroed once before the first step and
+     each step's launches read around it: sc_matmul 112 a quantized
+     step (7 projections a layer forward and 7 in the recompute, x 8)
+     and none an exact one, the attention kernels never, the phase's
+     totals the sums of its steps'; each policy's first step and the
+     median of the rest, tokens/s, the peak device memory and the AdamW
+     update's device time beside its byte bound;
+ 24. a train step's loss and gradients on the card against the CPU's
+     (the plain versions), from the same weights, full width through 2
+     layers, f32, batch 2 x seq 64: exact within 1e-5 (loss, relative)
+     and 1e-4 (each gradient, of its max abs); int8 within 1e-3 and
+     0.25 (a last bit flips int8 values, see `TRAIN_PIN_TOL`), and on
+     the card the kernel's step bit-equal to the plain version's; then
+     `launch.train.train` at the smoke config, 6 steps saving every 3,
+     resumed from its step-3 checkpoint: the losses and weights of the
+     uninterrupted run, bit for bit;
  16. (last) sc_matmul against its plain version at every shape phases
-     7, 9, 14, 19 and 22 gave it; print the kernels line, the card line,
-     then the result line.
+     7, 9, 14, 19, 22, 23 and 24 gave it; print the kernels line, the
+     card line, then the result line.
 Each phase's seconds are logged as it ends. Phase 4 also times each
 kernel at the qwen2_moe_a2_7b shapes (4b) and flash_attention at
 zamba2_7b's static shapes (4c), and phase 3 holds sc_matmul to its
@@ -130,10 +151,14 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import pathlib
 import re
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -2454,6 +2479,271 @@ def profile_forwards(cfg, model, mode) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 23-24: training (the dense family's train step at full width)
+# ---------------------------------------------------------------------------
+
+# 8 of qwen3_8b's 36 layers: f32 weights, gradients and AdamW moments take
+# 16 B a parameter, 44.6 GB at 8 layers and about 131 GB at 36
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ = 8, 128      # the reference trainer's defaults
+TRAIN_STEPS = (("exact", 4), ("int8", 2), ("artemis_mxu", 2), ("artemis", 2))
+# AdamW reads p, g, m, v and writes p, m, v: 7 f32 words a parameter
+ADAMW_BYTES_PER_PARAM = 28
+# the card against the CPU: exact within f32 rounding; int8 within what a
+# last-bit difference does through the int8 rounding of the activations
+# (values at a rounding boundary flip, and the spiky attention of random
+# weights carries a flip into every gradient: measured 9.1e-5 and 7.2e-2
+# on an H100 with this seed), which a missing straight-through estimator
+# (about 1) still fails; the kernel itself is held bit for bit on the card
+TRAIN_PIN_TOL = {"exact": dict(loss_rel=1e-5, grad_of_max=1e-4),
+                 "int8": dict(loss_rel=1e-3, grad_of_max=0.25)}
+
+
+@contextlib.contextmanager
+def adamw_timer(into: list):
+    """The device time (ms, CUDA events) of every `adamw_update` the
+    train step makes inside the block, through the name
+    `launch.steps` calls; the update itself runs as it is."""
+    import torch
+    from repro_torch.launch import steps
+    real = steps.adamw_update
+
+    def timed(*args, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = real(*args, **kw)
+        end.record()
+        end.synchronize()
+        into.append(start.elapsed_time(end))
+        return out
+
+    steps.adamw_update = timed
+    try:
+        yield into
+    finally:
+        steps.adamw_update = real
+
+
+def train_full_width(cfg) -> dict:
+    """Phase 23: one model of `TRAIN_LAYERS` full-width qwen3_8b layers
+    (f32 master weights, bf16 compute, remat) trained through
+    `make_train_step` on `make_batch` batches, 4 steps exact and 2 under
+    each quantized policy. The launch counts are zeroed once, before
+    the first step, and each step's launches read as the difference
+    around it: sc_matmul 14 a layer of a quantized step (7 projections
+    forward, 7 in the recompute), none of an exact one, and the
+    attention kernels never; the phase's totals must be the sums."""
+    import torch
+    from repro_torch.core.policy import ArithmeticPolicy
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import steps
+    from repro_torch.models import model as modellib
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    tcfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    n_steps = sum(n for _, n in TRAIN_STEPS)
+    # the schedule `launch.train.train` sets for a run of n_steps
+    opt_cfg = OptimizerConfig(total_steps=n_steps,
+                              warmup_steps=max(n_steps // 20, 5))
+    dcfg = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = modellib.init(tcfg, seed=0, device="cuda", train=True)
+    opt = adamw_init(model)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {TRAIN_LAYERS} of {cfg.n_layers} layers (reduced: depth), f32 "
+        f"master weights, bf16 compute: {n_params / 1e9:.3f} B parameters; "
+        f"weights and AdamW state {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB, drawn in {time.perf_counter() - t0:.1f} s")
+    want_sc = 14 * TRAIN_LAYERS
+    runs, step, adamw_ms = {}, 0, []
+    reset_launch_counts()
+    with adamw_timer(adamw_ms):
+        for mode, n in TRAIN_STEPS:
+            step_fn = steps.make_train_step(tcfg, opt_cfg,
+                                            ArithmeticPolicy(mode=mode))
+            ms, losses, sc = [], [], 0
+            for _ in range(n):
+                batch = make_batch(tcfg, dcfg, step, device="cuda")
+                before = dict(launch_counts)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                model, opt, metrics = step_fn(model, opt, batch)
+                loss = float(metrics["loss"])
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+                delta = {k: v - before.get(k, 0)
+                         for k, v in launch_counts.items()}
+                want = 0 if mode == "exact" else want_sc
+                if delta.get("sc_matmul", 0) != want:
+                    raise AssertionError(
+                        f"train step {step} ({mode}) launched sc_matmul "
+                        f"{delta.get('sc_matmul', 0)} times, want {want}")
+                if delta.get("flash_attention", 0) or \
+                        delta.get("paged_attention", 0):
+                    raise AssertionError(f"train step {step} ({mode}) "
+                                         f"launched {delta}")
+                if not math.isfinite(loss):
+                    raise AssertionError(f"train step {step} ({mode}): "
+                                         f"loss {loss}")
+                losses.append(loss)
+                sc += delta.get("sc_matmul", 0)
+                step += 1
+            rest = statistics.median(ms[1:] or ms)
+            runs[mode] = dict(ms=ms, first_ms=ms[0], median_rest_ms=rest,
+                              tok_s=TRAIN_BATCH * TRAIN_SEQ / rest * 1e3,
+                              losses=losses, launches=sc,
+                              grad_norm=float(metrics["grad_norm"]))
+            log(f"  {mode:11s}: steps {[f'{x:.2f}' for x in ms]} ms (first "
+                f"{ms[0]:.2f}, median of the rest {rest:.2f}; "
+                f"{runs[mode]['tok_s']:.1f} tok/s); losses "
+                f"{[round(x, 5) for x in losses]}; sc_matmul launches "
+                f"{sc} = {want_sc if mode != 'exact' else 0} x {n} steps")
+    counts = dict(launch_counts)
+    total_sc = sum(r["launches"] for r in runs.values())
+    if counts.get("sc_matmul", 0) != total_sc or \
+            counts.get("flash_attention", 0) or \
+            counts.get("paged_attention", 0):
+        raise AssertionError(f"the phase's launch counts {counts} are not "
+                             f"the sum of its steps' (sc_matmul {total_sc})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    bound_ms = ADAMW_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S * 1e3
+    adamw_med = statistics.median(adamw_ms[1:] or adamw_ms)
+    log(f"  AdamW update: median {adamw_med:.2f} ms (first "
+        f"{adamw_ms[0]:.2f}) against its byte bound {bound_ms:.2f} ms "
+        f"({ADAMW_BYTES_PER_PARAM} B x {n_params / 1e9:.3f} B parameters at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); peak device memory "
+        f"{peak:.2f} GiB")
+    del model, opt, metrics
+    free()
+    return dict(config=f"qwen3_8b full width, {TRAIN_LAYERS} of "
+                       f"{cfg.n_layers} layers, f32 master weights, bf16 "
+                       f"compute, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+                       f"remat",
+                reduced={"n_layers": [cfg.n_layers, TRAIN_LAYERS]},
+                n_params=n_params, runs=runs, peak_gib=peak,
+                adamw_ms=adamw_med, adamw_ms_all=adamw_ms,
+                adamw_bound_ms=bound_ms, launches=total_sc)
+
+
+@contextlib.contextmanager
+def plain_sc_matmul():
+    """sc_matmul's plain version in place of the kernel wrapper inside
+    the block, through the name `core.artemis_matmul` calls (on CUDA
+    tensors too: it is plain PyTorch)."""
+    import importlib
+    from repro_torch.kernels.sc_matmul import sc_matmul_ref
+    am = importlib.import_module("repro_torch.core.artemis_matmul")
+    real = am.sc_matmul_quantized
+    am.sc_matmul_quantized = sc_matmul_ref
+    try:
+        yield
+    finally:
+        am.sc_matmul_quantized = real
+
+
+def _grad_errors(grads, ref) -> list[tuple[float, str]]:
+    """(max |g - ref| over max |ref|, name) per leaf, largest first."""
+    out = []
+    for name, g in ref.items():
+        err = float((grads[name].to(g.device) - g).abs().max()
+                    / g.abs().max().clamp_min(1e-30))
+        out.append((err, name))
+    return sorted(out, reverse=True)
+
+
+def train_pin(cfg) -> dict:
+    """Phase 24a: the card against the CPU. One step's loss and
+    gradients (`launch.steps.loss_and_grads`, the train step's forward
+    and backward) at the full width through 2 layers, f32 compute,
+    batch 2 x seq 64, from the same weights, on the card (the kernels)
+    and on the CPU (their plain versions), exact and int8, within
+    `TRAIN_PIN_TOL`; under int8 also on the card with sc_matmul's plain
+    version in place of the kernel, which must give the kernel's step
+    bit for bit."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.core.policy import ArithmeticPolicy
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import model as modellib
+    pcfg = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    card = modellib.init(pcfg, seed=0, device="cuda", train=True)
+    host = bridge.params_from_numpy(bridge.params_to_numpy(card), pcfg,
+                                    device="cpu", train=True)
+    batch = make_batch(pcfg, DataConfig(seq_len=64, global_batch=2), 0,
+                       device="cpu")
+    card_batch = {k: v.cuda() for k, v in batch.items()}
+    out = {}
+    for mode in ("exact", "int8"):
+        policy = ArithmeticPolicy(mode=mode)
+        t = time.perf_counter()
+        loss_c, _, grads_c = steps.loss_and_grads(card, pcfg, card_batch,
+                                                  policy)
+        loss_c = float(loss_c)
+        grads_c = {k: g.clone() for k, g in grads_c.items()}
+        card_s = time.perf_counter() - t
+        if mode != "exact":
+            with plain_sc_matmul():
+                loss_p, _, grads_p = steps.loss_and_grads(
+                    card, pcfg, card_batch, policy)
+            same = float(loss_p) == loss_c and all(
+                torch.equal(grads_p[k], g) for k, g in grads_c.items())
+            log(f"  {mode:5s}: on the card, the kernel's step against the "
+                f"plain version's: bit-equal {same}")
+            if not same:
+                raise AssertionError(f"{mode}: the train step through "
+                                     f"sc_matmul parts from its plain "
+                                     f"version on the card")
+        t = time.perf_counter()
+        loss_h, _, grads_h = steps.loss_and_grads(host, pcfg, batch, policy)
+        host_s = time.perf_counter() - t
+        rel = abs(loss_c - float(loss_h)) / abs(float(loss_h))
+        errs = _grad_errors(grads_c, grads_h)
+        log(f"  {mode:5s}: loss card {loss_c:.7f} CPU {float(loss_h):.7f} "
+            f"({rel:.2e} relative); the farthest gradients "
+            f"{[(n, f'{e:.2e}') for e, n in errs[:6]]}; leaves past "
+            f"1e-4: {sum(e > 1e-4 for e, _ in errs)} of {len(errs)}; card "
+            f"{card_s:.1f} s, CPU {host_s:.1f} s")
+        tol = TRAIN_PIN_TOL[mode]
+        if rel > tol["loss_rel"] or errs[0][0] > tol["grad_of_max"]:
+            raise AssertionError(f"{mode}: the card's step parts from the "
+                                 f"CPU's: loss {rel:.2e}, {errs[0]} ({tol})")
+        out[mode] = dict(loss_card=loss_c, loss_cpu=float(loss_h),
+                         loss_rel=rel, grad_of_max=errs[0][0],
+                         worst_leaf=errs[0][1])
+        del grads_c, grads_h
+    del card, host
+    free()
+    return out
+
+
+def train_resume() -> dict:
+    """Phase 24b: `launch.train.train` at the smoke config for 6 steps,
+    saving every 3, on the card; then again from a directory that holds
+    only its step-3 checkpoint (a job that died after saving it): the
+    resumed run's losses and weights equal the uninterrupted run's, bit
+    for bit."""
+    import torch
+    from repro_torch.launch import train as trainlib
+    kw = dict(steps=6, save_every=3, log_every=100, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = trainlib.train(ckpt_dir=f"{tmp}/a", **kw)
+        shutil.copytree(f"{tmp}/a/step_000000003",
+                        f"{tmp}/b/step_000000003")
+        resumed = trainlib.train(ckpt_dir=f"{tmp}/b", **kw)
+    same = all(torch.equal(p, q) for p, q in zip(
+        whole["model"].parameters(), resumed["model"].parameters()))
+    log(f"  uninterrupted losses {whole['losses']}; resumed from step 3 "
+        f"{resumed['losses']}; weights equal: {same}")
+    if resumed["losses"] != whole["losses"][3:] or not same:
+        raise AssertionError("the resumed run parts from the "
+                             "uninterrupted one")
+    return dict(losses=whole["losses"], resumed=resumed["losses"])
+
+
 class Phases:
     """Logs each phase's title, and when the next one starts (or at
     `mark(None)`) the seconds the last one took, kept by its number."""
@@ -2653,6 +2943,18 @@ def main() -> int:
         zamba.update(lane_check=lane_check(zamba_cfg, zb_model, 4))
     del zb_model
     free()
+
+    phases.mark("23. full-width qwen3_8b training: 8 of 36 layers, f32 "
+                "master weights, bf16 compute, batch 8 x seq 128, remat; 4 "
+                "steps exact, 2 each int8, artemis_mxu, artemis")
+    with sc_path_shapes(path_sc):
+        train = train_full_width(cfg)
+    phases.mark("24. training pins: a step on the card against the CPU (2 "
+                "layers, f32, exact and int8); train() resumed from a "
+                "checkpoint on the card")
+    with sc_path_shapes(path_sc):
+        train.update(pin=train_pin(cfg))
+    train.update(resume=train_resume())
     phases.mark("16. sc_matmul at every shape the main path gave it")
     sc_path = check_sc_path_shapes(path_sc)
     phases.mark(None)
@@ -2668,7 +2970,9 @@ def main() -> int:
     sc_paths = {**{f"qwen3_8b {k} engine": q["launches"]
                    for k, q in quant.items()},
                 "qwen2_moe_a2_7b int8 engine": moe["int8"]["launches"],
-                "rwkv6_3b int8 engine": rwkv["int8"]["launches"]}
+                "rwkv6_3b int8 engine": rwkv["int8"]["launches"],
+                **{f"qwen3_8b train {k}": r["launches"]
+                   for k, r in train["runs"].items() if k != "exact"}}
     fa_paths = {"qwen3_8b static": static["launches"],
                 "qwen2_moe_a2_7b static": moe["static"]["launches"],
                 "zamba2_7b static": zamba["static"]["launches"]}
@@ -2734,7 +3038,7 @@ def main() -> int:
                     "static": static, "sampler": samp,
                     "mixed_drain": mixed, "qwen2_moe_a2_7b": moe,
                     "rwkv6_3b": rwkv, "zamba2_7b": zamba,
-                    "phase_s": phases.seconds}))
+                    "train": train, "phase_s": phases.seconds}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

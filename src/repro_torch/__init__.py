@@ -14,8 +14,11 @@ mirrors its layout so each module has a counterpart:
                                each beside its plain PyTorch version
   serve/                       the continuous-batching engine over a
                                paged KV cache
-  launch/serve.py              the serving CLI
-  bridge.py                    numpy parameter trees -> the port's model
+  data/ optim/ checkpoint/     training: the data pipeline, AdamW, the
+                               checkpoint manager
+  launch/serve.py, train.py    the serving and training CLIs
+  bridge.py                    numpy parameter trees <-> the port's
+                               model (and AdamW's state)
 
 Entry points take an explicit `device` (default "cuda") and raise when
 no CUDA device is found; pass `device="cpu"` to run on the CPU, where

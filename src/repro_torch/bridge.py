@@ -12,6 +12,13 @@ carry the reference's leaf names, so a path maps to an attribute path:
 shared block `shared/attn/wq` is `shared.attn.wq`. Both take and give
 numpy arrays only, so this module needs no JAX: a caller converts with
 `jax.tree.map(np.asarray, params)` on its side.
+
+Training adds the optimizer state: `opt_state_to_numpy` and
+`opt_state_from_numpy` carry AdamW's m, v (one tree each, the
+parameters' layout) and step between the port's state (tensors by
+parameter name) and the reference's `{"m", "v", "step"}`. `leaf_ndim`
+gives a parameter's rank in the reference's tree, which decides its
+weight decay.
 """
 from __future__ import annotations
 
@@ -52,13 +59,20 @@ def _set(dst: torch.Tensor, src: np.ndarray, path) -> None:
     dst.copy_(torch.from_numpy(np.array(src, np.float32)))
 
 
+def leaf_ndim(name: str, p: torch.Tensor) -> int:
+    """The rank of parameter `name` as a leaf of the reference's tree:
+    one more under `layers.`, whose leaves the reference stacks on L."""
+    return p.dim() + (name.split(".")[0] == "layers")
+
+
 @torch.no_grad()
-def params_from_numpy(tree: dict, cfg: ModelConfig,
-                      device="cuda") -> torch.nn.Module:
+def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda",
+                      train: bool = False) -> torch.nn.Module:
     """The port's model holding the weights of a reference parameter
-    tree (numpy leaves). Every leaf of the tree must land somewhere and
+    tree (numpy leaves); a trainable one (f32 master weights, gradients
+    on) with `train`. Every leaf of the tree must land somewhere and
     every parameter of the model must be covered."""
-    model = modellib.empty(cfg, device=device)
+    model = modellib.empty(cfg, device=device, train=train)
     covered = set()
     for path, leaf in _leaves(tree):
         if path[0] == "layers":
@@ -80,13 +94,17 @@ def params_from_numpy(tree: dict, cfg: ModelConfig,
     return model
 
 
-def params_to_numpy(model: torch.nn.Module) -> dict:
+def named_to_numpy(named) -> dict:
     """The reference-layout tree (f32 numpy leaves, layers restacked on
-    a leading L axis) of the port's model."""
+    a leading L axis) of (parameter name, tensor) pairs in module
+    order: a model's weights, or tensors held by parameter name such as
+    its gradients or AdamW's moments."""
     tree: dict = {}
     layer_leaves: dict[str, list[np.ndarray]] = {}
-    for name, p in model.named_parameters():
-        arr = p.detach().float().cpu().numpy()
+    for name, p in named:
+        # a copy, never a view of the tensor: a checkpoint thread may
+        # write it while the parameter is updated in place
+        arr = p.detach().to("cpu", torch.float32, copy=True).numpy()
         parts = name.split(".")
         if parts[0] == "layers":
             layer_leaves.setdefault(".".join(parts[2:]), []).append(arr)
@@ -102,3 +120,35 @@ def params_to_numpy(model: torch.nn.Module) -> dict:
             node = node.setdefault(key, {})
         node[parts[-1]] = np.stack(arrs)
     return tree
+
+
+def params_to_numpy(model: torch.nn.Module) -> dict:
+    """The reference-layout tree (f32 numpy leaves, layers restacked on
+    a leading L axis) of the port's model."""
+    return named_to_numpy(model.named_parameters())
+
+
+def opt_state_to_numpy(state: dict, model: torch.nn.Module) -> dict:
+    """AdamW's state as the reference's `{"m", "v", "step"}`: m and v in
+    the parameters' tree layout (f32), step an int32 scalar."""
+    names = [name for name, _ in model.named_parameters()]
+    return {"m": named_to_numpy((n, state["m"][n]) for n in names),
+            "v": named_to_numpy((n, state["v"][n]) for n in names),
+            "step": np.asarray(int(state["step"]), np.int32)}
+
+
+@torch.no_grad()
+def opt_state_from_numpy(tree: dict, model: torch.nn.Module) -> dict:
+    """The port's AdamW state for `model` from the reference's `{"m",
+    "v", "step"}` (numpy leaves): m and v by parameter name, f32 on the
+    model's device, every parameter covered."""
+    cfg = model.cfg
+    state = {"step": torch.tensor(int(tree["step"]), dtype=torch.int32,
+                                  device=model.device)}
+    for part in ("m", "v"):
+        # a model of zeros to unstack the tree into, then its tensors
+        holder = params_from_numpy(tree[part], cfg, device=model.device,
+                                   train=True)
+        state[part] = {name: p.detach() for name, p
+                       in holder.named_parameters()}
+    return state

@@ -7,6 +7,10 @@ PyTorch headers, so a build takes seconds). Libraries go to
 so an edited source is rebuilt and an unchanged one is reused. The
 build happens at a kernel's first launch, never at import.
 
+`refuse_autograd` is every wrapper's first check: the kernels have no
+backward, so a wrapper raises where autograd would record through it
+(on both devices alike, so a CPU test sees what the card would do).
+
 `launch_counts` holds one plain integer per kernel: a wrapper adds one
 where it launches its kernel and nowhere else, so a caller can zero the
 counts, run the serve path, and see which kernels it went through.
@@ -21,6 +25,8 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+
+import torch
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
@@ -84,3 +90,14 @@ def load(source: pathlib.Path) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(source)))
         _LIBS[key] = lib
     return lib
+
+
+def refuse_autograd(name: str, route: str, *tensors) -> None:
+    """Raise if autograd would record through kernel `name`: grad mode
+    on and a floating input that requires grad. The kernels compute no
+    gradient, so the differentiable `route` must be taken instead."""
+    if torch.is_grad_enabled() and any(
+            t.is_floating_point() and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: a differentiable caller takes "
+            f"{route} (or runs under torch.no_grad())")

@@ -188,6 +188,8 @@ def flash_attention_all(q, k, v, *, causal: bool = True,
     f32: the K tiles each row's query tile executed). On CUDA, o is a
     view of a (B, Sq, Hq, D) tensor.
     """
+    build.refuse_autograd(NAME, "the gather core (attn_impl='gather')", q,
+                          k, v)
     _validate(q, k, v, causal=causal, window=window, kv_len=kv_len, bq=bq,
               bk=bk, kv_cast=kv_cast, variant=variant)
     sk = k.shape[2]

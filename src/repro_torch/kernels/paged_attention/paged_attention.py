@@ -105,6 +105,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, positions, *,
     p attends to kv positions t <= p (and t > p - window when set) of
     its own row's table.
     """
+    build.refuse_autograd(NAME, "the gather core (attn_impl='gather')", q,
+                          k_pages, v_pages)
     _check(q, k_pages, v_pages, block_tables, positions, window, variant)
     b, s, h, hd = q.shape
     if scale is None:

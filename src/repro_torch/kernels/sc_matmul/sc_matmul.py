@@ -127,6 +127,8 @@ def sc_matmul_quantized(aq: torch.Tensor, bq: torch.Tensor, *,
     int32 for mode="int8" (integer dot units), float32 in SC product
     units otherwise.
     """
+    build.refuse_autograd(NAME, "the straight-through estimator "
+                          "(core.artemis_matmul with policy.ste)", aq, bq)
     _check(aq, bq, mode, acc_depth, readout_bits)
     if aq.device.type == "cpu" and bq.device.type == "cpu":
         return sc_matmul_ref(aq, bq, mode=mode, acc_depth=acc_depth,

@@ -124,7 +124,9 @@ def qeinsum(spec: str, a: torch.Tensor, b: torch.Tensor,
 
 
 def param(shape, dtype, device) -> nn.Parameter:
-    """A zeroed, frozen weight (the port serves; it does not train)."""
+    """A zeroed weight, frozen: a serving model never asks for its
+    gradient. A training model turns gradients on for all of its
+    weights (`transformer.Transformer(train=True)`)."""
     return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
                         requires_grad=False)
 

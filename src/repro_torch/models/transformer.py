@@ -15,14 +15,19 @@ a Python loop):
 
 Storage dtypes: the reference casts every matrix that reaches `mm`,
 the embedding and the head to the compute dtype on every call
-(`w.astype(x.dtype)`). This module casts them ONCE, when they are set,
-which is bit-identical and saves re-reading f32 weights each forward.
-The norm scales and the MoE router stay f32: the reference reads them
-as f32, never in the compute dtype.
+(`w.astype(x.dtype)`). A serving model casts them ONCE, when they are
+set, which is bit-identical and saves re-reading f32 weights each
+forward. A training model (`train=True`) keeps every weight in the
+reference's `param_dtype` (f32 master weights) with gradients on, and
+each use casts where the reference casts: `layers.mm` the matrices,
+`embed_tokens` after the gather, `logits` the head. The norm scales and
+the MoE router stay f32 in both: the reference reads them as f32,
+never in the compute dtype.
 
 KV cache layout (decode): {"k"/"v": (L, B, Smax, KV, Dh), "index": int}.
 `apply` is the single forward entry point, as in the reference: no
-cache (in-sequence), prefill (cache at index 0) and decode (S == 1).
+cache (in-sequence: the train step), prefill (cache at index 0) and
+decode (S == 1).
 The cache's `index` is a host int, not a device scalar: the positions
 and the key mask follow from it without a device-to-host sync per
 step, and the flash-attention kernel takes it as a launch argument.
@@ -30,7 +35,9 @@ step, and the flash-attention kernel takes it as a launch argument.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.policy import ArithmeticPolicy
 from repro_torch.device import resolve_device
@@ -108,9 +115,11 @@ def block_ffn(lp: Block, x: torch.Tensor, cfg: ModelConfig,
 
 class Transformer(nn.Module):
     """The decoder's weights. Build it empty (zeros) and fill it with
-    `init` (seeded random weights) or `repro_torch.bridge`."""
+    `init` (seeded random weights) or `repro_torch.bridge`. `train`
+    stores the weights in `param_dtype` with gradients on; otherwise
+    they are frozen in the compute dtype."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", train: bool = False):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
@@ -122,13 +131,14 @@ class Transformer(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         self.compute_dtype = torch_dtype(cfg.compute_dtype)
-        dt = self.compute_dtype
+        dt = torch_dtype(cfg.param_dtype) if train else self.compute_dtype
         v, d = cfg.padded_vocab, cfg.d_model
         self.embed = L.param((v, d), dt, device)
         self.layers = nn.ModuleList(
             Block(cfg, dt, device) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(d, device)
         self.head = None if cfg.tie_embeddings else L.param((d, v), dt, device)
+        self.requires_grad_(train)
 
     @property
     def device(self) -> torch.device:
@@ -139,7 +149,7 @@ class Transformer(nn.Module):
         """Seeded random weights with the reference's distributions
         (`layers.dense_init` / `embed_init`; norm scales are ones).
         Each matrix is drawn in f32, rounded to the reference's
-        `param_dtype`, then stored in the compute dtype. The stream of
+        `param_dtype`, then stored in the model's dtype. The stream of
         `generator` is not jax's, so the values differ from
         `repro.models.model.init` for the same seed."""
         cfg, dev = self.cfg, self.device
@@ -170,8 +180,9 @@ class Transformer(nn.Module):
         return self
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        """`transformer._embed_tokens` for text: (B, S) -> (B, S, d)."""
-        x = self.embed[tokens]
+        """`transformer._embed_tokens` for text: (B, S) -> (B, S, d) in
+        the compute dtype, cast after the gather as the reference casts."""
+        x = F.embedding(tokens, self.embed).to(self.compute_dtype)
         if self.cfg.scale_embeddings:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
                                  device=x.device)
@@ -184,9 +195,11 @@ class Transformer(nn.Module):
         return torch.matmul(x, self.head.to(x.dtype))
 
 
-def init(cfg: ModelConfig, seed: int = 0, device="cuda") -> Transformer:
-    """A model with seeded random weights on `device`."""
-    model = Transformer(cfg, device=device)
+def init(cfg: ModelConfig, seed: int = 0, device="cuda",
+         train: bool = False) -> Transformer:
+    """A model with seeded random weights on `device` (trainable f32
+    master weights with `train`)."""
+    model = Transformer(cfg, device=device, train=train)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(seed)
     return model.init(gen)
@@ -208,15 +221,35 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             "index": 0}
 
 
+def _block(lp: Block, x: torch.Tensor, cfg: ModelConfig, policy, positions,
+           kv_positions, ckv, index, impl):
+    """One decoder layer (the reference's `_block`): (x, aux or None)."""
+    h, _ = L.attention(
+        lp.attn, L.rmsnorm(lp.ln1.scale, x, cfg.norm_eps), _dims(cfg),
+        positions=positions, kv_positions=kv_positions, policy=policy,
+        qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
+        window=cfg.attn_window, norm_eps=cfg.norm_eps, cache=ckv,
+        cache_index=index, attn_impl=impl)
+    x = x + h
+    f, a = block_ffn(lp, L.rmsnorm(lp.ln2.scale, x, cfg.norm_eps), cfg,
+                     policy)
+    return x + f, a
+
+
 def apply(model: Transformer, cfg: ModelConfig, inputs: dict, *,
           policy: ArithmeticPolicy = ArithmeticPolicy(),
-          cache: dict | None = None, attn_impl: str | None = None):
+          cache: dict | None = None, attn_impl: str | None = None,
+          remat: bool = False):
     """Forward pass (counterpart of `repro.models.transformer.apply`).
 
     inputs: {"tokens": (B, S) int, optional "positions": (B, S) int}.
     attn_impl: see `layers.resolve_attn_impl` ("flash", the kernel, for
     the exact policy by default); explicit positions need "gather",
     because the kernel's mask assumes contiguous ones.
+    remat: recompute each layer in the backward pass instead of keeping
+    its activations (`torch.utils.checkpoint`, the reference's
+    `jax.checkpoint` of its scan body); without a cache only, and only
+    while autograd records.
     Returns (logits (B, S, V), aux_loss (the sum of the MoE layers'
     load-balance losses; 0 for the dense family), new_cache). The
     cache's K/V tensors are updated IN PLACE, layer by layer, and
@@ -244,22 +277,17 @@ def apply(model: Transformer, cfg: ModelConfig, inputs: dict, *,
         kv_positions = torch.where(t <= positions.max(), t,
                                    torch.iinfo(torch.int32).max)
 
-    attn_dims = _dims(cfg)
+    remat = remat and cache is None and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, lp in enumerate(model.layers):
         ckv = None
         if cache is not None:
             ckv = {"k": cache["k"][li], "v": cache["v"][li]}
-        h, _ = L.attention(
-            lp.attn, L.rmsnorm(lp.ln1.scale, x, cfg.norm_eps), attn_dims,
-            positions=positions, kv_positions=kv_positions, policy=policy,
-            qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
-            window=cfg.attn_window, norm_eps=cfg.norm_eps, cache=ckv,
-            cache_index=index, attn_impl=impl)
-        x = x + h
-        f, a = block_ffn(lp, L.rmsnorm(lp.ln2.scale, x, cfg.norm_eps), cfg,
-                         policy)
-        x = x + f
+        args = (lp, x, cfg, policy, positions, kv_positions, ckv, index, impl)
+        if remat:
+            x, a = checkpoint(_block, *args, use_reentrant=False)
+        else:
+            x, a = _block(*args)
         if a is not None:
             aux = aux + a
     x = L.rmsnorm(model.final_norm.scale, x, cfg.norm_eps)

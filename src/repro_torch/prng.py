@@ -1,8 +1,9 @@
 """jax's threefry2x32 random numbers in PyTorch, bit for bit.
 
 The serve sampler draws a request's Gumbel noise from
-`fold_in(PRNGKey(seed), position)`; replaying a request's sampled
-stream across the two packages needs the same bits, so this module
+`fold_in(PRNGKey(seed), position)`, and the data pipeline its batches
+from `fold_in` chains, `split` and `randint`; replaying a stream across
+the two packages needs the same bits, so this module
 computes what `jax.random` computes (jax 0.9, 32-bit mode, with
 `jax_threefry_partitionable=True`):
 
@@ -18,6 +19,9 @@ computes what `jax.random` computes (jax 0.9, 32-bit mode, with
                       [1, 2), less 1, scaled to [minval, maxval) and
                       floored at minval
   gumbel(key, shape)  -log(-log(uniform(key, shape, tiny, 1)))
+  split(key, num)     key i is threefry2x32(key, (0, i))
+  randint(key, shape, minval, maxval)
+                      int32 from two words a value (see `randint`)
 
 A key is an int64 tensor whose last axis holds the two 32-bit words, so
 a batch of keys (..., 2) draws for every lane at once. Every word is
@@ -84,15 +88,56 @@ def random_bits(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
 
 def uniform(key: torch.Tensor, shape: tuple[int, ...], minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
-    """float32 uniforms in [minval, maxval), as `jax.random.uniform`."""
+    """float32 uniforms in [minval, maxval), as `jax.random.uniform`.
+    XLA fuses `floats * (maxval - minval) + minval` into one FMA, so
+    this rounds it once: the product of two f32 values and its sum with
+    minval are exact in f64 for ranges like [1e-6, 1) and [tiny, 1)."""
     bits = (random_bits(key, shape) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    fused = (floats.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, fused)
 
 
 def gumbel(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     """float32 standard Gumbel noise, as `jax.random.gumbel` (mode
     "low"). The two logs may differ from XLA's in the last bit."""
     return -torch.log(-torch.log(uniform(key, shape, F32_TINY, 1.0)))
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """`num` new keys from `key` (..., 2), as `jax.random.split` under
+    `jax_threefry_partitionable`: key i is threefry2x32(key, (0, i)).
+    Returns (..., num, 2)."""
+    i = torch.arange(num, dtype=torch.int64, device=key.device)
+    lead = key.shape[:-1] + (1,)
+    k1, k2 = key[..., 0].reshape(lead), key[..., 1].reshape(lead)
+    y1, y2 = threefry2x32(k1, k2, i >> 32, i & MASK32)
+    return torch.stack([y1, y2], dim=-1)
+
+
+def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b mod 2**32 for 32-bit words a and b, without leaving int64:
+    b's high half contributes only the low 16 bits of its product."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & MASK32
+
+
+def randint(key: torch.Tensor, shape: tuple[int, ...], minval: int,
+            maxval: int) -> torch.Tensor:
+    """int32 values in [minval, maxval), as `jax.random.randint` for
+    int32: the key split in two, 32 bits drawn from each (higher,
+    lower), reduced modulo the span in uint32 arithmetic, which wraps,
+    with `(2**16 % span)**2 % span` as the higher word's multiplier. The span is 1 where
+    maxval <= minval, so minval comes back."""
+    k1, k2 = split(key).unbind(-2)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    span = (maxval - minval) & MASK32 if maxval > minval else 1
+    mult = ((2**16 % span) ** 2 & MASK32) % span
+    offset = (_mul32(higher % span, torch.tensor(mult, device=key.device))
+              + lower % span) & MASK32
+    out = (minval + offset % span) & MASK32
+    # back from the uint32 word to the int32 it encodes
+    return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)

@@ -1,6 +1,8 @@
 """Boundaries of the PyTorch port: it imports neither jax nor anything
 of the JAX package, and the repository's static contract checker finds
-nothing in it."""
+nothing in it. The port is `src/repro_torch/` (every subpackage, found
+by walking it), `chip_smoke.py` and the port's own scripts,
+`benchmarks/torch_*.py` and `examples/torch_*.py`."""
 import os
 import pathlib
 import subprocess
@@ -27,15 +29,36 @@ def _port_modules() -> list[str]:
     return mods
 
 
+def _port_scripts() -> list[pathlib.Path]:
+    return [REPO / "chip_smoke.py",
+            *sorted((REPO / "benchmarks").glob("torch_*.py")),
+            *sorted((REPO / "examples").glob("torch_*.py"))]
+
+
+def test_port_covers_the_training_slice():
+    mods = _port_modules()
+    for name in ("repro_torch.data.pipeline", "repro_torch.optim.adamw",
+                 "repro_torch.checkpoint.manager",
+                 "repro_torch.launch.train"):
+        assert name in mods
+    names = {p.name for p in _port_scripts()}
+    assert {"torch_table4_accuracy.py", "torch_train_tiny_lm.py",
+            "torch_accuracy_ablation.py"} <= names
+
+
 def test_port_imports_without_jax_or_repro():
-    """Every module of the port, and chip_smoke.py, imports with `jax`,
-    `jaxlib` and `repro` made unimportable."""
+    """Every module of the port, chip_smoke.py and the port's scripts
+    import with `jax`, `jaxlib` and `repro` made unimportable."""
     code = ("import importlib, sys\n"
             "for mod in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[mod] = None\n"
             f"for name in {_port_modules()!r}:\n"
             "    importlib.import_module(name)\n"
             "import chip_smoke\n"
+            "import importlib.util\n"
+            f"for i, path in enumerate({[str(p) for p in _port_scripts()]!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(f'_s{i}', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "leaked = sorted(m for m in sys.modules\n"
             "                if m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
             "                and sys.modules[m] is not None)\n"
@@ -50,7 +73,7 @@ def test_port_imports_without_jax_or_repro():
 
 
 def test_port_sources_name_no_jax_import():
-    for path in sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+    for path in sorted(PORT.rglob("*.py")) + _port_scripts():
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
