@@ -125,8 +125,27 @@ without printing a result:
      `launch.train.train` at the smoke config, 6 steps saving every 3,
      resumed from its step-3 checkpoint: the losses and weights of the
      uninterrupted run, bit for bit;
+ 25. the rest of the ARTEMIS arithmetic and the paper's scripts, card
+     against CPU: `benchmarks/torch_table5_calibration.py` (MUL and ACC
+     rows equal, A_to_B and Softmax MAE within 1e-6 with the values that
+     differ counted, the noise-calibrated ACC row within 1e-4 of the
+     CPU's and of the reference's 0.00859); `prng.normal` over 2**20
+     draws within 2 ulps; `artemis_softmax` at qwen3_8b's decode score
+     shape (8 x 32 x 1 x 1040) and `lut_activation("silu")` at 8 x
+     12288, at most 0.1 % of values apart, each by one stored LUT
+     level (values that differ counted); a noisy
+     `artemis` product at 8 x 4096 x 12288 (Table V's sigma) within one
+     readout level at ties, with no sc_matmul launch, while the
+     noiseless product on the same operands launches it once;
+     `benchmarks/torch_kernel_micro.py` (every row held within 2e-4,
+     µs per call); the three `examples/torch_*.py` walkthroughs, counts
+     zeroed before each and read after: quickstart's artemis_mxu forward
+     runs sc_matmul (counts zeroed just before that forward), its shapes
+     recorded for phase 16; serve_batched runs flash_attention and
+     serve_engine paged_attention, every one of those calls held against
+     the plain version on the same inputs within 2e-4;
  16. (last) sc_matmul against its plain version at every shape phases
-     7, 9, 14, 19, 22, 23 and 24 gave it; print the kernels line, the
+     7, 9, 14, 19, 22, 23, 24 and 25 gave it; print the kernels line, the
      card line, then the result line.
 Each phase's seconds are logged as it ends. Phase 4 also times each
 kernel at the qwen2_moe_a2_7b shapes (4b) and flash_attention at
@@ -2744,6 +2763,327 @@ def train_resume() -> dict:
     return dict(losses=whole["losses"], resumed=resumed["losses"])
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the rest of the ARTEMIS arithmetic and the paper's scripts
+# ---------------------------------------------------------------------------
+
+# Table V's readout noise: sigma with E|N(0, sigma)| = the paper's MAE
+ACC_SIGMA = 0.0085 / math.sqrt(2.0 / math.pi)
+# the noise-calibrated ACC row's MAE of the reference's Table V script
+# (benchmarks/table5_calibration.py on the CPU)
+REF_NOISY_ACC_MAE = 0.00859
+
+
+def _port_script(path: str):
+    """A port script of the checkout, imported by its path."""
+    import importlib.util
+    full = ROOT / path
+    spec = importlib.util.spec_from_file_location(f"_{full.stem}", full)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _card_vs_host(card, host) -> dict:
+    """max |card - host|, how many of the values differ and (`apart`)
+    the differences where they do."""
+    diff = (card.cpu() - host).abs()
+    return dict(max_abs_err=float(diff.max()), n_differ=int((diff > 0).sum()),
+                n=diff.numel(), apart=diff[diff > 0])
+
+
+def table5_on_card() -> dict:
+    """Table V's counterpart on the card against the same script on the
+    CPU: MUL and ACC equal, A_to_B and Softmax MAE within 1e-6 (with
+    the count of values that differ), the noise-calibrated ACC row
+    within 1e-4 of the CPU's and of the reference's."""
+    from repro_torch import prng
+    from repro_torch.core import MomcapConfig, artemis_softmax, \
+        readout_quantize
+    t5 = _port_script("benchmarks/torch_table5_calibration.py")
+    card = {r["block"]: r for r in t5.run("cuda")}
+    host = {r["block"]: r for r in t5.run("cpu")}
+    for block in ("Stochastic MUL", "Analog ACC"):
+        if (card[block]["mae"], card[block]["max"]) != \
+                (host[block]["mae"], host[block]["max"]):
+            raise AssertionError(f"Table V {block}: card {card[block]} "
+                                 f"CPU {host[block]}")
+    for block in ("A_to_B", "Softmax"):
+        if abs(card[block]["mae"] - host[block]["mae"]) > 1e-6:
+            raise AssertionError(f"Table V {block}: card {card[block]} "
+                                 f"CPU {host[block]}")
+    noisy = "Analog ACC (noise-calibrated)"
+    if abs(card[noisy]["mae"] - host[noisy]["mae"]) > 1e-4 or \
+            abs(card[noisy]["mae"] - REF_NOISY_ACC_MAE) > 1e-4:
+        raise AssertionError(f"Table V {noisy}: card {card[noisy]} CPU "
+                             f"{host[noisy]}, reference MAE "
+                             f"{REF_NOISY_ACC_MAE}")
+    # the values behind the two MAEs that may part
+    cfg = MomcapConfig(acc_depth=20, readout_bits=8)
+    grid = [t5.linspace_f32(0.0, cfg.full_scale, 100001, d)
+            for d in ("cuda", "cpu")]
+    a_to_b = _card_vs_host(readout_quantize(grid[0], cfg),
+                           readout_quantize(grid[1], cfg))
+    ys = [prng.normal(prng.PRNGKey(1, d), (64, 64)) * 4.0
+          for d in ("cuda", "cpu")]
+    softmax = _card_vs_host(artemis_softmax(ys[0]), artemis_softmax(ys[1]))
+    a_to_b.pop("apart")
+    softmax.pop("apart")
+    for block, row in card.items():
+        log(f"  {block:30s} card MAE {row['mae']:.8f} max {row['max']:.8f} "
+            f"{row['calib_bits']:.2f} bits | CPU MAE "
+            f"{host[block]['mae']:.8f} max {host[block]['max']:.8f}")
+    log(f"  values that differ, card against CPU: A_to_B {a_to_b}, "
+        f"Softmax {softmax}")
+    return dict(card=card, cpu=host, a_to_b_values=a_to_b,
+                softmax_values=softmax)
+
+
+def normals_on_card() -> dict:
+    """prng.normal on the card against the CPU over 2**20 draws: within
+    2 ulps, with the share that differs."""
+    import torch
+    from repro_torch import prng
+    shape = (1 << 20,)
+    card = prng.normal(prng.PRNGKey(7, "cuda"), shape).cpu()
+    host = prng.normal(prng.PRNGKey(7), shape)
+    ulps = (card.view(torch.int32).long()
+            - host.view(torch.int32).long()).abs()
+    out = dict(max_ulps=int(ulps.max()),
+               share_differ=float((ulps > 0).double().mean()))
+    log(f"  prng.normal, 2**20 draws: max {out['max_ulps']} ulps, "
+        f"{out['share_differ']:.6%} differ")
+    if out["max_ulps"] > 2:
+        raise AssertionError(f"prng.normal parts from the CPU's: {out}")
+    return out
+
+
+def _stored_level(fn, lo: float, hi: float, device) -> float:
+    """One stored-output level (8 bits) of `binned_apply`'s 256-entry
+    table of fn over [lo, hi]: the table's span over 255."""
+    import torch
+    from repro_torch.core import binned_apply
+    grid = torch.linspace(lo, hi, 256, device=device)
+    table = binned_apply(fn, grid, lo, hi)
+    return float(table.max() - table.min()) / 255
+
+
+def luts_on_card(cfg) -> dict:
+    """artemis_softmax at qwen3_8b's decode score shape (8 x heads x 1 x
+    1040) and lut_activation("silu") at a d_ff row block (8 x d_ff),
+    card against CPU: the same arithmetic on both, but a row's sum adds
+    in another order on the card, which can move a ln-LUT lookup at a
+    tie, so at most 0.1 % of the values may part, each by one stored
+    level of its output LUT (counted)."""
+    from repro_torch import prng, xla_math
+    from repro_torch.core import artemis_softmax, lut_activation
+    from repro_torch.core.lut import ACTIVATIONS, EXP_LUT_FLOOR
+    out = {}
+    score = (8, cfg.n_heads, 1, 1040)
+    ys = [prng.normal(prng.PRNGKey(21, d), score) * 3.0
+          for d in ("cuda", "cpu")]
+    host = artemis_softmax(ys[1])
+    # the last exp LUT's range: [max(lo - ln n, floor), 0], lo the
+    # tensor-wide minimum of the shifted scores (at most -1)
+    shifted = ys[1] - ys[1].amax(dim=-1, keepdim=True)
+    lo = min(float(shifted.min()), -1.0) - math.log(score[-1])
+    out["artemis_softmax"] = dict(
+        _card_vs_host(artemis_softmax(ys[0]), host),
+        level=_stored_level(xla_math.exp, max(lo, EXP_LUT_FLOOR), 0.0,
+                            "cpu"))
+    xs = [prng.normal(prng.PRNGKey(22, d), (8, cfg.d_ff)) * 2.0
+          for d in ("cuda", "cpu")]
+    host = lut_activation(xs[1], "silu")
+    m = max(float(xs[1].abs().max()), 1e-6)
+    out["lut_silu"] = dict(_card_vs_host(lut_activation(xs[0], "silu"),
+                                         host),
+                           level=_stored_level(ACTIVATIONS["silu"], -m, m,
+                                               "cpu"))
+    apart = {k: v.pop("apart") for k, v in out.items()}
+    log(f"  artemis_softmax {score}: {out['artemis_softmax']}; "
+        f"lut_activation silu (8, {cfg.d_ff}): {out['lut_silu']}")
+    for k, v in out.items():
+        if v["n_differ"] > v["n"] // 1000 or \
+                bool(((apart[k] - v["level"]).abs()
+                      > 1e-3 * v["level"]).any()):
+            raise AssertionError(
+                f"{k} on the card parts from the CPU in more than 0.1 % "
+                f"of the values, or by other than one stored level: {v}, "
+                f"differences {apart[k][:8].tolist()}")
+    return out
+
+
+def noisy_artemis_on_card(cfg) -> dict:
+    """A noisy artemis product at M 8 x d_model x d_ff (Table V's
+    sigma), card against CPU: a readout may part by one level where the
+    noise lands on a rounding tie (counted); no sc_matmul launch across
+    it, while the noiseless product on the same operands launches it
+    once."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core import ArithmeticPolicy, artemis_matmul
+    from repro_torch.core.quantization import quant_scale
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    k, n = cfg.d_model, cfg.d_ff
+    # drawn on the card (phase 25's normals equal the CPU's bit for bit)
+    a_c = prng.normal(prng.PRNGKey(31, "cuda"), (8, k))
+    b_c = prng.normal(prng.PRNGKey(32, "cuda"), (k, n)) * (
+        1.0 / math.sqrt(k))
+    a, b = a_c.cpu(), b_c.cpu()
+    key = prng.PRNGKey(33)
+    pol = ArithmeticPolicy(mode="artemis", ste=False, sigma_analog=ACC_SIGMA)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    card = artemis_matmul(a_c, b_c, pol, key=key.cuda())
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    noisy_launches = dict(launch_counts)
+    if noisy_launches.get("sc_matmul", 0):
+        raise AssertionError(f"the noisy product launched {noisy_launches}")
+    t = time.perf_counter()
+    host = artemis_matmul(a, b, pol, key=key)
+    host_s = time.perf_counter() - t
+    reset_launch_counts()
+    quiet = artemis_matmul(a_c, b_c, ArithmeticPolicy(mode="artemis",
+                                                      ste=False))
+    torch.cuda.synchronize()
+    quiet_launches = dict(launch_counts)
+    if quiet_launches.get("sc_matmul", 0) != 1:
+        raise AssertionError(f"the noiseless product launched "
+                             f"{quiet_launches}, want sc_matmul once")
+    level = float(20 * 127 / 255 * 128 * quant_scale(a) * quant_scale(b))
+    out = _card_vs_host(card, host)
+    apart = out.pop("apart")
+    parted = apart[apart > 1e-3 * level]
+    out.update(level=level, card_s=card_s, cpu_s=host_s,
+               sc_matmul_launches=noisy_launches.get("sc_matmul", 0),
+               noiseless_sc_matmul_launches=quiet_launches.get(
+                   "sc_matmul", 0),
+               noise_moved=float((card.cpu() - quiet.cpu()).abs().mean()))
+    log(f"  noisy artemis (8, {k}) x ({k}, {n}), sigma {ACC_SIGMA:.6f}: "
+        f"{out['n_differ']} of {out['n']} outputs part from the CPU's "
+        f"(max {out['max_abs_err']:.3g}, one level = {level:.3g}); card "
+        f"{card_s:.2f} s, CPU {host_s:.2f} s; sc_matmul launches: noisy "
+        f"0, noiseless {out['noiseless_sc_matmul_launches']}; mean |noisy - "
+        f"noiseless| {out['noise_moved']:.4g}")
+    if len(parted) > max(1, card.numel() // 1000) or \
+            bool(((parted - level).abs() > 1e-3 * level).any()):
+        raise AssertionError(f"the noisy product parts from the CPU's by "
+                             f"more than a level at a tie: {out}")
+    return out
+
+
+def kernel_micro_on_card() -> dict:
+    """`benchmarks/torch_kernel_micro.py` on the card: every row held
+    against its plain version (and flash's against the oracle) within
+    2e-4, µs per call printed; its launches are comparisons, counted
+    apart from the paths'."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    km = _port_script("benchmarks/torch_kernel_micro.py")
+    reset_launch_counts()
+    rows = km.run("cuda")
+    return dict(rows=rows, launches=dict(launch_counts))
+
+
+@contextlib.contextmanager
+def attention_held(into: dict):
+    """Every flash_attention and paged_attention call made inside the
+    block, through the names the model's layers and the paged backend
+    call: the wrapper runs as it is (its launch counted), then its
+    output is held against the plain version on the same inputs within
+    FA_TOL / PA_TOL. into[kernel] gets the calls held and the largest
+    error."""
+    import importlib
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ops import effective_tiles
+    from repro_torch.kernels.paged_attention import paged_attention_ref
+    layers = importlib.import_module("repro_torch.models.layers")
+    paged = importlib.import_module("repro_torch.serve.paged_model")
+    real_fa, real_pa = layers.flash_attention, paged.paged_attention
+    for name in ("flash_attention", "paged_attention"):
+        into[name] = dict(calls=0, max_abs_err=0.0)
+
+    def hold(name, out, ref, tol):
+        err = (out.float() - ref).abs()
+        if not bool(torch.isfinite(out).all()) or bool(
+                (err > tol["atol"] + tol["rtol"] * ref.abs()).any()):
+            raise AssertionError(
+                f"{name} at {tuple(out.shape)} disagrees with its plain "
+                f"version on a walkthrough's inputs: max err "
+                f"{err.max().item():.3e}")
+        into[name]["calls"] += 1
+        into[name]["max_abs_err"] = max(into[name]["max_abs_err"],
+                                        err.max().item())
+
+    def fa(q, k, v, **kw):
+        out = real_fa(q, k, v, **kw)
+        bq, bk = effective_tiles(q.shape[2], k.shape[2], kw.pop("bq", 128),
+                                 kw.pop("bk", 128))
+        lse = kw.pop("return_lse", False)
+        ref = flash_attention_ref(q, k, v, bq=bq, bk=bk, **kw)[0]
+        hold("flash_attention", out[0] if lse else out, ref, FA_TOL)
+        return out
+
+    def pa(q, k_pages, v_pages, block_tables, positions, **kw):
+        out = real_pa(q, k_pages, v_pages, block_tables, positions, **kw)
+        kw.pop("variant", None)
+        hold("paged_attention", out, paged_attention_ref(
+            q, k_pages, v_pages, block_tables, positions, **kw), PA_TOL)
+        return out
+
+    layers.flash_attention, paged.paged_attention = fa, pa
+    try:
+        yield into
+    finally:
+        layers.flash_attention, paged.paged_attention = real_fa, real_pa
+
+
+def examples_on_card(path_sc: set) -> dict:
+    """The three walkthroughs on the card, each with the launch counts
+    zeroed just before and read just after: quickstart's artemis_mxu
+    forward runs sc_matmul (the example zeroes the counts just before
+    that forward and reads them after), its shapes recorded into
+    path_sc for phase 16; serve_batched's static path runs
+    flash_attention and serve_engine's paged path paged_attention, each
+    call held against the plain version on the same inputs
+    (`attention_held`)."""
+    import runpy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    out = {}
+    held = {}
+    with sc_path_shapes(path_sc), attention_held(held):
+        reset_launch_counts()
+        qs = _port_script("examples/torch_quickstart.py").main("cuda")
+        out["quickstart"] = dict(launches=dict(launch_counts),
+                                 forward_sc_matmul=qs["sc_matmul_launches"],
+                                 logits_drift=qs["logits_drift"])
+        if not 0 < qs["sc_matmul_launches"] <= launch_counts["sc_matmul"]:
+            raise AssertionError(f"quickstart's artemis_mxu forward: {qs}")
+        for name, kernel in (("serve_batched", "flash_attention"),
+                             ("serve_engine", "paged_attention")):
+            argv = sys.argv
+            sys.argv = [f"examples/torch_{name}.py", "--device", "cuda"]
+            before = held[kernel]["calls"]
+            reset_launch_counts()
+            try:
+                runpy.run_path(str(ROOT / "examples" / f"torch_{name}.py"),
+                               run_name="__main__")
+            finally:
+                sys.argv = argv
+            out[name] = dict(launches=dict(launch_counts))
+            if not launch_counts[kernel] or \
+                    held[kernel]["calls"] - before != launch_counts[kernel]:
+                raise AssertionError(
+                    f"{name} launched {dict(launch_counts)}, want {kernel}, "
+                    f"each call held ({held[kernel]})")
+    log(f"  launches: {[(k, v['launches']) for k, v in out.items()]}; held "
+        f"against the plain versions on the same inputs: {held}")
+    out["held"] = held
+    return out
+
+
 class Phases:
     """Logs each phase's title, and when the next one starts (or at
     `mark(None)`) the seconds the last one took, kept by its number."""
@@ -2955,6 +3295,15 @@ def main() -> int:
     with sc_path_shapes(path_sc):
         train.update(pin=train_pin(cfg))
     train.update(resume=train_resume())
+    free()
+    phases.mark("25. the rest of the ARTEMIS arithmetic and the paper's "
+                "scripts: Table V, normals, LUTs, noisy artemis at the "
+                "qwen3_8b width, kernel_micro, the examples")
+    arith = dict(table5=table5_on_card(), normals=normals_on_card(),
+                 luts=luts_on_card(cfg), noisy=noisy_artemis_on_card(cfg),
+                 kernel_micro=kernel_micro_on_card(),
+                 examples=examples_on_card(path_sc))
+    free()
     phases.mark("16. sc_matmul at every shape the main path gave it")
     sc_path = check_sc_path_shapes(path_sc)
     phases.mark(None)
@@ -2964,18 +3313,25 @@ def main() -> int:
     # the one with a library call; every mode and shape is in "shapes"
     head = next(r for r in sc_rows if r["mode"] == "int8"
                 and r["M"] == 8 and (r["K"], r["N"]) == (4096, 12288))
+    ex = arith["examples"]
     pa_paths = {"qwen3_8b engine": full["launches"],
                 "qwen3_8b mixed engine": mixed["launches"],
-                "qwen2_moe_a2_7b engine": moe["launches"]}
+                "qwen2_moe_a2_7b engine": moe["launches"],
+                "examples/torch_serve_engine.py":
+                    ex["serve_engine"]["launches"]["paged_attention"]}
     sc_paths = {**{f"qwen3_8b {k} engine": q["launches"]
                    for k, q in quant.items()},
                 "qwen2_moe_a2_7b int8 engine": moe["int8"]["launches"],
                 "rwkv6_3b int8 engine": rwkv["int8"]["launches"],
                 **{f"qwen3_8b train {k}": r["launches"]
-                   for k, r in train["runs"].items() if k != "exact"}}
+                   for k, r in train["runs"].items() if k != "exact"},
+                "examples/torch_quickstart.py artemis_mxu forward":
+                    ex["quickstart"]["forward_sc_matmul"]}
     fa_paths = {"qwen3_8b static": static["launches"],
                 "qwen2_moe_a2_7b static": moe["static"]["launches"],
-                "zamba2_7b static": zamba["static"]["launches"]}
+                "zamba2_7b static": zamba["static"]["launches"],
+                "examples/torch_serve_batched.py":
+                    ex["serve_batched"]["launches"]["flash_attention"]}
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/paged_attention/csrc/"
@@ -2985,7 +3341,8 @@ def main() -> int:
         "launches_by_path": pa_paths,
         "launches_by_variant": full["launches_by_variant"],
         "max_abs_err": max(*pa_err.values(), *(
-            r["max_abs_err"] for r in timing + moe_rows["paged_attention"])),
+            r["max_abs_err"] for r in timing + moe_rows["paged_attention"]),
+            ex["held"]["paged_attention"]["max_abs_err"]),
         "max_abs_err_by_variant": pa_err,
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
@@ -3016,7 +3373,8 @@ def main() -> int:
         "max_abs_err": max(*fa_err.values(),
                            *(e for r in fa_rows + moe_rows["flash_attention"]
                              + zamba_fa_rows
-                             for e in r["max_abs_err_by_variant"].values())),
+                             for e in r["max_abs_err_by_variant"].values()),
+                           ex["held"]["flash_attention"]["max_abs_err"]),
         "max_abs_err_by_variant": {v: max(fa_err[v], *(
             r["max_abs_err_by_variant"][v] for r in fa_rows))
             for v in FA_VARIANTS},
@@ -3038,7 +3396,8 @@ def main() -> int:
                     "static": static, "sampler": samp,
                     "mixed_drain": mixed, "qwen2_moe_a2_7b": moe,
                     "rwkv6_3b": rwkv, "zamba2_7b": zamba,
-                    "train": train, "phase_s": phases.seconds}))
+                    "train": train, "arithmetic": arith,
+                    "phase_s": phases.seconds}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,8 @@ Public surface:
   artemis_matmul          the MAC pipeline (all modes)
   sc_multiply             deterministic TCU multiply, closed form
   grouped_signed_accumulate / MomcapConfig   analog accumulation model
-
-Not ported yet: the Eq. 5 softmax (`softmax.py`) and the NSC LUT
-nonlinearities (`lut.py`), which no serve path calls, and the analog
-noise path (`sigma_analog > 0`).
+  lse_softmax / artemis_softmax              Eq. 5 softmax (exact / LUT)
+  lut_activation                             NSC LUT nonlinearities
 """
 from repro_torch.core.analog import (
     MomcapConfig,
@@ -19,6 +17,7 @@ from repro_torch.core.analog import (
     readout_quantize,
 )
 from repro_torch.core.artemis_matmul import artemis_matmul, calibrate_rbar
+from repro_torch.core.lut import binned_apply, lut_activation
 from repro_torch.core.policy import (
     ARTEMIS,
     ARTEMIS_MXU,
@@ -33,6 +32,11 @@ from repro_torch.core.quantization import (
     magnitude_sign,
     quant_scale,
     quantize,
+)
+from repro_torch.core.softmax import (
+    artemis_softmax,
+    lse_softmax,
+    online_max_sum,
 )
 from repro_torch.core.stochastic import (
     SC_BITS,
@@ -49,6 +53,8 @@ __all__ = [
     "artemis_matmul", "calibrate_rbar",
     "MomcapConfig", "grouped_signed_accumulate", "readout_quantize",
     "momcap_voltage_trace", "max_linear_accumulations",
+    "lse_softmax", "artemis_softmax", "online_max_sum",
+    "binned_apply", "lut_activation",
     "SC_LEVELS", "SC_BITS", "quantize", "dequantize", "quant_scale",
     "fake_quant", "magnitude_sign",
     "sc_multiply", "sc_multiply_bitstream", "sc_multiply_float",

@@ -23,14 +23,22 @@ the (K, N) weight as the reference does, flatten the leading dimensions
 and hand the int8 operands to `kernels.sc_matmul.sc_matmul_quantized`:
 its plain version on the CPU, the hand-written Hopper kernel on CUDA.
 With policy.ste the forward value is exact + (out - exact).detach(), so
-gradients are those of the exact product. The analog noise path
-(sigma_analog > 0 in artemis mode) is not ported and raises.
+gradients are those of the exact product.
+
+The artemis mode with analog readout noise (sigma_analog > 0) runs the
+reference's group scan (`_artemis_emulated`) in plain PyTorch on the
+operands' device, with the noise drawn from a `repro_torch.prng` key:
+the Pallas kernel has no noise, and the reference never sends noise
+through it, so this path launches no sc_matmul. The choice is made by
+sigma_analog, never by the device.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import prng
 from repro_torch.core import quantization as q
+from repro_torch.core.analog import MomcapConfig, readout_quantize
 from repro_torch.core.policy import ArithmeticPolicy
 from repro_torch.core.quantization import SC_LEVELS
 from repro_torch.kernels.sc_matmul.sc_matmul import sc_matmul_quantized
@@ -45,28 +53,73 @@ def _quantize_pair(a: torch.Tensor, b: torch.Tensor,
     return q.quantize(a, sa), q.quantize(b, sb), sa, sb
 
 
+def _artemis_noisy(aq: torch.Tensor, bq: torch.Tensor,
+                   policy: ArithmeticPolicy,
+                   key: torch.Tensor | None) -> torch.Tensor:
+    """The reference's `_artemis_emulated` scan with readout noise, in
+    SC product units. aq: (..., M, K) int8, bq: (K, N) int8. Each
+    MOMCAP group splits its key three ways (the next group's key, the
+    positive and the negative readout's) and draws (..., M, N) normals
+    for each readout, in that order, through `analog.readout_quantize`
+    as the reference's scan body calls it. The reference's jitted scan
+    folds the noise's two constants and fuses its products into their
+    adds, which op-by-op f32 here does not: an output parts from the
+    reference's by a few ulps, and by one readout level only where a
+    readout sits on a rounding tie (`tests/test_torch_noise.py` holds
+    both, K up to 4096)."""
+    if key is None:
+        raise ValueError("artemis mode with sigma_analog > 0 needs a key")
+    cfg = MomcapConfig(acc_depth=policy.acc_depth,
+                       readout_bits=policy.readout_bits,
+                       sigma_analog=policy.sigma_analog)
+    ma, sga = q.magnitude_sign(aq)
+    mb, sgb = q.magnitude_sign(bq)
+    g = policy.acc_depth
+    pad = (-ma.shape[-1]) % g
+    if pad:
+        ma = torch.nn.functional.pad(ma, (0, pad))
+        sga = torch.nn.functional.pad(sga, (0, pad))
+        mb = torch.nn.functional.pad(mb, (0, 0, 0, pad))
+        sgb = torch.nn.functional.pad(sgb, (0, 0, 0, pad))
+    kcur = torch.as_tensor(key, dtype=torch.int64).to(aq.device)
+    zero = torch.zeros((), dtype=torch.float32, device=aq.device)
+    acc = torch.zeros(ma.shape[:-1] + (mb.shape[-1],), dtype=torch.float32,
+                      device=aq.device)
+    for k0 in range(0, ma.shape[-1], g):
+        sl = slice(k0, k0 + g)
+        # one MOMCAP group: (..., M, g, N) SC products
+        p = ((ma[..., sl, None] * mb[sl]) // SC_LEVELS).float()
+        s = sga[..., sl, None] * sgb[sl]
+        pos = torch.where(s > 0, p, zero).sum(dim=-2)
+        neg = torch.where(s < 0, p, zero).sum(dim=-2)
+        kcur, kp, kn = prng.split(kcur, 3).unbind(-2)
+        acc = acc + readout_quantize(pos, cfg, kp) \
+            - readout_quantize(neg, cfg, kn)
+    return acc
+
+
 def artemis_matmul(a: torch.Tensor, b: torch.Tensor,
                    policy: ArithmeticPolicy = ArithmeticPolicy(),
-                   key=None) -> torch.Tensor:
+                   key: torch.Tensor | None = None) -> torch.Tensor:
     """Matmul through the ARTEMIS arithmetic ladder.
 
     a: (..., M, K) float; b: (K, N) float. Returns float32 (..., M, N).
-    `key` exists for the reference's signature; the noise path that
-    would use it is not ported.
+    `key` (a `repro_torch.prng` key) draws the readout noise of the
+    artemis mode with sigma_analog > 0, which needs one (ValueError
+    without); the other modes ignore it.
     """
     a = a.float()
     b = b.float()
     if policy.mode == "exact":
         return torch.matmul(a, b)
-    if policy.mode == "artemis" and policy.sigma_analog > 0.0:
-        raise NotImplementedError(
-            "artemis mode with analog readout noise (sigma_analog > 0) "
-            "is not ported yet")
     aq, bq, sa, sb = _quantize_pair(a, b, policy)
-    acc = sc_matmul_quantized(
-        aq.reshape(-1, aq.shape[-1]), bq, mode=policy.mode,
-        acc_depth=policy.acc_depth, readout_bits=policy.readout_bits,
-        rbar=policy.rbar).reshape(*aq.shape[:-1], bq.shape[-1])
+    if policy.mode == "artemis" and policy.sigma_analog > 0.0:
+        acc = _artemis_noisy(aq, bq, policy, key)
+    else:
+        acc = sc_matmul_quantized(
+            aq.reshape(-1, aq.shape[-1]), bq, mode=policy.mode,
+            acc_depth=policy.acc_depth, readout_bits=policy.readout_bits,
+            rbar=policy.rbar).reshape(*aq.shape[:-1], bq.shape[-1])
     if policy.mode == "int8":
         out = acc.float() * sa * sb
     else:

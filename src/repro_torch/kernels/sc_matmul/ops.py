@@ -5,10 +5,15 @@ dequantize, apply the straight-through estimator.
 
 It is `core.artemis_matmul` on 2-D operands in a quantized mode: the
 reference pins its kernel wrapper to that function, and the port makes
-them one code path. This module is not imported by the kernel package,
-because `repro_torch.core` imports the package.
+them one code path. As in the reference, the kernel has no analog
+noise: `sigma_analog` is emulation-only, and this wrapper ignores it
+(the noiseless kernel result, with no key needed). This module is not
+imported by the kernel package, because `repro_torch.core` imports the
+package.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -27,4 +32,5 @@ def sc_matmul(a: torch.Tensor, b: torch.Tensor,
     if not policy.is_quantized():
         raise ValueError("sc_matmul runs the quantized modes (int8, "
                          "artemis, artemis_mxu), not 'exact'")
-    return artemis_matmul(a, b, policy)
+    return artemis_matmul(
+        a, b, dataclasses.replace(policy, sigma_analog=0.0))

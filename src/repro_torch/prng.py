@@ -22,6 +22,9 @@ computes what `jax.random` computes (jax 0.9, 32-bit mode, with
   split(key, num)     key i is threefry2x32(key, (0, i))
   randint(key, shape, minval, maxval)
                       int32 from two words a value (see `randint`)
+  normal(key, shape)  sqrt(2) * erf_inv(uniform(key, shape,
+                      nextafter(-1, 0), 1)), with XLA's f32 erf_inv
+                      polynomial (see `erf_inv`)
 
 A key is an int64 tensor whose last axis holds the two 32-bit words, so
 a batch of keys (..., 2) draws for every lane at once. Every word is
@@ -33,6 +36,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch import xla_math
 
 MASK32 = 0xFFFFFFFF
 # threefry2x32's rotation schedule and key-schedule parity constant
@@ -141,3 +146,48 @@ def randint(key: torch.Tensor, shape: tuple[int, ...], minval: int,
     out = (minval + offset % span) & MASK32
     # back from the uint32 word to the int32 it encodes
     return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)
+
+
+# XLA's single-precision erf_inv (Giles' polynomials; the chlo lowering
+# of `lax.erf_inv`), highest coefficient first
+_ERF_INV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                   -4.39150654e-06, 0.00021858087, -0.00125372503,
+                   -0.00417768164, 0.246640727, 1.50140941)
+_ERF_INV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                   -0.00367342844, 0.00573950773, -0.0076224613,
+                   0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """f32 erf_inv as XLA computes it: w = -log1p(-x*x); below 5 the
+    first polynomial in w - 2.5, else the second in sqrt(w) - 3, times
+    x; +-inf at +-1. Each Horner step is a fused multiply-add, as
+    XLA's CPU backend compiles it, and the log1p is XLA's own, which
+    torch's rounds apart in the last bit on up to 13 % of inputs. On (-1, 1)
+    the result equals XLA's bit for bit in every test here, where
+    `torch.erfinv`, another algorithm, parts by up to 64 ulps."""
+    x = x.float()
+    w = -xla_math.log1p(x * -x)
+    small = w < 5.0
+    # the square root in f64, rounded once to f32: correctly rounded,
+    # as XLA's, where torch's vectorized f32 sqrt on the CPU is not
+    w = torch.where(small, w - 2.5, w.double().sqrt().float() - 3.0)
+    p = None
+    for lt, ge in zip(_ERF_INV_W_LT_5, _ERF_INV_W_GE_5):
+        c = torch.where(small, xla_math.f32(lt, x), xla_math.f32(ge, x))
+        p = c if p is None else xla_math.fma(p, w, c)
+    out = p * x
+    return torch.where(x.abs() == 1.0, x * math.inf, out)
+
+
+# the low end of `normal`'s uniform: nextafter(-1, 0) in f32
+NORMAL_LO = -1.0 + 2.0**-24
+SQRT2_F32 = float(torch.tensor(math.sqrt(2.0), dtype=torch.float32))
+
+
+def normal(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """float32 standard normals, as `jax.random.normal`: the uniform on
+    [nextafter(-1, 0), 1) of `uniform` (its bits exact), through
+    `erf_inv`, times sqrt(2) rounded to f32. The same bits as jax's on
+    the CPU in every test here; the same arithmetic on CUDA."""
+    return SQRT2_F32 * erf_inv(uniform(key, shape, NORMAL_LO, 1.0))

@@ -18,10 +18,11 @@ docstring for the full text). Both single-device backends are ported:
                      trash slot 0 for idle lanes.
 
 Every arithmetic policy mode runs (the quantized ones through the
-sc_matmul kernel and the gather core). Not ported yet, and refused by
-`make_backend` with a message that says so: the tensor-parallel mesh
-(`mesh_shards > 1`) and the analog readout noise of the artemis mode
-(`sigma_analog > 0`).
+sc_matmul kernel and the gather core). Refused by `make_backend` with a
+message that says why: the tensor-parallel mesh (`mesh_shards > 1`, not
+ported yet) and the artemis mode with analog readout noise
+(`sigma_analog > 0`), which needs a PRNG key that no serve path has:
+the reference's `mm` passes none, so its noisy serving raises too.
 
 The steps run on the device of the model's weights. The pool is owned
 by the backend and updated in place (the reference donates it to its
@@ -777,7 +778,10 @@ def make_backend(cfg: ModelConfig, ecfg: EngineConfig,
     if policy.mode == "artemis" and policy.sigma_analog > 0.0:
         raise NotImplementedError(
             f"sigma_analog={policy.sigma_analog}: the analog readout "
-            f"noise of the artemis mode is not ported yet")
+            f"noise of the artemis mode needs a PRNG key, and no serve "
+            f"path passes one (the reference's `mm` passes none either, "
+            f"so its noisy serving raises too); `core.artemis_matmul` "
+            f"takes key=")
     for backend_cls in (PagedKVBackend, StateSlotBackend):
         if cfg.family in backend_cls.families:
             return backend_cls(cfg, ecfg, policy, params, obs, clock)

@@ -168,15 +168,21 @@ def test_rc_model_matches_reference():
 
 
 def test_noise_path_is_refused():
+    """The noise path runs with a PRNG key (tests/test_torch_noise.py);
+    without one it is refused with ValueError, as the reference refuses
+    it."""
     noisy = tanalog.MomcapConfig(sigma_analog=0.01)
     x = torch.ones(4)
-    with pytest.raises(NotImplementedError, match="sigma_analog"):
+    with pytest.raises(ValueError, match="key"):
         T.readout_quantize(x, noisy)
-    with pytest.raises(NotImplementedError, match="sigma_analog"):
+    with pytest.raises(ValueError, match="key"):
         T.grouped_signed_accumulate(x, x, noisy)
-    with pytest.raises(NotImplementedError, match="sigma_analog"):
+    with pytest.raises(ValueError, match="key"):
         T.artemis_matmul(torch.ones(2, 3), torch.ones(3, 4),
                          T.ArithmeticPolicy("artemis", sigma_analog=0.01))
+    with pytest.raises(ValueError, match="key"):
+        J.readout_quantize(jnp.ones(4), janalog.MomcapConfig(
+            sigma_analog=0.01))
 
 
 # ---------------------------------------------------------------------------

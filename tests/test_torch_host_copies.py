@@ -1,6 +1,6 @@
 """The port's copies of the reference's host modules against their
-originals: configs, the traffic generator, the hwsim-priced cost model
-and the page allocator / prefix index. Everything here is host
+originals: configs, the traffic generator, the hwsim-priced cost model,
+the hwsim baselines and the page allocator / prefix index. Everything here is host
 arithmetic, so the bar is exact equality."""
 import dataclasses
 
@@ -83,6 +83,18 @@ def test_hwsim_paper_models_equal():
         assert dataclasses.asdict(got[name]) == dataclasses.asdict(want[name])
         assert (dataclasses.asdict(thwsim.simulate_model(got[name]))
                 == dataclasses.asdict(jhwsim.simulate_model(want[name])))
+
+
+def test_hwsim_baselines_equal():
+    """The published anchors of Figs 9-11 and the abstract's floor."""
+    from repro.hwsim import baselines as jbaselines
+    from repro_torch.hwsim import baselines as tbaselines
+    assert thwsim.BASELINES is tbaselines.BASELINES
+    assert sorted(tbaselines.BASELINES) == sorted(jbaselines.BASELINES)
+    for name, want in jbaselines.BASELINES.items():
+        assert dataclasses.asdict(tbaselines.BASELINES[name]) == \
+            dataclasses.asdict(want)
+    assert tbaselines.HEADLINE == jbaselines.HEADLINE
 
 
 def test_allocator_and_prefix_index_replay_equal():

@@ -46,6 +46,20 @@ def test_port_covers_the_training_slice():
             "torch_accuracy_ablation.py"} <= names
 
 
+def test_port_covers_the_arithmetic_slice():
+    """The rest of the ARTEMIS arithmetic and the paper's scripts."""
+    mods = _port_modules()
+    for name in ("repro_torch.core.lut", "repro_torch.core.softmax",
+                 "repro_torch.xla_math", "repro_torch.hwsim.baselines"):
+        assert name in mods
+    names = {p.name for p in _port_scripts()}
+    for script in ("fig2_breakdown", "fig7_momcap", "fig8_dataflow",
+                   "fig9_11_comparison", "fig12_scalability",
+                   "table5_calibration", "kernel_micro", "run",
+                   "quickstart", "serve_batched", "serve_engine"):
+        assert f"torch_{script}.py" in names
+
+
 def test_port_imports_without_jax_or_repro():
     """Every module of the port, chip_smoke.py and the port's scripts
     import with `jax`, `jaxlib` and `repro` made unimportable."""

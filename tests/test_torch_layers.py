@@ -91,11 +91,15 @@ def test_mm_exact():
 
 def test_mm_refuses_quantized_modes():
     """The quantized modes run (tests/test_torch_quantized_serve.py);
-    the one that is still refused is artemis with analog readout
-    noise."""
+    the one that `mm` refuses is artemis with analog readout noise: it
+    passes no PRNG key, and the noise needs one. The reference's `mm`
+    raises the same ValueError."""
     x, w = torch.zeros(2, 4), torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="key"):
         TL.mm(x, w, TPolicy(mode="artemis", sigma_analog=0.01))
+    with pytest.raises(ValueError, match="key"):
+        JL.mm(jnp.zeros((2, 4)), jnp.zeros((4, 3)),
+              ArithmeticPolicy(mode="artemis", sigma_analog=0.01))
 
 
 def _numpy_params(arch, **overrides):
