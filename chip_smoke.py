@@ -120,8 +120,10 @@ without printing a result:
      (the plain versions), from the same weights, full width through 2
      layers, f32, batch 2 x seq 64: exact within 1e-5 (loss, relative)
      and 1e-4 (each gradient, of its max abs); int8 within 1e-3 and
-     0.25 (a last bit flips int8 values, see `TRAIN_PIN_TOL`), and on
-     the card the kernel's step bit-equal to the plain version's; then
+     0.25 (a last bit flips int8 values, see `TRAIN_PIN_TOL`; zamba2
+     0.5), every int8 activation of the step's first 2 products that
+     the card and the CPU quantize apart within 1e-3 of a rounding tie,
+     and on the card the kernel's step bit-equal to the plain version's; then
      `launch.train.train` at the smoke config, 6 steps saving every 3,
      resumed from its step-3 checkpoint: the losses and weights of the
      uninterrupted run, bit for bit;
@@ -144,14 +146,44 @@ without printing a result:
      recorded for phase 16; serve_batched runs flash_attention and
      serve_engine paged_attention, every one of those calls held against
      the plain version on the same inputs within 2e-4;
+ 26. musicgen_large at its full width (48 layers, d_model 2048, 32
+     heads of 64 and as many KV heads, d_ff 8192, 4 codebooks; bf16, its
+     embedding table f32) through the static path: batch 8, prompt 1024
+     frames x 4 codebooks, gen 32, exact, counts zeroed just before and
+     read just after: flash_attention 48 x 33 times (tile 48, rows 48 x
+     32), paged_attention and sc_matmul never, generated (8, 32, 4); at
+     f32 through 2 layers the flash and gather cores token-identical; a
+     short int8 run, sc_matmul 6 times a layer of every forward (4
+     attention projections, 2 FFN: no GLU), flash_attention never;
+ 27. the same for internvl2_1b (24 layers, d_model 896, 14 heads over 2
+     KV heads of 64, d_ff 4864, tied vocab 151680): its 256-token image
+     prefix before a 1024-token prompt, flash_attention 24 x 33 times,
+     the cache index 1312 at the end, sc_matmul 7 times a layer of an
+     int8 forward;
+ 28. training of both at full width and depth through `make_train_step`
+     (batch 8 x seq 128 from `make_batch`, internvl's with its prefix,
+     remat, f32 master weights, bf16 compute): 3 steps exact and 2 int8,
+     sc_matmul 12 x 48 (musicgen) and 14 x 24 (internvl) times an int8
+     step (forward and recompute) and never an exact one; ms a step,
+     tok/s, peak GiB; then phase 24's card-against-CPU step through 2
+     layers at f32;
+ 29. the same for rwkv6_3b (all 32 layers: 2 x 9 x 32 = 576 sc_matmul
+     launches an int8 step) and zamba2_7b (27 of its 81 layers, reduced:
+     depth, 16 B a parameter does not fit one card at 81: 4 shared
+     invocations and the 3-layer tail; 2 x 2 x 27 Mamba2 products,
+     forward and recompute, and 7 x 4 of the shared block, which is not
+     recomputed: 136); the card against the CPU through 2 (rwkv6) and 7
+     layers (zamba2: one shared invocation and a 1-layer tail);
  16. (last) sc_matmul against its plain version at every shape phases
-     7, 9, 14, 19, 22, 23, 24 and 25 gave it; print the kernels line, the
-     card line, then the result line.
+     7, 9, 14, 19, 22, 23, 24, 25 and 26-29 gave it; print the kernels
+     line, the card line, then the result line.
 Each phase's seconds are logged as it ends. Phase 4 also times each
-kernel at the qwen2_moe_a2_7b shapes (4b) and flash_attention at
-zamba2_7b's static shapes (4c), and phase 3 holds sc_matmul to its
-plain version at the expert products' shapes and flash_attention at
-D 112, G 1.
+kernel at the qwen2_moe_a2_7b shapes (4b), flash_attention at
+zamba2_7b's static shapes (4c) and at musicgen_large's and
+internvl2_1b's (4d: D 64, G 1 and G 7), and phase 3 holds sc_matmul to
+its plain version at the expert products' shapes and flash_attention
+at D 112, G 1 and at D 64, G 1 and G 7 (Sq 1280 = 256 + 1024, 1100,
+8 and 1 over 1312 cache slots).
 
 Kernels: paged_attention (exact engine path; its rows instance at
 decode, its tensor-core tile instance at a prefill chunk), sc_matmul
@@ -1033,6 +1065,30 @@ def check_flash_attention() -> tuple[dict, dict]:
                                               strided=strided), cases)
                         n += 1
     settle(cases, "D 112, G 1 (zamba2), windows 16 / 64")
+    # the multimodal static paths: D 64 at G 1 (musicgen_large is MHA)
+    # and G 7 (internvl2_1b: 14 query heads over 2 KV heads, a group that
+    # is not a power of two), bf16 q over an f32 cache of 1312 slots
+    # (256 + 1024 + 32) read as strided views and rounded by kv_cast:
+    # the vlm prefill's Sq 1280 = 256 + 1024, an Sq of 1100 (not a
+    # multiple of 128) and decode rows near the end of the cache
+    cases = []
+    smax = 1312
+    for hq, hkv_s in ((4, 4), (14, 2)):
+        k, v = (torch.randn((2, smax, hkv_s, 64), generator=gen,
+                            device="cuda").transpose(1, 2) for _ in range(2))
+        for sq, q_offset, kv_len in ((1280, 0, 1280), (1100, 0, 1100),
+                                     (1100, 200, smax), (1, 1295, 1296),
+                                     (8, 1290, 1298)):
+            q = torch.randn((2, sq, hq, 64), generator=gen,
+                            device="cuda").to(bf16).transpose(1, 2)
+            bq, bk = effective_tiles(sq, smax)
+            kw = dict(causal=True, window=None, kv_len=kv_len,
+                      q_offset=q_offset, bq=bq, bk=bk, kv_cast=bf16,
+                      scale=64 ** -0.5)
+            run(q, k, v, kw, dict(sq=sq, sk=smax, G=hq // hkv_s, D=64),
+                cases)
+    settle(cases, "D 64, G 1 and G 7 (the multimodal static shapes), Sq "
+                  "1280 / 1100 / 8 / 1, Smax 1312")
     # the static prefill's shape (qwen3_8b's heads) at batch 2
     hq, hkv_s, d, sq, smax = 32, 8, 128, 1024, 1056
     q = torch.randn((2, sq, hq, d), generator=gen, device="cuda").to(
@@ -1085,12 +1141,15 @@ def _fa_bound(b, hq, hkv, sq, d, kv_rows, pairs, q_bytes, kv_bytes,
 
 
 def time_flash_attention(cfg) -> list[dict]:
-    """The static path's two shapes at the full qwen3_8b width: B 8, Hq
-    32, Hkv 8, D 128, bf16 queries read as (B, S, H, D) views, an f32
-    dense cache of Smax 1056 slots read in place as (B, KV, Smax, D)
-    views and rounded to bf16 in the kernel (`kv_cast`), as the path
-    calls it. Each call reads another of 4 layers' caches (69 MB each),
-    so the 50 MB L2 holds none of it. The cache holds bf16 values, as
+    """The static path's two shapes at the config's full width (qwen3_8b:
+    B 8, Hq 32, Hkv 8, D 128), bf16 queries read as (B, S, H, D) views,
+    an f32 dense cache of Smax = P + 1024 + 32 slots (P the vlm image
+    prefix: 256 for internvl2_1b, else 0) read in place as (B, KV,
+    Smax, D) views and rounded to bf16 in the kernel (`kv_cast`), as
+    the path calls it: a decode at index P + 1040 and the prefill of
+    P + 1024 rows. Each call reads another layer's cache, of at least 4
+    layers and of enough to fill twice the 50 MB L2 (qwen3_8b: 4 of 69
+    MB each), so the L2 holds none of it. The cache holds bf16 values, as
     the path's does, so the library call (SDPA on f32, GQA, keys sliced
     to kv_len) computes the same function. Each shape runs the instance
     the path picks (`kernel_variant`: rows at decode, tile at the
@@ -1105,7 +1164,9 @@ def time_flash_attention(cfg) -> list[dict]:
     from repro_torch.kernels.flash_attention.flash_attention import (
         kernel_variant, tile_takes)
     b, hq, hkv, d = 8, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    smax, n_layers = 1056, 4
+    prefix = 256 if cfg.modality == "vlm" else 0
+    smax = prefix + 1056
+    n_layers = max(4, math.ceil(100e6 / (2 * b * smax * hkv * d * 4)))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
     shape = (n_layers, b, smax, hkv, d)
@@ -1115,8 +1176,9 @@ def time_flash_attention(cfg) -> list[dict]:
         torch.bfloat16).float()
     scale = d ** -0.5
     rows = []
-    for label, sq, q_offset, kv_len in (("decode", 1, 1040, 1041),
-                                        ("prefill", 1024, 0, 1024)):
+    for label, sq, q_offset, kv_len in (
+            ("decode", 1, prefix + 1040, prefix + 1041),
+            ("prefill", prefix + 1024, 0, prefix + 1024)):
         q = torch.randn((b, sq, hq, d), generator=gen, device="cuda").to(
             torch.bfloat16).transpose(1, 2)
 
@@ -1443,6 +1505,7 @@ def static_run(cfg, model, *, batch, prompt_len, gen_len, policy_mode="exact",
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import serve
+    from repro_torch.models import frontend
     torch.cuda.synchronize()
     reset_launch_counts()
     out = serve(batch=batch, prompt_len=prompt_len, gen_len=gen_len,
@@ -1451,20 +1514,34 @@ def static_run(cfg, model, *, batch, prompt_len, gen_len, policy_mode="exact",
     torch.cuda.synchronize()
     counts = dict(launch_counts)
     gen = out["generated"]
-    if tuple(gen.shape) != (batch, gen_len) or int(gen.min()) < 0 or \
+    # audio: a token per codebook; vlm: the image prefix fills the cache
+    # before the prompt
+    want_shape = frontend.token_shape(cfg, batch, gen_len)
+    if tuple(gen.shape) != want_shape or int(gen.min()) < 0 or \
             int(gen.max()) >= cfg.padded_vocab:
-        raise AssertionError(f"static run: bad tokens {gen}")
-    if out["cache_index"] != prompt_len + gen_len:
-        raise AssertionError(f"static run: cache index {out['cache_index']}")
+        raise AssertionError(f"static run: tokens of shape "
+                             f"{tuple(gen.shape)} (want {want_shape}): {gen}")
+    want_index = frontend.n_prefix_tokens(cfg) + prompt_len + gen_len
+    if out["cache_index"] != want_index:
+        raise AssertionError(f"static run: cache index {out['cache_index']}"
+                             f", want {want_index}")
     return dict(out, counts=counts)
 
 
-def static_drain(cfg) -> dict:
-    """Full-width qwen3_8b through `--mode static`'s serve(): bf16, f32
-    cache, batch 8, prompt 1024, gen 32, exact policy (flash core)."""
+def static_drain(cfg, profile: bool = True) -> dict:
+    """A full-width dense config (qwen3_8b; the multimodal musicgen_large
+    and internvl2_1b) through `--mode static`'s serve(): bf16, f32
+    cache, batch 8, prompt 1024 (after internvl's 256-token image
+    prefix), gen 32, exact policy (flash core); then, with `profile`,
+    the device time by group of a prefill and a decode forward."""
     import torch
-    from repro_torch.models import transformer
+    from repro_torch.models import frontend, transformer
+    t0 = time.perf_counter()
     model = transformer.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  weights: {sum(p.numel() for p in model.parameters())/1e9:.3f} B "
+        f"parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
+        f"drawn in {time.perf_counter() - t0:.1f} s")
     # warm-up: cuBLAS handles and workspaces, first-launch costs
     static_run(cfg, model, batch=8, prompt_len=64, gen_len=2)
     torch.cuda.reset_peak_memory_stats()
@@ -1473,9 +1550,14 @@ def static_drain(cfg) -> dict:
     counts = run["counts"]
     want = cfg.n_layers * (1 + 32)
     step_ms = run["decode_s"] / 32 * 1e3
-    log(f"  prefill {run['prefill_s']*1e3:.2f} ms (8 x 1024 tokens) | decode "
-        f"{run['decode_tok_per_s']:.2f} tok/s, {step_ms:.2f} ms per step | "
-        f"peak device memory {peak:.2f} GiB")
+    prefix = frontend.n_prefix_tokens(cfg)
+    what = f"8 x {prefix} + 1024 tokens" if prefix else "8 x 1024 tokens"
+    if cfg.modality == "audio":
+        what += f" x {cfg.n_codebooks} codebooks"
+    log(f"  prefill {run['prefill_s']*1e3:.2f} ms ({what}) | decode "
+        f"{run['decode_tok_per_s']:.2f} tok/s, {step_ms:.2f} ms "
+        f"per step | generated {tuple(run['generated'].shape)}, cache index "
+        f"{run['cache_index']} | peak device memory {peak:.2f} GiB")
     by_variant = {v: counts.get(f"flash_attention.{v}", 0)
                   for v in FA_VARIANTS}
     want_by_variant = {"tile": cfg.n_layers, "rows": cfg.n_layers * 32}
@@ -1497,11 +1579,15 @@ def static_drain(cfg) -> dict:
                              f"{by_variant}, want {want_by_variant}")
     if counts.get("paged_attention", 0) or counts.get("sc_matmul", 0):
         raise AssertionError(f"the exact static path launched {counts}")
-    return dict(model=model, prefill_ms=run["prefill_s"] * 1e3,
-                decode_tok_s=run["decode_tok_per_s"], step_ms=step_ms,
-                peak_gib=peak, launches=counts["flash_attention"],
-                launches_by_variant=by_variant,
-                profile=profile_static(cfg, model))
+    out = dict(model=model, prefill_ms=run["prefill_s"] * 1e3,
+               decode_tok_s=run["decode_tok_per_s"], step_ms=step_ms,
+               peak_gib=peak, launches=counts["flash_attention"],
+               launches_by_variant=by_variant,
+               generated_shape=list(run["generated"].shape),
+               cache_index=run["cache_index"])
+    if profile:
+        out.update(profile=profile_static(cfg, model))
+    return out
 
 
 def profile_static(cfg, model) -> dict:
@@ -1566,6 +1652,12 @@ def profile_static(cfg, model) -> dict:
     return out
 
 
+def dense_projections(cfg) -> int:
+    """A dense layer's products through the policy: wq, wk, wv, wo and
+    the FFN's w_up and w_down, with w_gate where it is a GLU."""
+    return 4 + (3 if cfg.glu else 2)
+
+
 def static_checks(cfg, model) -> dict:
     """f32 token identity of the flash and gather cores through 2 layers
     of the full width; one short int8 static run on the full model."""
@@ -1591,11 +1683,12 @@ def static_checks(cfg, model) -> dict:
     run = static_run(cfg, model, batch=8, prompt_len=128, gen_len=8,
                      policy_mode="int8")
     counts = run["counts"]
-    want = 7 * cfg.n_layers * (1 + 8)
+    per_layer = dense_projections(cfg)
+    want = per_layer * cfg.n_layers * (1 + 8)
     log(f"  int8, batch 8, prompt 128, gen 8: prefill "
         f"{run['prefill_s']*1e3:.2f} ms, decode {run['decode_tok_per_s']:.2f} "
-        f"tok/s | sc_matmul launches {counts.get('sc_matmul', 0)} = 7 x "
-        f"{cfg.n_layers} layers x 9 forwards? "
+        f"tok/s | sc_matmul launches {counts.get('sc_matmul', 0)} = "
+        f"{per_layer} x {cfg.n_layers} layers x 9 forwards? "
         f"{counts.get('sc_matmul', 0) == want}; flash_attention "
         f"{counts.get('flash_attention', 0)}")
     if counts.get("sc_matmul", 0) != want or counts.get("flash_attention", 0) \
@@ -2507,6 +2600,12 @@ def profile_forwards(cfg, model, mode) -> dict:
 TRAIN_LAYERS = 8
 TRAIN_BATCH, TRAIN_SEQ = 8, 128      # the reference trainer's defaults
 TRAIN_STEPS = (("exact", 4), ("int8", 2), ("artemis_mxu", 2), ("artemis", 2))
+# phases 28 and 29: the multimodal and recurrent configs
+TRAIN_STEPS_NEW = (("exact", 3), ("int8", 2))
+# zamba2_7b's f32 weights, gradients and AdamW moments take 100.6 GiB at
+# 81 layers; 27 keep 4 shared invocations (period 6) and the 3-layer
+# tail, 2.540 B parameters
+ZAMBA2_TRAIN_LAYERS = 27
 # AdamW reads p, g, m, v and writes p, m, v: 7 f32 words a parameter
 ADAMW_BYTES_PER_PARAM = 28
 # the card against the CPU: exact within f32 rounding; int8 within what a
@@ -2517,6 +2616,19 @@ ADAMW_BYTES_PER_PARAM = 28
 # (about 1) still fails; the kernel itself is held bit for bit on the card
 TRAIN_PIN_TOL = {"exact": dict(loss_rel=1e-5, grad_of_max=1e-4),
                  "int8": dict(loss_rel=1e-3, grad_of_max=0.25)}
+# zamba2's SSD state carries a flipped value through the rest of its
+# sequence, and its small leaves (norm scales, conv biases) sum gradients
+# that nearly cancel: measured 0.35 (norm.scale) through 7 layers on an
+# H100 with this seed, where `TIE_DISTANCE` shows every flip of the
+# first products at a tie
+TRAIN_PIN_INT8_GRAD = {"zamba2": 0.5}
+# a value quantized apart on the card and on the CPU must sit this close
+# to a rounding tie k + 1/2 (in quantization steps): f32 activations
+# that agree to a few ulps move x / scale (at most 127) by about 1e-5
+TIE_DISTANCE = 1e-3
+# the first products of a step, whose inputs differ between the devices
+# by last bits only (later ones see the flips of earlier ones)
+TIE_PRODUCTS = 2
 
 
 @contextlib.contextmanager
@@ -2544,14 +2656,29 @@ def adamw_timer(into: list):
         steps.adamw_update = real
 
 
-def train_full_width(cfg) -> dict:
-    """Phase 23: one model of `TRAIN_LAYERS` full-width qwen3_8b layers
-    (f32 master weights, bf16 compute, remat) trained through
-    `make_train_step` on `make_batch` batches, 4 steps exact and 2 under
-    each quantized policy. The launch counts are zeroed once, before
-    the first step, and each step's launches read as the difference
-    around it: sc_matmul 14 a layer of a quantized step (7 projections
-    forward, 7 in the recompute), none of an exact one, and the
+def train_step_launches(cfg) -> int:
+    """sc_matmul launches of one quantized train step with remat: every
+    product through the policy in the forward, and again in the
+    recompute of each rematerialized layer (all layers; zamba2's Mamba2
+    layers but not its shared block)."""
+    if cfg.family == "rwkv6":
+        return 2 * RWKV6_LAYER_PRODUCTS * cfg.n_layers
+    if cfg.family == "zamba2":
+        n_inv = cfg.n_layers // cfg.shared_attn_period
+        return 2 * 2 * cfg.n_layers + dense_projections(cfg) * n_inv
+    return 2 * dense_projections(cfg) * cfg.n_layers
+
+
+def train_full_width(cfg, n_layers: int = TRAIN_LAYERS,
+                     plan=TRAIN_STEPS) -> dict:
+    """Phases 23, 28 and 29: one model of `n_layers` layers of a
+    full-width config (f32 master weights, bf16 compute, remat) trained
+    through `make_train_step` on `make_batch` batches (internvl's carry
+    its 256-token image prefix), the steps of `plan` on the same model.
+    The launch counts are zeroed once, before the first step, and each
+    step's launches read as the difference around it: sc_matmul
+    `train_step_launches` a quantized step (qwen3_8b: 7 projections a
+    layer forward, 7 in the recompute), none an exact one, and the
     attention kernels never; the phase's totals must be the sums."""
     import torch
     from repro_torch.core.policy import ArithmeticPolicy
@@ -2560,8 +2687,8 @@ def train_full_width(cfg) -> dict:
     from repro_torch.launch import steps
     from repro_torch.models import model as modellib
     from repro_torch.optim import OptimizerConfig, adamw_init
-    tcfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
-    n_steps = sum(n for _, n in TRAIN_STEPS)
+    tcfg = dataclasses.replace(cfg, n_layers=n_layers)
+    n_steps = sum(n for _, n in plan)
     # the schedule `launch.train.train` sets for a run of n_steps
     opt_cfg = OptimizerConfig(total_steps=n_steps,
                               warmup_steps=max(n_steps // 20, 5))
@@ -2572,15 +2699,17 @@ def train_full_width(cfg) -> dict:
     opt = adamw_init(model)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"  {TRAIN_LAYERS} of {cfg.n_layers} layers (reduced: depth), f32 "
-        f"master weights, bf16 compute: {n_params / 1e9:.3f} B parameters; "
-        f"weights and AdamW state {torch.cuda.memory_allocated() / 2**30:.2f}"
-        f" GiB, drawn in {time.perf_counter() - t0:.1f} s")
-    want_sc = 14 * TRAIN_LAYERS
+    depth = (f"{n_layers} of {cfg.n_layers} layers (reduced: depth)"
+             if n_layers < cfg.n_layers else f"{n_layers} layers")
+    log(f"  {cfg.name}: {depth}, f32 master weights, bf16 compute: "
+        f"{n_params / 1e9:.3f} B parameters; weights and AdamW state "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    want_sc = train_step_launches(tcfg)
     runs, step, adamw_ms = {}, 0, []
     reset_launch_counts()
     with adamw_timer(adamw_ms):
-        for mode, n in TRAIN_STEPS:
+        for mode, n in plan:
             step_fn = steps.make_train_step(tcfg, opt_cfg,
                                             ArithmeticPolicy(mode=mode))
             ms, losses, sc = [], [], 0
@@ -2637,14 +2766,15 @@ def train_full_width(cfg) -> dict:
         f"{peak:.2f} GiB")
     del model, opt, metrics
     free()
-    return dict(config=f"qwen3_8b full width, {TRAIN_LAYERS} of "
-                       f"{cfg.n_layers} layers, f32 master weights, bf16 "
-                       f"compute, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
-                       f"remat",
-                reduced={"n_layers": [cfg.n_layers, TRAIN_LAYERS]},
+    return dict(config=f"{cfg.name} full width, {depth}, f32 master "
+                       f"weights, bf16 compute, batch {TRAIN_BATCH} x seq "
+                       f"{TRAIN_SEQ}, remat",
+                reduced=({"n_layers": [cfg.n_layers, n_layers]}
+                         if n_layers < cfg.n_layers else {}),
                 n_params=n_params, runs=runs, peak_gib=peak,
                 adamw_ms=adamw_med, adamw_ms_all=adamw_ms,
-                adamw_bound_ms=bound_ms, launches=total_sc)
+                adamw_bound_ms=bound_ms, launches=total_sc,
+                launches_per_quantized_step=want_sc)
 
 
 @contextlib.contextmanager
@@ -2663,6 +2793,45 @@ def plain_sc_matmul():
         am.sc_matmul_quantized = real
 
 
+@contextlib.contextmanager
+def first_quantized_activations(into: list, first: int = TIE_PRODUCTS):
+    """Records (x / scale, the int8 values) of the activations of the
+    first `first` quantized products `artemis_matmul` makes inside the
+    block (on the host), through the name it calls."""
+    import importlib
+    am = importlib.import_module("repro_torch.core.artemis_matmul")
+    real = am._quantize_pair
+
+    def recording(a, b, policy):
+        out = real(a, b, policy)
+        if len(into) < first:
+            into.append(((a.detach() / out[2].detach()).float().cpu(),
+                         out[0].cpu()))
+        return out
+
+    am._quantize_pair = recording
+    try:
+        yield into
+    finally:
+        am._quantize_pair = real
+
+
+def flips_at_ties(card: list, host: list) -> tuple[int, int, float]:
+    """(int8 activations that differ, of how many, the largest distance
+    of a differing one's host x / scale from a tie k + 1/2)."""
+    import torch
+    n_diff = n_all = 0
+    worst = 0.0
+    for (_, qc), (rh, qh) in zip(card, host):
+        diff = qc != qh
+        n_diff += int(diff.sum())
+        n_all += diff.numel()
+        if diff.any():
+            r = rh[diff]
+            worst = max(worst, float((r - torch.floor(r) - 0.5).abs().max()))
+    return n_diff, n_all, worst
+
+
 def _grad_errors(grads, ref) -> list[tuple[float, str]]:
     """(max |g - ref| over max |ref|, name) per leaf, largest first."""
     out = []
@@ -2673,10 +2842,11 @@ def _grad_errors(grads, ref) -> list[tuple[float, str]]:
     return sorted(out, reverse=True)
 
 
-def train_pin(cfg) -> dict:
-    """Phase 24a: the card against the CPU. One step's loss and
-    gradients (`launch.steps.loss_and_grads`, the train step's forward
-    and backward) at the full width through 2 layers, f32 compute,
+def train_pin(cfg, n_layers: int = 2) -> dict:
+    """Phases 24a, 28 and 29: the card against the CPU. One step's loss
+    and gradients (`launch.steps.loss_and_grads`, the train step's
+    forward and backward) at the full width through `n_layers` layers
+    (zamba2: 7, one shared invocation and a 1-layer tail), f32 compute,
     batch 2 x seq 64, from the same weights, on the card (the kernels)
     and on the CPU (their plain versions), exact and int8, within
     `TRAIN_PIN_TOL`; under int8 also on the card with sc_matmul's plain
@@ -2688,7 +2858,9 @@ def train_pin(cfg) -> dict:
     from repro_torch.data import DataConfig, make_batch
     from repro_torch.launch import steps
     from repro_torch.models import model as modellib
-    pcfg = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    pcfg = dataclasses.replace(cfg, n_layers=n_layers,
+                               compute_dtype="float32")
+    log(f"  {cfg.name} through {n_layers} layers:")
     card = modellib.init(pcfg, seed=0, device="cuda", train=True)
     host = bridge.params_from_numpy(bridge.params_to_numpy(card), pcfg,
                                     device="cpu", train=True)
@@ -2699,8 +2871,10 @@ def train_pin(cfg) -> dict:
     for mode in ("exact", "int8"):
         policy = ArithmeticPolicy(mode=mode)
         t = time.perf_counter()
-        loss_c, _, grads_c = steps.loss_and_grads(card, pcfg, card_batch,
-                                                  policy)
+        acts_c, acts_h = [], []
+        with first_quantized_activations(acts_c):
+            loss_c, _, grads_c = steps.loss_and_grads(card, pcfg, card_batch,
+                                                      policy)
         loss_c = float(loss_c)
         grads_c = {k: g.clone() for k, g in grads_c.items()}
         card_s = time.perf_counter() - t
@@ -2717,7 +2891,9 @@ def train_pin(cfg) -> dict:
                                      f"sc_matmul parts from its plain "
                                      f"version on the card")
         t = time.perf_counter()
-        loss_h, _, grads_h = steps.loss_and_grads(host, pcfg, batch, policy)
+        with first_quantized_activations(acts_h):
+            loss_h, _, grads_h = steps.loss_and_grads(host, pcfg, batch,
+                                                      policy)
         host_s = time.perf_counter() - t
         rel = abs(loss_c - float(loss_h)) / abs(float(loss_h))
         errs = _grad_errors(grads_c, grads_h)
@@ -2726,13 +2902,24 @@ def train_pin(cfg) -> dict:
             f"{[(n, f'{e:.2e}') for e, n in errs[:6]]}; leaves past "
             f"1e-4: {sum(e > 1e-4 for e, _ in errs)} of {len(errs)}; card "
             f"{card_s:.1f} s, CPU {host_s:.1f} s")
-        tol = TRAIN_PIN_TOL[mode]
+        tol = dict(TRAIN_PIN_TOL[mode])
+        if mode != "exact":
+            tol["grad_of_max"] = TRAIN_PIN_INT8_GRAD.get(
+                cfg.family, tol["grad_of_max"])
+            n_diff, n_all, dist = flips_at_ties(acts_c, acts_h)
+            log(f"  {mode:5s}: the first {len(acts_c)} products' int8 "
+                f"activations: {n_diff} of {n_all} quantized apart on the "
+                f"card and the CPU, each within {dist:.1e} of a tie (bound "
+                f"{TIE_DISTANCE})")
+            if len(acts_c) != TIE_PRODUCTS or dist > TIE_DISTANCE:
+                raise AssertionError(f"{mode}: an int8 activation parts "
+                                     f"from the CPU's {dist:.2e} from a tie")
         if rel > tol["loss_rel"] or errs[0][0] > tol["grad_of_max"]:
             raise AssertionError(f"{mode}: the card's step parts from the "
                                  f"CPU's: loss {rel:.2e}, {errs[0]} ({tol})")
         out[mode] = dict(loss_card=loss_c, loss_cpu=float(loss_h),
                          loss_rel=rel, grad_of_max=errs[0][0],
-                         worst_leaf=errs[0][1])
+                         worst_leaf=errs[0][1], tol=tol)
         del grads_c, grads_h
     del card, host
     free()
@@ -3184,6 +3371,15 @@ def main() -> int:
     zamba_fa_rows = time_flash_attention(zamba_cfg)
     for row in zamba_fa_rows:
         row["model"] = "zamba2_7b"
+    mm_cfgs = {arch: configs.get_config(arch)
+               for arch in ("musicgen_large", "internvl2_1b")}
+    phases.mark("4d. flash_attention timing at the full-width "
+                "musicgen_large (G 1, Hq = Hkv = 32) and internvl2_1b (G 7, "
+                "Hq 14 over Hkv 2; Sq 256 + 1024) static shapes, D 64")
+    mm_fa_rows = []
+    for arch, mcfg in mm_cfgs.items():
+        for row in time_flash_attention(mcfg):
+            mm_fa_rows.append(dict(row, model=arch))
 
     phases.mark("5. full-width qwen3_8b drain: bf16, attn_impl=fused")
     full = full_width_drain(cfg)
@@ -3304,6 +3500,40 @@ def main() -> int:
                  kernel_micro=kernel_micro_on_card(),
                  examples=examples_on_card(path_sc))
     free()
+    multimodal = {}
+    for number, (arch, mcfg) in zip((26, 27), mm_cfgs.items()):
+        shape = ("prompt 1024 frames x 4 codebooks" if arch == "musicgen_large"
+                 else "an image prefix of 256 + a prompt of 1024")
+        phases.mark(f"{number}. full-width {arch} static path: bf16, f32 "
+                    f"cache, batch 8, {shape}, gen 32, exact (flash); f32 "
+                    f"flash vs gather through 2 layers; a short int8 run")
+        run = static_drain(mcfg, profile=False)
+        with sc_path_shapes(path_sc):
+            run.update(static_checks(mcfg, run.pop("model")))
+        multimodal[arch] = dict(static=run)
+        free()
+    phases.mark("28. multimodal training at full width and depth "
+                "(musicgen_large 48 layers, internvl2_1b 24): batch 8 x seq "
+                "128 (internvl: + its 256-token prefix), remat, 3 steps "
+                "exact and 2 int8 each; the card against the CPU through 2 "
+                "layers")
+    with sc_path_shapes(path_sc):
+        for arch, mcfg in mm_cfgs.items():
+            multimodal[arch]["train"] = train_full_width(
+                mcfg, mcfg.n_layers, TRAIN_STEPS_NEW)
+            multimodal[arch]["train"].update(pin=train_pin(mcfg))
+    phases.mark("29. recurrent training: rwkv6_3b (32 layers) and zamba2_7b "
+                "(27 of 81: 4 shared invocations and the 3-layer tail), batch "
+                "8 x seq 128, remat, 3 steps exact and 2 int8 each; the card "
+                "against the CPU through 2 and 7 layers")
+    recurrent_train = {}
+    with sc_path_shapes(path_sc):
+        for arch, rcfg, n_train, n_pin in (
+                ("rwkv6_3b", rw_cfg, rw_cfg.n_layers, 2),
+                ("zamba2_7b", zamba_cfg, ZAMBA2_TRAIN_LAYERS, 7)):
+            run = train_full_width(rcfg, n_train, TRAIN_STEPS_NEW)
+            run.update(pin=train_pin(rcfg, n_pin))
+            recurrent_train[arch] = run
     phases.mark("16. sc_matmul at every shape the main path gave it")
     sc_path = check_sc_path_shapes(path_sc)
     phases.mark(None)
@@ -3325,11 +3555,19 @@ def main() -> int:
                 "rwkv6_3b int8 engine": rwkv["int8"]["launches"],
                 **{f"qwen3_8b train {k}": r["launches"]
                    for k, r in train["runs"].items() if k != "exact"},
+                **{f"{arch} int8 static": m["static"]["int8_sc_matmul_launches"]
+                   for arch, m in multimodal.items()},
+                **{f"{arch} train int8": m["train"]["launches"]
+                   for arch, m in multimodal.items()},
+                **{f"{arch} train int8": r["launches"]
+                   for arch, r in recurrent_train.items()},
                 "examples/torch_quickstart.py artemis_mxu forward":
                     ex["quickstart"]["forward_sc_matmul"]}
     fa_paths = {"qwen3_8b static": static["launches"],
                 "qwen2_moe_a2_7b static": moe["static"]["launches"],
                 "zamba2_7b static": zamba["static"]["launches"],
+                **{f"{arch} static": m["static"]["launches"]
+                   for arch, m in multimodal.items()},
                 "examples/torch_serve_batched.py":
                     ex["serve_batched"]["launches"]["flash_attention"]}
     kernels = [{
@@ -3372,7 +3610,7 @@ def main() -> int:
         "launches_by_variant": static["launches_by_variant"],
         "max_abs_err": max(*fa_err.values(),
                            *(e for r in fa_rows + moe_rows["flash_attention"]
-                             + zamba_fa_rows
+                             + zamba_fa_rows + mm_fa_rows
                              for e in r["max_abs_err_by_variant"].values()),
                            ex["held"]["flash_attention"]["max_abs_err"]),
         "max_abs_err_by_variant": {v: max(fa_err[v], *(
@@ -3384,9 +3622,11 @@ def main() -> int:
         "library_ms": fa_rows[0]["library_ms"],
         "cases_within_tol": {
             v: n_fa_cases[v] + len(fa_rows) + len(moe_rows["flash_attention"])
-            + sum(v in r["max_abs_err_by_variant"] for r in zamba_fa_rows)
+            + sum(v in r["max_abs_err_by_variant"]
+                  for r in zamba_fa_rows + mm_fa_rows)
             for v in FA_VARIANTS},
-        "shapes": fa_rows + moe_rows["flash_attention"] + zamba_fa_rows,
+        "shapes": fa_rows + moe_rows["flash_attention"] + zamba_fa_rows
+        + mm_fa_rows,
     }]
     log(json.dumps({"kernels": kernels,
                     "drain": {"tok_s": full["tok_s"],
@@ -3397,6 +3637,8 @@ def main() -> int:
                     "mixed_drain": mixed, "qwen2_moe_a2_7b": moe,
                     "rwkv6_3b": rwkv, "zamba2_7b": zamba,
                     "train": train, "arithmetic": arith,
+                    "multimodal": multimodal,
+                    "recurrent_train": recurrent_train,
                     "phase_s": phases.seconds}))
     log(card)
     log(json.dumps({"ok": True, "device": {

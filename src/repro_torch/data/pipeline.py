@@ -14,8 +14,10 @@ Two generators:
     modular addition) for the accuracy ladder of Table IV
     (`benchmarks/torch_table4_accuracy.py`).
 
-Text only: the reference's audio token shape and vlm prefix embeddings
-wait for the multimodal slice (ROADMAP Queue 1 item 7).
+Every modality: audio tokens are (rows, S, C), their labels shifted on
+the S axis, and a vlm batch carries the stub image prefix
+`prefix_embeds` (`models/frontend.py`) from the second key of the
+batch's split, the reference's bit for bit.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.device import resolve_device
+from repro_torch.models import frontend
 from repro_torch.models.config import ModelConfig
 
 
@@ -60,22 +63,25 @@ def _zipf_tokens(key: torch.Tensor, shape: tuple[int, ...],
 def make_batch(cfg: ModelConfig, dcfg: DataConfig, step: int,
                device="cuda") -> dict:
     """Batch t as a pure function of (seed, step, host): {"tokens",
-    "labels"}, (global_batch / n_hosts, seq_len) int32 on `device`."""
-    if cfg.modality != "text":
-        raise NotImplementedError(
-            f"modality {cfg.modality!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 7, multimodal static paths)")
+    "labels"}, (global_batch / n_hosts, seq_len) int32 [audio: (...,
+    n_codebooks)] on `device`, and a vlm batch's "prefix_embeds"
+    (rows, 256, d) in the compute dtype."""
     dev = resolve_device(device)
     key = prng.fold_in(prng.fold_in(prng.PRNGKey(dcfg.seed, dev), step),
                        dcfg.host_id)
     rows = dcfg.global_batch // dcfg.n_hosts
-    kt, _ = prng.split(key).unbind(-2)
-    tokens = _zipf_tokens(kt, (rows, dcfg.seq_len), cfg.vocab_size)
-    return {"tokens": tokens, "labels": _shift_labels(tokens)}
+    kt, kp = prng.split(key).unbind(-2)
+    shape = frontend.token_shape(cfg, rows, dcfg.seq_len)
+    tokens = _zipf_tokens(kt, shape, cfg.vocab_size)
+    batch = {"tokens": tokens, "labels": _shift_labels(tokens)}
+    if cfg.modality == "vlm":
+        batch["prefix_embeds"] = frontend.synth_prefix_embeds(kp, cfg, rows)
+    return batch
 
 
 def _shift_labels(tokens: torch.Tensor) -> torch.Tensor:
-    """Next-token labels (last position predicts a pad 0)."""
+    """Next-token labels on the S axis (last position predicts a pad
+    0)."""
     return torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
                      dim=1)
 

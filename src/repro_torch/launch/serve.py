@@ -32,8 +32,13 @@ It prints the same summary lines as `repro.launch.serve`. Weights are
 random, drawn from `--seed` with a torch generator on `--device`
 (default cuda), and so are the static prompts (from `--seed` + 1, as
 the reference draws them with jax.random): the port's tokens differ
-from the reference's for the same seed. The dense, MoE, rwkv6 and
-zamba2 families run; the multimodal ones are not ported yet.
+from the reference's for the same seed. Every family runs. The
+multimodal configs (musicgen_large, audio; internvl2_1b, vlm) serve
+through `--mode static` only, as in the reference, whose engine
+refuses them: audio prompts and generated tokens carry a codebook
+axis, and a vlm batch is prefilled after a stub image prefix of 256
+embeddings drawn from `--seed` + 2 through `prng`, the reference's
+prefix bit for bit (`models/frontend.py`).
 
 Wall-clock use here is intentional: the CLI reports real prefill,
 decode and drain seconds next to the virtual-clock metrics.
@@ -45,10 +50,11 @@ import time
 
 import torch
 
-from repro_torch import configs
+from repro_torch import configs, prng
 from repro_torch.core.policy import ArithmeticPolicy
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as stepslib
+from repro_torch.models import frontend
 from repro_torch.models import model as modellib
 from repro_torch.serve import (EngineConfig, ServeEngine, TrafficConfig,
                                export_chrome_trace, synth_trace)
@@ -67,7 +73,8 @@ def serve(arch: str = "qwen3_8b", smoke: bool = True, batch: int = 4,
     """Static-batch serving: one prefill, lockstep greedy decode. The
     first decode step takes the prefill's argmax token; "generated"
     holds the gen_len tokens the decode steps sample, as the
-    reference's. The f32 dense cache is updated in place. Given
+    reference's: (B, gen_len) [audio: (B, gen_len, C)]. The f32 dense
+    cache holds the vlm prefix too, and is updated in place. Given
     `params`, the model serves under the config it was built with
     (`params.cfg`), and `arch`/`smoke` are not read."""
     dev = resolve_device(device)
@@ -81,14 +88,20 @@ def serve(arch: str = "qwen3_8b", smoke: bool = True, batch: int = 4,
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 1)
-    tokens = torch.randint(2, cfg.vocab_size, (batch, prompt_len),
+    tokens = torch.randint(2, cfg.vocab_size,
+                           frontend.token_shape(cfg, batch, prompt_len),
                            generator=gen, device=dev, dtype=torch.int32)
-    cache = modellib.init_cache(cfg, batch, prompt_len + gen_len,
-                                dtype=torch.float32, device=dev)
+    max_len = prompt_len + gen_len + frontend.n_prefix_tokens(cfg)
+    cache = modellib.init_cache(cfg, batch, max_len, dtype=torch.float32,
+                                device=dev)
+    bt = {"tokens": tokens}
+    if cfg.modality == "vlm":
+        bt["prefix_embeds"] = frontend.synth_prefix_embeds(
+            prng.PRNGKey(seed + 2, dev), cfg, batch)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": tokens}, cache)
+    logits, cache = prefill(params, bt, cache)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -96,6 +109,7 @@ def serve(arch: str = "qwen3_8b", smoke: bool = True, batch: int = 4,
     nxt = stepslib.greedy_sample(logits)
     t0 = time.perf_counter()
     for _ in range(gen_len):
+        # (B,) -> (B, 1); audio's (B, C) -> (B, 1, C) the same way
         logits, cache = decode(params, nxt[:, None], cache)
         nxt = stepslib.greedy_sample(logits)
         out_tokens.append(nxt)
@@ -105,6 +119,7 @@ def serve(arch: str = "qwen3_8b", smoke: bool = True, batch: int = 4,
     return {
         "generated": torch.stack(out_tokens, dim=1),
         "prompt": tokens,
+        "prefix_embeds": bt.get("prefix_embeds"),
         "prefill_s": t_prefill,
         "decode_s": t_decode,
         "decode_tok_per_s": batch * gen_len / max(t_decode, 1e-9),

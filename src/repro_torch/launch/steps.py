@@ -22,18 +22,31 @@ from repro_torch.optim import OptimizerConfig, adamw_update
 TRAIN_ATTN_IMPL = "gather"
 
 
+def _model_inputs(batch: dict) -> dict:
+    """The forward's inputs of a batch: its tokens, and the vlm
+    prefix embeddings where it has them."""
+    inputs = {"tokens": batch["tokens"]}
+    if "prefix_embeds" in batch:
+        inputs["prefix_embeds"] = batch["prefix_embeds"]
+    return inputs
+
+
 def loss_and_grads(model, cfg: ModelConfig, batch: dict,
                    policy: ArithmeticPolicy = ArithmeticPolicy(),
                    remat: bool = True):
     """The train step's forward and backward: (loss, aux, grads by
     parameter name). The objective is `lm_loss + aux`, aux the MoE
-    load-balance loss (0 for the dense family); under a quantized
-    policy the gradients are the straight-through estimator's."""
+    load-balance loss (0 for the other families); under a quantized
+    policy the gradients are the straight-through estimator's. A vlm
+    batch's `prefix_embeds` go before its tokens, and only the token
+    positions' logits enter the loss."""
     model.zero_grad(set_to_none=True)
     with torch.enable_grad():
         logits, aux, _ = modellib.apply(
-            model, cfg, {"tokens": batch["tokens"]}, policy=policy,
+            model, cfg, _model_inputs(batch), policy=policy,
             attn_impl=TRAIN_ATTN_IMPL, remat=remat)
+        if "prefix_embeds" in batch:
+            logits = logits[:, -batch["tokens"].shape[1]:]
         loss = modellib.lm_loss(logits, batch["labels"])
         (loss + aux).backward()
     grads = {name: p.grad for name, p in model.named_parameters()}
@@ -63,14 +76,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
 def make_prefill_step(cfg: ModelConfig,
                       policy: ArithmeticPolicy = ArithmeticPolicy(),
                       attn_impl: str | None = None):
-    """(model, batch, cache) -> (last_logits (B, V), cache). Writes the
-    prompt into the cache and returns the next-token logits."""
+    """(model, batch, cache) -> (last_logits (B, V) [audio: (B, C, V)],
+    cache). Writes the prompt (after a vlm batch's `prefix_embeds`)
+    into the cache and returns the next-token logits."""
     L.resolve_attn_impl(attn_impl, policy)
 
     @torch.no_grad()
     def prefill_step(model, batch, cache):
         logits, _, new_cache = modellib.apply(
-            model, cfg, {"tokens": batch["tokens"]}, policy=policy,
+            model, cfg, _model_inputs(batch), policy=policy,
             cache=cache, attn_impl=attn_impl)
         return logits[:, -1], new_cache
 
@@ -80,8 +94,9 @@ def make_prefill_step(cfg: ModelConfig,
 def make_decode_step(cfg: ModelConfig,
                      policy: ArithmeticPolicy = ArithmeticPolicy(),
                      attn_impl: str | None = None):
-    """(model, tokens (B, 1), cache) -> (logits (B, V), cache): ONE new
-    token against the populated KV cache."""
+    """(model, tokens (B, 1) [audio: (B, 1, C)], cache) -> (logits (B,
+    V) [audio: (B, C, V)], cache): ONE new token against the populated
+    KV cache."""
     L.resolve_attn_impl(attn_impl, policy)
 
     @torch.no_grad()
@@ -95,4 +110,6 @@ def make_decode_step(cfg: ModelConfig,
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
+    """The argmax over the last (vocab) axis: (B, V) -> (B,), audio's
+    (B, C, V) -> (B, C)."""
     return torch.argmax(logits, dim=-1).to(torch.int32)

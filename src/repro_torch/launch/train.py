@@ -3,12 +3,13 @@
 cosine schedule, checkpoint and restart, the straggler monitor.
 
 `python -m repro_torch.launch.train` trains the smoke config of
-`--arch` (a transformer family: dense or MoE) for `--steps` steps on
-`--device` (default cuda) under `--policy`; `--full` takes the full
-config, which needs the card (full qwen3_8b, 36 layers with f32 weights
-and AdamW state, needs more than one). Weights are random, drawn from
-seed 0 with a torch generator, so losses differ from the reference's
-for the same flags.
+`--arch` (any family: dense, MoE, the multimodal musicgen_large and
+internvl2_1b, the recurrent rwkv6_3b and zamba2_7b) for `--steps` steps
+on `--device` (default cuda) under `--policy`; `--full` takes the full
+config, which needs the card (f32 weights, gradients and AdamW state
+take 16 B a parameter: full qwen3_8b and zamba2_7b need more than one).
+Weights are random, drawn from seed 0 with a torch generator, so losses
+differ from the reference's for the same flags.
 
 Fault tolerance:
   * auto-resume from the newest valid checkpoint in `--ckpt-dir`

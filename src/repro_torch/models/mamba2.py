@@ -14,7 +14,9 @@ state is f32.
 Storage: the projections are stored in the compute dtype (the
 reference casts them on use); `conv_w`, `conv_b`, `A_log`, `dt_bias`
 and `D` keep the parameter dtype, as the reference reads them: the
-conv's products promote the compute-dtype activations to it.
+conv's products promote the compute-dtype activations to it. A
+training model stores the projections in the parameter dtype too
+(`zamba2.Zamba2(train=True)`); `mamba2_layer` casts them on use.
 """
 from __future__ import annotations
 

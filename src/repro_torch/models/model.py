@@ -7,13 +7,12 @@
   init_cache(cfg, batch, max_len, ...)     -> the decode carry
   lm_loss(logits, labels, mask)            -> mean token cross-entropy
 
-dense and MoE (`models/transformer.py`, `models/moe.py`), rwkv6
+dense and MoE (`models/transformer.py`, `models/moe.py`; the
+multimodal configs, audio and vlm, run the dense backbone with the
+input and output plumbing of `models/frontend.py`), rwkv6
 (`models/rwkv6.py`) and zamba2 (`models/zamba2.py`, over
-`models/mamba2.py`) are ported; the multimodal configs raise
-NotImplementedError naming their ROADMAP item. `train=True` builds a
-trainable model (f32 master weights, gradients on), for the dense and
-MoE families only: training the recurrent families waits for ROADMAP
-Queue 1 item 10.
+`models/mamba2.py`). `train=True` builds a trainable model of any
+family (f32 master weights, gradients on).
 """
 from __future__ import annotations
 
@@ -29,34 +28,15 @@ _CLASS = {"dense": transformer.Transformer, "moe": transformer.Transformer,
           "rwkv6": rwkv6.RWKV6, "zamba2": zamba2.Zamba2}
 
 
-def _mod(cfg: ModelConfig):
-    if cfg.modality != "text":
-        raise NotImplementedError(
-            f"modality {cfg.modality!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 7, multimodal static paths)")
-    return _FAMILY[cfg.family]
-
-
-def _train_kw(cfg: ModelConfig, train: bool) -> dict:
-    if not train:
-        return {}
-    if _mod(cfg) is not transformer:
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP Queue 1 item 10, recurrent training)")
-    return {"train": True}
-
-
 def empty(cfg: ModelConfig, device="cuda", train: bool = False):
     """The family's model with zeroed weights (`repro_torch.bridge`
     fills it)."""
-    kw = _train_kw(cfg, train)
-    return _CLASS[cfg.family](cfg, device=device, **kw)
+    return _CLASS[cfg.family](cfg, device=device, train=train)
 
 
 def init(cfg: ModelConfig, seed: int = 0, device="cuda", train: bool = False):
-    kw = _train_kw(cfg, train)
-    return _mod(cfg).init(cfg, seed=seed, device=device, **kw)
+    return _FAMILY[cfg.family].init(cfg, seed=seed, device=device,
+                                    train=train)
 
 
 def apply(model, cfg: ModelConfig, inputs: dict, *,
@@ -64,10 +44,11 @@ def apply(model, cfg: ModelConfig, inputs: dict, *,
           cache: dict | None = None, attn_impl: str | None = None,
           remat: bool = False):
     """The family's forward: (logits, aux, new_cache). `remat` (the
-    train step's) is the transformer's; the other families take none."""
-    kw = {"remat": remat} if remat else {}
-    return _mod(cfg).apply(model, cfg, inputs, policy=policy, cache=cache,
-                           attn_impl=attn_impl, **kw)
+    train step's) recomputes each layer in the backward pass: the
+    transformer's and rwkv6's layers, zamba2's Mamba2 layers."""
+    return _FAMILY[cfg.family].apply(model, cfg, inputs, policy=policy,
+                                     cache=cache, attn_impl=attn_impl,
+                                     remat=remat)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -76,8 +57,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     the reference's."""
     if cfg.family == "rwkv6":
         dtype = torch.float32
-    return _mod(cfg).init_cache(cfg, batch, max_len, dtype=dtype,
-                                device=device)
+    return _FAMILY[cfg.family].init_cache(cfg, batch, max_len, dtype=dtype,
+                                          device=device)
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor,

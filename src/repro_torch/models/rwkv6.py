@@ -18,7 +18,18 @@ The module holds the reference's tree (`layers` stacked on L there, a
 `ModuleList` here). Storage: what the reference casts to the compute
 dtype on use (the projections, the token-shift mixes, the LoRA
 matrices, the embedding and head) is stored cast once; what it reads
-in f32 (the LayerNorms, `td_base`, `td_w2`, `u`) stays in f32.
+in f32 (the LayerNorms, `td_base`, `td_w2`, `u`) stays in f32. A
+training model (`train=True`) keeps every weight in `param_dtype` (f32
+master weights) with gradients on, and each use casts where the
+reference casts. `apply(remat=True)` recomputes each layer in the
+backward pass (`torch.utils.checkpoint`, the reference's
+`jax.checkpoint` of its scan body).
+
+The clips are written `minimum(maximum(x, lo), hi)`, as `jnp.clip`
+is: the same values as `torch.clamp`, and jax's gradient, which
+splits 1/2 and 1/2 where x equals a bound (`torch.clamp` passes all of
+it). In the chunk's kept sub-diagonal the wkv exponent is often
+exactly 0, the clip's upper bound.
 
 Decode cache: {"layers": {"x_tm", "x_cm": (L, B, d), "wkv": (L, B, H,
 N, N)}, "index"}, always f32 (`repro.models.model.init_cache`), its
@@ -31,6 +42,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.policy import ArithmeticPolicy
 from repro_torch.device import resolve_device
@@ -40,6 +52,14 @@ from repro_torch.models.transformer import Transformer, torch_dtype
 
 LORA_MIX = 32     # ddlerp rank
 LORA_DECAY = 64   # decay lora rank
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """`jnp.clip`: min(max(x, lo), hi), with its gradient at the
+    bounds (module docstring)."""
+    lo_t = torch.full((), lo, dtype=x.dtype, device=x.device)
+    hi_t = torch.full((), hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo_t), hi_t)
 
 
 class LayerNorm(nn.Module):
@@ -91,13 +111,14 @@ class Block(nn.Module):
 
 class RWKV6(nn.Module):
     """The model's weights: embed, ln0, layers, final_norm, head. Build
-    it empty and fill it with `init` or `repro_torch.bridge`."""
+    it empty and fill it with `init` or `repro_torch.bridge`. `train`
+    stores every weight in `param_dtype` with gradients on."""
 
     embed_tokens = Transformer.embed_tokens
     logits = Transformer.logits
     device = Transformer.device
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", train: bool = False):
         super().__init__()
         if cfg.family != "rwkv6":
             raise ValueError(f"RWKV6 holds the rwkv6 family, got "
@@ -105,7 +126,7 @@ class RWKV6(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         self.compute_dtype = torch_dtype(cfg.compute_dtype)
-        dt = self.compute_dtype
+        dt = torch_dtype(cfg.param_dtype) if train else self.compute_dtype
         v, d = cfg.padded_vocab, cfg.d_model
         self.embed = L.param((v, d), dt, device)
         self.ln0 = LayerNorm(d, device)
@@ -113,6 +134,7 @@ class RWKV6(nn.Module):
             Block(cfg, dt, device) for _ in range(cfg.n_layers))
         self.final_norm = LayerNorm(d, device)
         self.head = None if cfg.tie_embeddings else L.param((d, v), dt, device)
+        self.requires_grad_(train)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "RWKV6":
@@ -144,8 +166,9 @@ class RWKV6(nn.Module):
         return self
 
 
-def init(cfg: ModelConfig, seed: int = 0, device="cuda") -> RWKV6:
-    model = RWKV6(cfg, device=device)
+def init(cfg: ModelConfig, seed: int = 0, device="cuda",
+         train: bool = False) -> RWKV6:
+    model = RWKV6(cfg, device=device, train=train)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(seed)
     return model.init(gen)
@@ -195,7 +218,7 @@ def _wkv_chunked(r, k, v, log_w, u, s0, chunk: int):
         rc, kc, vc, lcc, lxc = (a[:, c] for a in (r, k, v, lc, lx))
         # bonus (current token)
         # intra: A[t,m] = sum_i r_t k_m exp(lx_t - lc_m), m < t
-        dec = torch.exp(torch.clamp(
+        dec = torch.exp(clip(
             lxc[:, :, None, :, :] - lcc[:, None, :, :, :], -60.0, 0.0))
         amat = torch.einsum("btmhn,bmhn->bhtm", rc[:, :, None] * dec, kc)
         amat = torch.where(strict[None, None], amat,
@@ -250,7 +273,7 @@ def rwkv6_layer(p: Block, x: torch.Tensor, cfg: ModelConfig,
     mw, mk, mv, mr, mg = mixes.unbind(2)
 
     dd = torch.tanh(L.mm(mw, p.td_w1, policy)).float()
-    log_w = -torch.exp(torch.clamp(
+    log_w = -torch.exp(clip(
         p.td_base.float()[None, None] + torch.matmul(dd, p.td_w2.float()),
         -8.0, 6.0))
 
@@ -297,20 +320,28 @@ def rwkv6_layer(p: Block, x: torch.Tensor, cfg: ModelConfig,
 
 def apply(model: RWKV6, cfg: ModelConfig, inputs: dict, *,
           policy: ArithmeticPolicy = ArithmeticPolicy(),
-          cache: dict | None = None, attn_impl: str | None = None):
+          cache: dict | None = None, attn_impl: str | None = None,
+          remat: bool = False):
     """Returns (logits, aux (= 0), new_cache). The family has no
     attention, so `attn_impl` is not read. The cache's state tensors
-    are updated IN PLACE and returned with index + S."""
+    are updated IN PLACE and returned with index + S. `remat`
+    recomputes each layer in the backward pass; without a cache only,
+    and only while autograd records."""
     x = model.embed_tokens(inputs["tokens"])
     x = layernorm(model.ln0, x)
     s = x.shape[1]
     if cache is not None and isinstance(cache["index"], torch.Tensor):
         policy = L.per_lane(policy)
+    remat = remat and cache is None and torch.is_grad_enabled()
     for li, lp in enumerate(model.layers):
         st = None
         if cache is not None:
             st = {k: a[li] for k, a in cache["layers"].items()}
-        x, new_st = rwkv6_layer(lp, x, cfg, policy, st)
+        if remat:
+            x, new_st = checkpoint(rwkv6_layer, lp, x, cfg, policy,
+                                   use_reentrant=False)
+        else:
+            x, new_st = rwkv6_layer(lp, x, cfg, policy, st)
         if cache is not None:
             for k, a in new_st.items():
                 st[k].copy_(a)

@@ -6,12 +6,12 @@ stacked leading L axis of `params["layers"]` unstacked into a
 `ModuleList` of blocks (the reference's `lax.scan` over layers becomes
 a Python loop):
 
-  embed       (V, d)
+  embed       (V, d)            audio: (C, V, d), one per codebook
   layers[i]   ln1.scale, attn.{wq,wk,wv,wo,q_norm,k_norm}, ln2.scale,
               and ffn.{w_up,w_gate,w_down} (dense) or
               moe.{router, experts.*, shared.*} (MoE; `models/moe.py`)
   final_norm  scale (d,)
-  head        (d, V); absent if tied
+  head        (d, V)            audio: (C, d, V); absent if tied
 
 Storage dtypes: the reference casts every matrix that reaches `mm`,
 the embedding and the head to the compute dtype on every call
@@ -22,7 +22,16 @@ reference's `param_dtype` (f32 master weights) with gradients on, and
 each use casts where the reference casts: `layers.mm` the matrices,
 `embed_tokens` after the gather, `logits` the head. The norm scales and
 the MoE router stay f32 in both: the reference reads them as f32,
-never in the compute dtype.
+never in the compute dtype. Audio's embedding is the exception: the
+reference gathers its C codebook rows from the f32 table and sums them
+in f32 before the cast, and a cast does not commute with a sum, so
+every audio model keeps `embed` in `param_dtype`.
+
+Modalities: audio tokens are (B, S, C), C = `n_codebooks`; their
+embeddings are summed and the head predicts every codebook, logits (B,
+S, C, V). A vlm forward takes `inputs["prefix_embeds"]` (B, P, d)
+(`models/frontend.py`), put before the token embeddings: positions
+and the cache run over P + S.
 
 KV cache layout (decode): {"k"/"v": (L, B, Smax, KV, Dh), "index": int}.
 `apply` is the single forward entry point, as in the reference: no
@@ -125,19 +134,14 @@ class Transformer(nn.Module):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet "
                 f"(ported: {FAMILIES})")
-        if cfg.modality != "text":
-            raise NotImplementedError(
-                f"modality {cfg.modality!r} is not ported yet (text only)")
         device = resolve_device(device)
         self.cfg = cfg
         self.compute_dtype = torch_dtype(cfg.compute_dtype)
         dt = torch_dtype(cfg.param_dtype) if train else self.compute_dtype
-        v, d = cfg.padded_vocab, cfg.d_model
-        self.embed = L.param((v, d), dt, device)
+        self.embed, self.head = vocab_params(cfg, dt, device)
         self.layers = nn.ModuleList(
             Block(cfg, dt, device) for _ in range(cfg.n_layers))
-        self.final_norm = RMSNorm(d, device)
-        self.head = None if cfg.tie_embeddings else L.param((d, v), dt, device)
+        self.final_norm = RMSNorm(cfg.d_model, device)
         self.requires_grad_(train)
 
     @property
@@ -161,7 +165,9 @@ class Transformer(nn.Module):
             w.copy_(L.dense_init(generator, d_in, d_out, dev, pdt,
                                  lead=tuple(lead)))
 
-        self.embed.copy_(L.embed_init(generator, *self.embed.shape, dev, pdt))
+        v, d = self.embed.shape[-2:]
+        for table in self.embed.view(-1, v, d):    # one per codebook
+            table.copy_(L.embed_init(generator, v, d, dev, pdt))
         for blk in self.layers:
             for name in ("wq", "wk", "wv", "wo"):
                 dense(getattr(blk.attn, name))
@@ -180,19 +186,45 @@ class Transformer(nn.Module):
         return self
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        """`transformer._embed_tokens` for text: (B, S) -> (B, S, d) in
-        the compute dtype, cast after the gather as the reference casts."""
-        x = F.embedding(tokens, self.embed).to(self.compute_dtype)
+        """`transformer._embed_tokens`: (B, S) [audio: (B, S, C)] ->
+        (B, S, d) in the compute dtype, cast after the gather (audio:
+        after the f32 sum over codebooks) as the reference casts."""
+        if self.cfg.modality == "audio":
+            x = sum(F.embedding(tokens[..., c], self.embed[c])
+                    for c in range(self.embed.shape[0]))
+        else:
+            x = F.embedding(tokens, self.embed)
+        x = x.to(self.compute_dtype)
         if self.cfg.scale_embeddings:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
                                  device=x.device)
         return x
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        """`transformer._logits` for text: (B, S, d) -> (B, S, V)."""
+        """`transformer._logits`: (B, S, d) -> (B, S, V) [audio: (B, S,
+        C, V)]."""
+        audio = self.cfg.modality == "audio"
         if self.head is None:
-            return torch.matmul(x, self.embed.to(x.dtype).T)
+            w = self.embed.to(x.dtype)
+            if audio:
+                return torch.einsum("bsd,cvd->bscv", x, w)
+            return torch.matmul(x, w.T)
+        if audio:
+            return torch.einsum("bsd,cdv->bscv", x, self.head.to(x.dtype))
         return torch.matmul(x, self.head.to(x.dtype))
+
+
+def vocab_params(cfg: ModelConfig, dtype, device):
+    """(embed, head or None) of the config, zeroed: audio draws one
+    table and one head per codebook and keeps its table in
+    `param_dtype` (module docstring)."""
+    v, d = cfg.padded_vocab, cfg.d_model
+    lead = (cfg.n_codebooks,) if cfg.modality == "audio" else ()
+    edt = torch_dtype(cfg.param_dtype) if lead else dtype
+    embed = L.param(lead + (v, d), edt, device)
+    head = None if cfg.tie_embeddings else L.param(lead + (d, v), dtype,
+                                                   device)
+    return embed, head
 
 
 def init(cfg: ModelConfig, seed: int = 0, device="cuda",
@@ -242,7 +274,8 @@ def apply(model: Transformer, cfg: ModelConfig, inputs: dict, *,
           remat: bool = False):
     """Forward pass (counterpart of `repro.models.transformer.apply`).
 
-    inputs: {"tokens": (B, S) int, optional "positions": (B, S) int}.
+    inputs: {"tokens": (B, S) int [audio: (B, S, C)], optional
+    "prefix_embeds": (B, P, d) (vlm), optional "positions": (B, S) int}.
     attn_impl: see `layers.resolve_attn_impl` ("flash", the kernel, for
     the exact policy by default); explicit positions need "gather",
     because the kernel's mask assumes contiguous ones.
@@ -250,7 +283,8 @@ def apply(model: Transformer, cfg: ModelConfig, inputs: dict, *,
     its activations (`torch.utils.checkpoint`, the reference's
     `jax.checkpoint` of its scan body); without a cache only, and only
     while autograd records.
-    Returns (logits (B, S, V), aux_loss (the sum of the MoE layers'
+    Returns (logits (B, S, V) [audio: (B, S, C, V); vlm: S counts the
+    prefix], aux_loss (the sum of the MoE layers'
     load-balance losses; 0 for the dense family), new_cache). The
     cache's K/V tensors are updated IN PLACE, layer by layer, and
     returned in new_cache with index + S.
@@ -263,6 +297,9 @@ def apply(model: Transformer, cfg: ModelConfig, inputs: dict, *,
             "+ arange(S)); explicit inputs['positions'] need "
             "attn_impl='gather'")
     x = model.embed_tokens(inputs["tokens"])
+    prefix = inputs.get("prefix_embeds")
+    if prefix is not None:
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     index = cache["index"] if cache is not None else 0
     if positions is None:

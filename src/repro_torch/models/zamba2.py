@@ -28,11 +28,20 @@ token a lane, each lane at its own positions, ring slot
 own activation scales (`layers` module docstring).
 
 The shared block's attention core is chosen by `shared_attn_impl`.
+
+A training model (`train=True`) keeps every weight in `param_dtype`
+(f32 master weights) with gradients on; the shared block is one set of
+parameters used by every invocation, so its gradients sum over them,
+as `jax.grad`'s do. `apply(remat=True)` recomputes each Mamba2 layer
+(with its residual add) in the backward pass, as the reference's
+`jax.checkpoint(mamba_body)` does; the shared block keeps its
+activations there as here.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.policy import ArithmeticPolicy
 from repro_torch.device import resolve_device
@@ -70,13 +79,14 @@ class SharedBlock(nn.Module):
 class Zamba2(nn.Module):
     """The model's weights: embed, layers (Mamba2), shared (the
     transformer block), final_norm, head. Build it empty and fill it
-    with `init` or `repro_torch.bridge`."""
+    with `init` or `repro_torch.bridge`. `train` stores every weight in
+    `param_dtype` with gradients on."""
 
     embed_tokens = Transformer.embed_tokens
     logits = Transformer.logits
     device = Transformer.device
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", train: bool = False):
         super().__init__()
         if cfg.family != "zamba2":
             raise ValueError(f"Zamba2 holds the zamba2 family, got "
@@ -84,7 +94,7 @@ class Zamba2(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         self.compute_dtype = torch_dtype(cfg.compute_dtype)
-        dt = self.compute_dtype
+        dt = torch_dtype(cfg.param_dtype) if train else self.compute_dtype
         v, d = cfg.padded_vocab, cfg.d_model
         self.embed = L.param((v, d), dt, device)
         self.layers = nn.ModuleList(
@@ -92,6 +102,7 @@ class Zamba2(nn.Module):
         self.shared = SharedBlock(cfg, dt, device)
         self.final_norm = RMSNorm(d, device)
         self.head = None if cfg.tie_embeddings else L.param((d, v), dt, device)
+        self.requires_grad_(train)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Zamba2":
@@ -118,8 +129,9 @@ class Zamba2(nn.Module):
         return self
 
 
-def init(cfg: ModelConfig, seed: int = 0, device="cuda") -> Zamba2:
-    model = Zamba2(cfg, device=device)
+def init(cfg: ModelConfig, seed: int = 0, device="cuda",
+         train: bool = False) -> Zamba2:
+    model = Zamba2(cfg, device=device, train=train)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(seed)
     return model.init(gen)
@@ -185,12 +197,21 @@ def _shared_block(sp: SharedBlock, x, cfg, policy, positions, kv_positions,
     return x + f, new_kv
 
 
+def _mamba_residual(lp: M2.Mamba2Layer, x, cfg, policy):
+    """x plus a Mamba2 layer's output, without a cache: the unit that
+    `remat` recomputes (the reference's `mamba_body`)."""
+    return x + M2.mamba2_layer(lp, x, cfg, policy)[0]
+
+
 def apply(model: Zamba2, cfg: ModelConfig, inputs: dict, *,
           policy: ArithmeticPolicy = ArithmeticPolicy(),
-          cache: dict | None = None, attn_impl: str | None = None):
+          cache: dict | None = None, attn_impl: str | None = None,
+          remat: bool = False):
     """Returns (logits, aux (= 0), new_cache). inputs: {"tokens": (B,
     S), optional "positions": (B, S)}. The cache's states, rings and
-    `attn_pos` are updated IN PLACE and returned with index + S."""
+    `attn_pos` are updated IN PLACE and returned with index + S.
+    `remat` recomputes each Mamba2 layer in the backward pass; without
+    a cache only, and only while autograd records."""
     x = model.embed_tokens(inputs["tokens"])
     b, s, _ = x.shape
     dev = x.device
@@ -233,8 +254,12 @@ def apply(model: Zamba2, cfg: ModelConfig, inputs: dict, *,
         kv_positions = None
     if lanes:
         policy = L.per_lane(policy)
+    remat = remat and cache is None and torch.is_grad_enabled()
 
     def mamba(li, x):
+        if remat:
+            return checkpoint(_mamba_residual, model.layers[li], x, cfg,
+                              policy, use_reentrant=False)
         st = None
         if cache is not None:
             st = {k: a[li] for k, a in cache["mamba"].items()}

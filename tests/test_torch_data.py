@@ -131,13 +131,6 @@ def test_synthetic_tasks_equal_reference(task):
             assert got_m.dtype == torch.float32
 
 
-def test_multimodal_configs_raise():
-    cfg = configs.get_config("internvl2_1b", smoke=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_batch(cfg, DataConfig(seq_len=8, global_batch=2), 0,
-                   device="cpu")
-
-
 def test_batch_iterator_resumes_at_any_step():
     cfg = configs.get_config("qwen3_8b", smoke=True)
     dcfg = DataConfig(seed=3, seq_len=8, global_batch=2)

@@ -400,11 +400,3 @@ def test_flash_with_explicit_positions_raises():
 def test_unknown_attn_impl_raises():
     with pytest.raises(ValueError, match="attn_impl must be one of"):
         TL.resolve_attn_impl("fused", TPolicy())
-
-
-@pytest.mark.parametrize("arch,item", [("musicgen_large", "item 7"),
-                                       ("internvl2_1b", "item 7")])
-def test_model_factory_names_the_roadmap_item(arch, item):
-    cfg = tconfigs.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match=item):
-        tmodel.init_cache(cfg, 1, 4, device="cpu")
