@@ -174,9 +174,32 @@ without printing a result:
      forward and recompute, and 7 x 4 of the shared block, which is not
      recomputed: 136); the card against the CPU through 2 (rwkv6) and 7
      layers (zamba2: one shared invocation and a 1-layer tail);
+ 30. tensor-parallel serving (`EngineConfig(mesh_shards=2)`, the
+     sharded paged backend) over 2 ranks spawned by `launch.mesh.spawn`
+     that share the one card over gloo (NCCL refuses two ranks on one
+     device; CUDA tensors staged through pinned host memory), each
+     drawing its part of the seeded weights leaf by leaf: full-width
+     qwen3_8b (8 KV heads, 4 a rank) drains workload 1 exact (tok/s,
+     wall, each rank's peak GiB) and a short int8 trace (4 requests, 8
+     new tokens) whose tokens must equal the single-device int8
+     drain's, run just before in this process, or part only at a
+     printed near tie (the single-device logits' top-2 margin below
+     1e-3 of their scale); each rank's sc_matmul launches 7 x 36 x its
+     forwards, its shapes recorded for phase 16; every rank's tokens
+     equal;
+ 31. through 2 layers at f32, qwen3_8b (heads split) and gemma_2b (one
+     KV head: the dataflow cores, ring prefill and split-KV decode)
+     over 2 ranks token-identical to one device's drain of workload 1;
+     `ring_attention` and `split_kv_attention` at qwen3_8b's prefill
+     chunk and decode shapes within 1e-5 of one device's f32
+     attention, over the 2 ranks and in a one-rank NCCL group; a short
+     exact drain of full-width gemma_2b (18 layers) over 2 ranks;
+ 32. full-width qwen2_moe_a2_7b over 2 ranks (32 of its 64 padded
+     experts and 2 of 4 shared a rank): a short exact drain; through 2
+     layers at f32, token-identical to one device's drain;
  16. (last) sc_matmul against its plain version at every shape phases
-     7, 9, 14, 19, 22, 23, 24, 25 and 26-29 gave it; print the kernels
-     line, the card line, then the result line.
+     7, 9, 14, 19, 22, 23, 24, 25, 26-29 and 30 gave it; print the
+     kernels line, the card line, then the result line.
 Each phase's seconds are logged as it ends. Phase 4 also times each
 kernel at the qwen2_moe_a2_7b shapes (4b), flash_attention at
 zamba2_7b's static shapes (4c) and at musicgen_large's and
@@ -184,6 +207,10 @@ internvl2_1b's (4d: D 64, G 1 and G 7), and phase 3 holds sc_matmul to
 its plain version at the expert products' shapes and flash_attention
 at D 112, G 1 and at D 64, G 1 and G 7 (Sq 1280 = 256 + 1024, 1100,
 8 and 1 over 1312 cache slots).
+
+The ranks of phases 30-32 run this script's `mesh_rank`, which the
+spawned processes import by name; a failing rank fails the phase and
+the script.
 
 Kernels: paged_attention (exact engine path; its rows instance at
 decode, its tensor-core tile instance at a prefill chunk), sc_matmul
@@ -2802,8 +2829,8 @@ def first_quantized_activations(into: list, first: int = TIE_PRODUCTS):
     am = importlib.import_module("repro_torch.core.artemis_matmul")
     real = am._quantize_pair
 
-    def recording(a, b, policy):
-        out = real(a, b, policy)
+    def recording(a, b, policy, b_absmax=None):
+        out = real(a, b, policy, b_absmax)
         if len(into) < first:
             into.append(((a.detach() / out[2].detach()).float().cpu(),
                          out[0].cpu()))
@@ -3271,6 +3298,305 @@ def examples_on_card(path_sc: set) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 30-32: tensor-parallel serving, 2 ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+MESH_N = 2
+# a token that parts the sharded int8 drain from the single-device one
+# passes only where the single-device logits' top-2 margin is below this
+# share of their largest magnitude (a near tie)
+NEAR_TIE = 1e-3
+# attention of the dataflow cores against one device's, f32
+MESH_ATTN_TOL = 1e-5
+
+
+def mesh_ecfg() -> dict:
+    """Workload 1's engine geometry (`engine_config`), gather core."""
+    return dict(page_size=8, n_pages=512, max_batch=8, max_pages_per_seq=37,
+                prefill_chunk=32)
+
+
+def warm_trace():
+    """One request, a 32-token prompt and 2 new tokens: the warm-up of a
+    rank's first drain (cuBLAS handles, the kernels' libraries)."""
+    import numpy as np
+    from repro_torch.serve import TraceItem
+    return [TraceItem(0.0, np.arange(2, 34, dtype=np.int32), 2)]
+
+
+def mesh_rank(device, jobs: list) -> list:
+    """One rank of phases 30-32 (`launch.mesh.spawn` runs it in each
+    rank; the rank imports this script by name). Each job is a drain
+    over the group: the rank draws its part of `modellib.init(cfg,
+    0)`'s weights leaf by leaf, optionally warms up on a 2-token
+    request, then drains the job's trace, counts zeroed just before
+    and read just after, recording sc_matmul's shapes; or a
+    mesh_cases case as given."""
+    import torch
+    from repro_torch.core.policy import ArithmeticPolicy
+    from repro_torch.launch import mesh_cases
+    out = []
+    for job in jobs:
+        if "case" in job:
+            out.append(mesh_cases.run(device, [job["case"]])[0])
+            continue
+        cfg, policy = job["cfg"], job["policy"]
+        t0 = time.perf_counter()
+        params = mesh_cases.params_for(cfg, ("seed", 0),
+                                       ArithmeticPolicy(mode=policy), device)
+        torch.cuda.synchronize(device)
+        build_s = time.perf_counter() - t0
+        kw = dict(cfg=cfg, weights=("model", params), ecfg=mesh_ecfg(),
+                  policy=policy)
+        if job.get("warm"):
+            mesh_cases.drain(device, trace=warm_trace(), **kw)
+        shapes: set = set()
+        with sc_path_shapes(shapes):
+            run = mesh_cases.drain(device, trace=job["trace"], **kw)
+        run.update(sc_shapes=shapes, build_s=build_s,
+                   n_params=sum(p.numel() for p in params.parameters()))
+        del params, kw
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.append(run)
+    return out
+
+
+def mesh_spawn(jobs: list, n: int = MESH_N) -> list:
+    """Run `jobs` in n ranks on the card; {rank: results}. Raises where a
+    rank failed."""
+    from repro_torch.launch import mesh as meshlib
+    gc.collect()
+    free()
+    log(f"  transport: {meshlib.transport_line(n, 'cuda')}")
+    t0 = time.perf_counter()
+    per_rank = meshlib.spawn(mesh_rank, n, jobs, device="cuda")
+    log(f"  {n} ranks ran {len(jobs)} jobs in "
+        f"{time.perf_counter() - t0:.1f} s (process start included)")
+    return per_rank
+
+
+def single_drain(cfg, trace, policy: str) -> dict:
+    """The same drain on one device, in this process (the reference the
+    ranks are held against)."""
+    from repro_torch.launch import mesh_cases
+    run = mesh_cases.drain("cuda", cfg=cfg, weights=("seed", 0),
+                           trace=trace, ecfg=mesh_ecfg(), policy=policy)
+    gc.collect()
+    free()
+    return run
+
+
+def check_mesh_drain(label: str, runs: list, trace, cfg,
+                     want: dict | None = None) -> dict:
+    """Every rank's drain of `trace`: all requests done with valid tokens,
+    every rank's tokens the same, and equal to `want`'s (a single-device
+    drain) where given. Logs tok/s, wall, forwards and each rank's peak."""
+    r0 = runs[0]
+    for run in runs:
+        if run["tokens"] != r0["tokens"]:
+            raise AssertionError(f"{label}: rank {run['rank']}'s tokens "
+                                 f"differ from rank 0's")
+    if r0["metrics"]["n_done"] != len(trace):
+        raise AssertionError(f"{label}: {r0['metrics']['n_done']} of "
+                             f"{len(trace)} requests done")
+    for rid, item in enumerate(trace):
+        toks = r0["tokens"][rid]
+        if len(toks) != item.max_new_tokens or min(toks) < 0 or \
+                max(toks) >= cfg.padded_vocab:
+            raise AssertionError(f"{label}: request {rid}: bad tokens")
+    n_tok = r0["metrics"]["n_generated_tokens"]
+    wall = max(run["wall_s"] for run in runs)
+    log(f"  {label}: {n_tok} tokens in {wall:.3f} s wall "
+        f"({n_tok / wall:.2f} tok/s; {r0['n_forwards']} forwards, "
+        f"{wall / r0['n_forwards'] * 1e3:.1f} ms each); peak GiB by rank "
+        f"{[round(run.get('peak_gib', 0.0), 2) for run in runs]}; each "
+        f"rank's part "
+        f"drawn in {[round(run['build_s'], 1) for run in runs]} s "
+        f"({r0['n_params'] / 1e9:.3f} B parameters a rank)")
+    out = dict(tok_s=n_tok / wall, wall_s=wall, n_tokens=n_tok,
+               n_forwards=r0["n_forwards"],
+               peak_gib=[run.get("peak_gib") for run in runs],
+               launches=[run["counts"].get("sc_matmul", 0) for run in runs])
+    if want is not None:
+        same = r0["tokens"] == want["tokens"]
+        log(f"  {label}: tokens equal the single-device drain's over "
+            f"{n_tok} tokens? {same}")
+        out.update(equal_single=same)
+        if not same:
+            out.update(parted=parted_at_near_ties(label, r0, want))
+    return out
+
+
+def parted_at_near_ties(label, run, want) -> list:
+    """Where the ranks' tokens part from the single device's: each
+    request's first differing token must be a near tie of the
+    single-device logits (top-2 margin below NEAR_TIE of their scale);
+    what follows it in that request is a different continuation."""
+    parted = []
+    for rid, toks in want["tokens"].items():
+        got = run["tokens"][rid]
+        j = next((i for i, (a, b) in enumerate(zip(toks, got)) if a != b),
+                 None)
+        if j is None:
+            continue
+        margin = want["margins"][rid][j]
+        log(f"  {label}: request {rid} parts at its token {j} "
+            f"({got[j]} vs {toks[j]}); the single-device logits' top-2 "
+            f"margin there {margin:.3e} of their scale")
+        parted.append(dict(request=rid, token=j, margin=margin))
+        if margin >= NEAR_TIE:
+            raise AssertionError(f"{label}: request {rid} parts at token "
+                                 f"{j}, no near tie (margin {margin:.3e})")
+    return parted
+
+
+def mesh_qwen3(cfg, path_sc: set) -> dict:
+    """Phase 30: qwen3_8b at full width over 2 ranks (8 KV heads, 4 a
+    rank: the pool split on heads)."""
+    from repro_torch.launch import mesh as meshlib
+    log(f"  card: {card_line()}")
+    short = short_trace(cfg)
+    single = single_drain(cfg, short, "int8")
+    runs = mesh_spawn([
+        dict(cfg=cfg, policy="exact", trace=smoke_trace(cfg), warm=True),
+        dict(cfg=cfg, policy="int8", trace=short, warm=True)])
+    exact = check_mesh_drain("exact, 8 requests", [r[0] for r in runs],
+                             smoke_trace(cfg), cfg)
+    int8 = check_mesh_drain("int8, 4 requests", [r[1] for r in runs], short,
+                            cfg, want=single)
+    for job, label in ((0, "exact"), (1, "int8")):
+        for rank, per in enumerate(runs):
+            counts = per[job]["counts"]
+            want = 7 * cfg.n_layers * per[job]["n_forwards"] \
+                if label == "int8" else 0
+            log(f"  {label} rank {rank}: sc_matmul launches "
+                f"{counts.get('sc_matmul', 0)} = 7 x {cfg.n_layers} x "
+                f"{per[job]['n_forwards']} forwards? "
+                f"{counts.get('sc_matmul', 0) == want} (want {want}); "
+                f"paged_attention {counts.get('paged_attention', 0)}")
+            if counts.get("sc_matmul", 0) != want or \
+                    counts.get("paged_attention", 0):
+                raise AssertionError(f"{label} rank {rank} launched {counts}")
+            path_sc |= per[job]["sc_shapes"]
+    shard_shapes = sorted({(m, k, n) for per in runs
+                           for m, k, n, _ in per[1]["sc_shapes"]})
+    log(f"  int8 shard shapes (M, K, N): {shard_shapes}")
+    return dict(exact=exact, int8=int8, shard_shapes=shard_shapes,
+                transport=meshlib.transport_line(MESH_N, "cuda"))
+
+
+def attention_inputs(cfg, gen, prefill: bool):
+    """qwen3_8b's dataflow-core shapes on workload 1: a decode (8 lanes,
+    1 query) or a prefill chunk (8 x 32 queries) over the 296 slots of a
+    37-page table, keys at slot positions, lanes 150-270 tokens long."""
+    import numpy as np
+    import torch
+    b, h, kvh, d, smax = 8, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.resolved_head_dim, 37 * 8
+    s = 32 if prefill else 1
+    lens = torch.randint(150, 270, (b,), generator=gen)
+    pos = (lens[:, None] - s + torch.arange(s)).int()
+    kv_pos = torch.arange(smax, dtype=torch.int32)[None].expand(b, smax)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen).numpy()
+
+    return dict(q=rand(b, s, h, d), k=rand(b, smax, kvh, d),
+                v=rand(b, smax, kvh, d), q_positions=pos.numpy(),
+                kv_positions=np.ascontiguousarray(kv_pos.numpy()))
+
+
+def attention_expected(inp):
+    """One device's f32 attention over the whole view, on the card."""
+    import torch
+    from repro_torch.parallel.ring_attention import _chunk_attn, _repeat_kv
+    t = {k: torch.from_numpy(v).to("cuda") for k, v in inp.items()}
+    k, v = _repeat_kv(t["q"].shape[2], t["k"], t["v"])
+    o, _, l = _chunk_attn(t["q"], k, v, t["q_positions"], t["kv_positions"],
+                          t["q"].shape[-1] ** -0.5, True)
+    return (o / torch.clamp_min(l, 1e-30)[..., None]).cpu().numpy()
+
+
+def mesh_identities(cfg, gemma) -> dict:
+    """Phase 31: f32 token identity through 2 layers (qwen3_8b
+    head-partitioned, gemma_2b's one KV head through the dataflow
+    cores), the cores at qwen3_8b's shapes, the one-rank NCCL group,
+    and a short exact gemma_2b drain at full width."""
+    import numpy as np
+    import torch
+    q2 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    g2 = dataclasses.replace(gemma, n_layers=2, compute_dtype="float32")
+    singles = {c.name: single_drain(c, smoke_trace(c), "exact")
+               for c in (q2, g2)}
+    gen = torch.Generator().manual_seed(31)
+    attn = {"split_kv decode": ("split_kv", attention_inputs(cfg, gen, False)),
+            "ring prefill chunk": ("ring", attention_inputs(cfg, gen, True))}
+    expected = {k: attention_expected(inp) for k, (_, inp) in attn.items()}
+    cases = [dict(case=("attention", dict(fn=fn, **inp)))
+             for fn, inp in attn.values()]
+    runs = mesh_spawn([
+        dict(cfg=q2, policy="exact", trace=smoke_trace(q2)),
+        dict(cfg=g2, policy="exact", trace=smoke_trace(g2)),
+        *cases, dict(case=("backend", {})),
+        dict(cfg=gemma, policy="exact", trace=short_trace(gemma),
+             warm=True)])
+    out = {}
+    for i, c in enumerate((q2, g2)):
+        label = f"{c.name} f32, 2 layers"
+        out[c.name] = check_mesh_drain(label, [r[i] for r in runs],
+                                       smoke_trace(c), c, want=singles[c.name])
+        if not out[c.name]["equal_single"]:
+            raise AssertionError(f"{label}: tokens differ from one device's")
+    errs = {}
+    for j, (name, (fn, _)) in enumerate(attn.items()):
+        parts = [r[2 + j] for r in runs]
+        got = parts[0] if fn == "split_kv" else np.concatenate(parts, axis=1)
+        errs[name] = float(np.abs(got - expected[name]).max())
+    log(f"  dataflow cores at qwen3_8b's shapes over {MESH_N} ranks, max "
+        f"abs error against one device (f32): {errs}")
+    log(f"  the 2-rank group's transport: {runs[0][4]}")
+    out["gemma_2b"] = check_mesh_drain(
+        f"gemma_2b exact, {gemma.n_layers} layers, 4 requests",
+        [r[5] for r in runs],
+        short_trace(gemma), gemma)
+    one = mesh_spawn([*cases, dict(case=("backend", {}))], n=1)[0]
+    nccl = {name: float(np.abs(one[j] - expected[name]).max())
+            for j, name in enumerate(attn)}
+    log(f"  one-rank group: {one[-1]}; max abs error {nccl}")
+    # one card a rank: NCCL
+    if one[-1] != "nccl":
+        raise AssertionError(f"the one-rank group ran over {one[-1]}")
+    worst = max(*errs.values(), *nccl.values())
+    if worst > MESH_ATTN_TOL:
+        raise AssertionError(f"dataflow cores {worst:.3e} from one device")
+    out.update(attention_err=errs, nccl_err=nccl, transport=runs[0][4])
+    return out
+
+
+def mesh_moe(moe_cfg) -> dict:
+    """Phase 32: qwen2_moe_a2_7b over 2 ranks (32 of 64 padded experts
+    and 2 of 4 shared a rank, 8 of 16 KV heads): a short exact drain at
+    full width, then f32 token identity through 2 layers."""
+    m2 = dataclasses.replace(moe_cfg, n_layers=2, compute_dtype="float32")
+    single = single_drain(m2, smoke_trace(m2), "exact")
+    runs = mesh_spawn([
+        dict(cfg=moe_cfg, policy="exact", trace=short_trace(moe_cfg),
+             warm=True),
+        dict(cfg=m2, policy="exact", trace=smoke_trace(m2))])
+    full = check_mesh_drain(f"exact, {moe_cfg.n_layers} layers, 4 requests",
+                            [r[0] for r in runs], short_trace(moe_cfg),
+                            moe_cfg)
+    ident = check_mesh_drain("f32, 2 layers", [r[1] for r in runs],
+                             smoke_trace(m2), m2, want=single)
+    if not ident["equal_single"]:
+        raise AssertionError("qwen2_moe f32: tokens differ from one "
+                             "device's")
+    return dict(full=full, f32=ident)
+
+
+
 class Phases:
     """Logs each phase's title, and when the next one starts (or at
     `mark(None)`) the seconds the last one took, kept by its number."""
@@ -3534,6 +3860,21 @@ def main() -> int:
             run = train_full_width(rcfg, n_train, TRAIN_STEPS_NEW)
             run.update(pin=train_pin(rcfg, n_pin))
             recurrent_train[arch] = run
+    free()
+    phases.mark("30. tensor-parallel serving: full-width qwen3_8b over 2 "
+                "ranks sharing the card (gloo; 4 of 8 KV heads a rank): "
+                "exact drain of workload 1, int8 drain against one device's")
+    mesh = dict(qwen3_8b=mesh_qwen3(cfg, path_sc))
+    phases.mark("31. the dataflow cores: f32 token identity through 2 "
+                "layers (qwen3_8b, gemma_2b's 1 KV head: ring prefill, "
+                "split-KV decode), the cores at qwen3_8b's shapes, a "
+                "one-rank NCCL group; full-width gemma_2b drain")
+    mesh.update(identities=mesh_identities(cfg, configs.get_config(
+        "gemma_2b")))
+    phases.mark("32. full-width qwen2_moe_a2_7b over 2 ranks (32 of 64 "
+                "experts a rank): short exact drain; f32 identity through "
+                "2 layers")
+    mesh.update(qwen2_moe_a2_7b=mesh_moe(moe_cfg))
     phases.mark("16. sc_matmul at every shape the main path gave it")
     sc_path = check_sc_path_shapes(path_sc)
     phases.mark(None)
@@ -3561,6 +3902,8 @@ def main() -> int:
                    for arch, m in multimodal.items()},
                 **{f"{arch} train int8": r["launches"]
                    for arch, r in recurrent_train.items()},
+                **{f"qwen3_8b sharded int8 (rank {r})": n for r, n in
+                   enumerate(mesh["qwen3_8b"]["int8"]["launches"])},
                 "examples/torch_quickstart.py artemis_mxu forward":
                     ex["quickstart"]["forward_sc_matmul"]}
     fa_paths = {"qwen3_8b static": static["launches"],
@@ -3639,7 +3982,7 @@ def main() -> int:
                     "train": train, "arithmetic": arith,
                     "multimodal": multimodal,
                     "recurrent_train": recurrent_train,
-                    "phase_s": phases.seconds}))
+                    "mesh": mesh, "phase_s": phases.seconds}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

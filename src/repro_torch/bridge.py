@@ -65,13 +65,45 @@ def leaf_ndim(name: str, p: torch.Tensor) -> int:
     return p.dim() + (name.split(".")[0] == "layers")
 
 
+def _numpy_leaves(tree: dict, cfg: ModelConfig):
+    """(parameter name, f32 tensor) of every leaf of a reference tree,
+    the stacked layer leaves one layer at a time."""
+    for path, leaf in _leaves(tree):
+        if path[0] != "layers":
+            yield ".".join(path), torch.from_numpy(np.array(leaf, np.float32))
+            continue
+        leaf = np.asarray(leaf)
+        if leaf.shape[0] != cfg.n_layers:
+            raise ValueError(
+                f"{'/'.join(path)}: leading axis {leaf.shape[0]} is "
+                f"not n_layers={cfg.n_layers}")
+        for i in range(cfg.n_layers):
+            yield (f"layers.{i}." + ".".join(path[1:]),
+                   torch.from_numpy(np.array(leaf[i], np.float32)))
+
+
 @torch.no_grad()
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda",
-                      train: bool = False) -> torch.nn.Module:
+                      train: bool = False, mesh=None,
+                      policy=None) -> torch.nn.Module:
     """The port's model holding the weights of a reference parameter
     tree (numpy leaves); a trainable one (f32 master weights, gradients
     on) with `train`. Every leaf of the tree must land somewhere and
-    every parameter of the model must be covered."""
+    every parameter of the model must be covered.
+
+    With a multi-shard `serve.mesh.ServeMesh` (a serving model), the
+    model holds this rank's part under `policy`'s placement
+    (`parallel.tensor_parallel.placement`, exact by default): each
+    whole leaf is built, as on one device, then cut."""
+    if mesh is not None and not mesh.is_single:
+        from repro_torch.core.policy import EXACT
+        from repro_torch.parallel import tensor_parallel as tpl
+        from repro_torch.parallel.sharding import param_shapes
+        specs = tpl.placement(cfg, param_shapes(modellib.empty(
+            cfg, device="meta")), mesh.n_shards, policy or EXACT)
+        shard = tpl.empty_shard(cfg, specs, mesh.n_shards, device)
+        return tpl.fill_shard(shard, _numpy_leaves(tree, cfg), specs,
+                              mesh.handle.rank, mesh.n_shards)
     model = modellib.empty(cfg, device=device, train=train)
     covered = set()
     for path, leaf in _leaves(tree):

@@ -26,7 +26,9 @@ def div_by(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
-def _absmax(x: torch.Tensor, axis) -> torch.Tensor:
+def absmax(x: torch.Tensor, axis=None) -> torch.Tensor:
+    """max |x| (per tensor, or over `axis`), floored at 1e-8, with the
+    reduced dims kept."""
     if axis is None:
         m = x.abs().amax().reshape([1] * x.dim())
     else:
@@ -34,13 +36,20 @@ def _absmax(x: torch.Tensor, axis) -> torch.Tensor:
     return torch.clamp_min(m, 1e-8)
 
 
-def quant_scale(x: torch.Tensor, bits: int = 8, axis=None) -> torch.Tensor:
+def quant_scale(x: torch.Tensor, bits: int = 8, axis=None,
+                absmax_of=None) -> torch.Tensor:
     """Symmetric scale so that round(x/scale) fits in `bits` signed bits.
 
     axis=None -> per-tensor; axis=int/tuple -> per-channel over that axis.
+    `absmax_of`, a per-tensor absmax given in place of x's own, is the
+    tensor-parallel seam: a rank's part of a tensor takes the absmax of
+    the whole tensor, so that its scale is the single-device one.
     """
     qmax = 2 ** (bits - 1) - 1
-    return div_by(_absmax(x, axis), qmax)
+    if absmax_of is None:
+        return div_by(absmax(x, axis), qmax)
+    m = torch.clamp_min(absmax_of.float(), 1e-8).reshape([1] * x.dim())
+    return div_by(m.to(x.dtype), qmax)
 
 
 def quantize(x: torch.Tensor, scale: torch.Tensor,

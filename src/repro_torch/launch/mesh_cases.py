@@ -1,0 +1,269 @@
+"""What a rank of a tensor-parallel group runs when the port is checked:
+drains through the serve engine, the collective attention cores on
+given inputs, and the refusals of the sharded backend. `launch.mesh.
+spawn(run, n, cases, device=...)` runs a list of cases in every rank
+and returns each rank's results; `drain` also runs in a single process
+(one device, no group), so a check can hold the ranks against it. The
+module imports no jax and nothing of the JAX package: the tests hand it
+numpy weights and the port's trace items.
+
+Cases are (kind, keyword arguments) pairs:
+
+  ("drain", {...})      `drain`'s arguments
+  ("attention", {...})  `attention`'s arguments
+  ("refusals", {})      `refusals`
+  ("backend", {})       the transport of the rank's group
+  ("modules", {})       the top-level packages the rank imported
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.policy import ArithmeticPolicy
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.models import model as modellib
+from repro_torch.serve import EngineConfig, ServeEngine, Tracer
+from repro_torch.serve.backend import make_backend
+from repro_torch.serve.mesh import make_serve_mesh
+from repro_torch.serve.obs import to_chrome_trace
+from repro_torch.serve.request import RequestState
+
+
+def _world() -> tuple[int, int]:
+    if not dist.is_initialized():
+        return 0, 1
+    return dist.get_rank(), dist.get_world_size()
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def params_for(cfg, weights, policy: ArithmeticPolicy, device):
+    """The model a rank serves (its part of it on a multi-rank mesh):
+    weights = ("numpy", tree) a reference parameter tree through the
+    bridge; ("seed", s) `modellib.init(cfg, s)`'s weights, a rank
+    drawing only its part (`tensor_parallel.init_shard`); ("whole", s)
+    the whole seeded model, which the backend cuts; ("model", m) the
+    model m, built already."""
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.parallel.tensor_parallel import init_shard
+    kind, value = weights
+    rank, n = _world()
+    if kind == "numpy":
+        return params_from_numpy(value, cfg, device=device,
+                                 mesh=make_serve_mesh(n), policy=policy)
+    if kind == "seed" and n > 1:
+        return init_shard(cfg, rank, n, policy, seed=value, device=device)
+    if kind in ("seed", "whole"):
+        return modellib.init(cfg, seed=value, device=device)
+    if kind == "model":
+        return value
+    raise ValueError(f"unknown weights kind {kind!r}")
+
+
+def _top2_margin(row: torch.Tensor) -> float:
+    """(top1 - top2) / max |row| of one logits row."""
+    top = torch.topk(row.float(), 2).values
+    return float((top[0] - top[1]) / torch.clamp_min(row.abs().max(), 1e-30))
+
+
+def drain(device, *, cfg, weights, trace, ecfg: dict, policy: str = "exact",
+          preempt: bool = False, record_logits: bool = False,
+          observability: str = "metrics", attn_core=None) -> dict:
+    """Drain `trace` (the port's TraceItems) through a fresh engine over
+    all ranks of the group (or one device without one), every launch
+    count zeroed just before the drain and read just after. `preempt`
+    forces the preemption of the first decoding request, as the
+    reference's conformance pin does. `attn_core` replaces a
+    single-device engine's attention core (the seam of
+    `paged_model`). Returns the token streams, each emitted token's
+    top-2 logit margin, the metrics and counts, and with
+    `record_logits` every step's logits (on the CPU)."""
+    from repro_torch.serve.paged_model import (make_paged_chunked_prefill,
+                                               make_paged_decode)
+    rank, n = _world()
+    pol = ArithmeticPolicy(mode=policy)
+    params = params_for(cfg, weights, pol, device)
+    eng = ServeEngine(cfg, params=params, policy=pol,
+                      ecfg=EngineConfig(mesh_shards=n,
+                                        observability=observability,
+                                        **ecfg), device=device)
+    del params
+    backend = eng.backend
+    if attn_core is not None:
+        if n > 1:
+            raise ValueError("attn_core replaces a single device's core")
+        backend._prefill_fn = make_paged_chunked_prefill(cfg, pol,
+                                                         attn_core=attn_core)
+        backend._decode_fn = make_paged_decode(cfg, pol, attn_core=attn_core)
+    logits, rows = [], {}
+    prefill_step, decode_step = backend.prefill_step, backend.decode_step
+
+    def prefill(chunks):
+        out = prefill_step(chunks)
+        for i, (req, k) in enumerate(chunks):
+            rows[req.rid] = out[i, k - 1]
+        if record_logits:
+            logits.append(out.cpu())
+        return out
+
+    def decode(reqs):
+        out = decode_step(reqs)
+        for req in reqs:
+            rows[req.rid] = out[req.lane]
+        if record_logits:
+            logits.append(out.cpu())
+        return out
+
+    backend.prefill_step, backend.decode_step = prefill, decode
+    eng.submit_trace(trace)
+    margins: dict[int, list[float]] = {}
+    _sync(device)
+    reset_launch_counts()
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    preempted = False
+    for _ in range(100_000):
+        if preempt and not preempted:
+            decoding = [r for r in eng.requests.values()
+                        if r.state is RequestState.DECODE]
+            if decoding:
+                eng._preempt(decoding[0])
+                preempted = True
+        seen = {rid: len(r.generated) for rid, r in eng.requests.items()}
+        if eng.step() is None:
+            break
+        for rid, r in eng.requests.items():
+            if len(r.generated) > seen[rid]:
+                margins.setdefault(rid, []).append(_top2_margin(rows[rid]))
+    eng.drain()
+    _sync(device)
+    wall = time.perf_counter() - t0
+    if preempt and not preempted:
+        raise AssertionError("the trace never reached a preemptable decode")
+    backend.check_invariants()
+    out = dict(
+        rank=rank, n=n,
+        tokens={i: r.tolist() for i, r in eng.results().items()},
+        margins=margins, metrics=eng.metrics(),
+        snapshot=backend.snapshot_metrics(), counts=dict(launch_counts),
+        wall_s=wall, n_forwards=backend.n_forwards,
+        n_prefill_forwards=backend.n_prefill_forwards,
+        gauges={k: eng.obs.registry.gauge(f"backend/{k}")
+                for k in ("shard_count", "shard_kv_heads")},
+        shard_counts={k: eng.obs.registry.count(f"backend/{k}")
+                      for k in ("shard_steps", "shard_tokens")})
+    if record_logits:
+        out["logits"] = logits
+    if observability == "trace":
+        out["chrome"] = to_chrome_trace(eng.events)
+        out["events"] = [(type(e).__name__, dataclasses.asdict(e))
+                         for e in eng.events]
+    if torch.device(device).type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    return out
+
+
+def attention(device, *, fn: str, q, k, v, q_positions=None,
+              kv_positions=None, causal: bool = True) -> np.ndarray:
+    """One collective attention call on whole numpy inputs, each rank
+    taking its slice: "ring" and "layer" split q, k, v (and their
+    positions) on the sequence axis and return the rank's slice of the
+    output; "split_kv" takes q whole and splits k, v and kv_positions,
+    returning the whole output. f32 on `device`."""
+    from repro_torch.parallel.ring_attention import (layer_dataflow_attention,
+                                                     ring_attention)
+    from repro_torch.parallel.split_kv import split_kv_attention
+    rank, n = _world()
+    group = dist.group.WORLD
+
+    def part(x):
+        if x is None:
+            return None
+        x = torch.from_numpy(np.asarray(x)).to(device)
+        size = x.shape[1] // n
+        return x[:, rank * size:(rank + 1) * size]
+
+    def whole(x):
+        return None if x is None else torch.from_numpy(np.asarray(x)).to(
+            device)
+
+    if fn == "ring":
+        out = ring_attention(part(q), part(k), part(v), group=group,
+                             causal=causal, q_positions=part(q_positions),
+                             kv_positions=part(kv_positions))
+    elif fn == "layer":
+        out = layer_dataflow_attention(part(q), part(k), part(v),
+                                       group=group, causal=causal)
+    elif fn == "split_kv":
+        out = split_kv_attention(whole(q), part(k), part(v), group=group,
+                                 q_positions=whole(q_positions),
+                                 kv_positions_local=part(kv_positions),
+                                 causal=causal)
+    else:
+        raise ValueError(f"unknown attention fn {fn!r}")
+    return out.cpu().numpy()
+
+
+def refusals(device) -> dict:
+    """The messages the sharded serve path raises on a multi-rank mesh:
+    the fused attention core, a state-slot family, and a rank's part cut
+    for another placement (int8's, served exact)."""
+    from repro_torch import configs
+    from repro_torch.parallel.tensor_parallel import init_shard
+    from repro_torch.serve.sharded_backend import ShardedPagedBackend
+    rank, n = _world()
+    mesh = make_serve_mesh(n)
+    cfg = configs.get_config("qwen3_8b", smoke=True)
+    out = {}
+    part = init_shard(cfg, rank, n, ArithmeticPolicy(mode="int8"),
+                      device=device)
+    try:
+        ShardedPagedBackend(cfg, EngineConfig(mesh_shards=n),
+                            ArithmeticPolicy(), part, Tracer(), lambda: 0.0,
+                            mesh=mesh)
+    except ValueError as e:
+        out["placement"] = str(e)
+    try:
+        ShardedPagedBackend(cfg, EngineConfig(mesh_shards=mesh.n_shards,
+                                              attn_impl="fused"),
+                            ArithmeticPolicy(), None, Tracer(),
+                            lambda: 0.0, mesh=mesh)
+    except ValueError as e:
+        out["fused"] = str(e)
+    rw = configs.get_config("rwkv6_3b", smoke=True)
+    try:
+        make_backend(rw, EngineConfig(mesh_shards=mesh.n_shards),
+                     ArithmeticPolicy(), None, obs=Tracer(),
+                     clock=lambda: 0.0, mesh=mesh)
+    except ValueError as e:
+        out["state_slot"] = str(e)
+    return out
+
+
+def backend(device) -> str:
+    """The transport of this rank's group ("nccl" or "gloo")."""
+    return dist.get_backend()
+
+
+def modules(device) -> list[str]:
+    """The top-level packages this rank has imported."""
+    import sys
+    return sorted({m.split(".")[0] for m in sys.modules})
+
+
+_CASES = {"drain": drain, "attention": attention, "refusals": refusals,
+          "backend": backend, "modules": modules}
+
+
+def run(device, cases: list) -> list:
+    """Run each (kind, kwargs) case in order on this rank."""
+    return [_CASES[kind](device, **kwargs) for kind, kwargs in cases]

@@ -27,6 +27,12 @@
                   projection through the hand-written sc_matmul kernel
                   and the attention contractions through the int8
                   ladder (with `--attn-impl gather`).
+                  `--mesh-shards N` serves the attention families
+                  tensor-parallel over N ranks (`serve.sharded_backend`):
+                  the CLI spawns the N ranks itself
+                  (`launch.mesh.spawn`), or joins the group `torchrun`
+                  set up (RANK / WORLD_SIZE in the environment). Rank 0
+                  prints the summary lines.
 
 It prints the same summary lines as `repro.launch.serve`. Weights are
 random, drawn from `--seed` with a torch generator on `--device`
@@ -46,13 +52,16 @@ decode and drain seconds next to the virtual-clock metrics.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs, prng
 from repro_torch.core.policy import ArithmeticPolicy
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import steps as stepslib
 from repro_torch.models import frontend
 from repro_torch.models import model as modellib
@@ -139,7 +148,7 @@ def serve_engine(arch: str = "qwen3_8b", smoke: bool = True,
                  sampled_fraction: float = 0.0, temperature: float = 0.8,
                  top_k: int = 0, top_p: float = 1.0, sample_seed: int = -1,
                  observability: str = "metrics",
-                 trace_json: str | None = None,
+                 trace_json: str | None = None, mesh_shards: int = 1,
                  attn_impl: str = "gather", device="cuda",
                  params=None) -> dict:
     """Continuous-batching serving over a synthetic Poisson trace; the
@@ -149,7 +158,24 @@ def serve_engine(arch: str = "qwen3_8b", smoke: bool = True,
     deterministic for a fixed trace seed); the rest stay greedy.
     `trace_json` (which implies observability="trace") exports the
     run's event log as Chrome trace-event JSON over the virtual
-    clock."""
+    clock. `mesh_shards > 1` serves over that many tensor-parallel
+    ranks: called outside a process group it spawns them and returns
+    rank 0's {"metrics", "results"}, or under `torchrun` joins that
+    group, returns this rank's {"metrics", "results", "rank"} and ends
+    the group; a rank itself returns its own whole result, and only
+    rank 0 writes `trace_json`."""
+    if mesh_shards > 1 and not dist.is_initialized():
+        kwargs = dict(locals())
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            kwargs["device"] = meshlib.init_from_env(device)
+            out = _engine_rank(kwargs["device"], kwargs)
+            out["rank"] = dist.get_rank()
+            meshlib.leave()
+            return out
+        return meshlib.spawn(_engine_rank, mesh_shards, kwargs,
+                             device=device)[0]
+    rank0 = not dist.is_initialized() or \
+        dist.get_rank() == 0
     dev = resolve_device(device)
     cfg = configs.get_config(arch, smoke=smoke)
     if trace_json is not None:
@@ -161,7 +187,7 @@ def serve_engine(arch: str = "qwen3_8b", smoke: bool = True,
         prefill_chunk=prefill_chunk, scheduler=scheduler,
         prefix_sharing=prefix_sharing, n_slots=n_slots,
         max_seq_len=max(max_len + 1, 2), observability=observability,
-        attn_impl=attn_impl)
+        mesh_shards=mesh_shards, attn_impl=attn_impl)
     if params is None:
         params = modellib.init(cfg, seed=seed, device=dev)
     eng = ServeEngine(cfg, params=params,
@@ -186,7 +212,7 @@ def serve_engine(arch: str = "qwen3_8b", smoke: bool = True,
     m["wall_tok_per_s"] = m["n_generated_tokens"] / max(wall, 1e-9)
     m["device"] = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu")
-    if trace_json is not None:
+    if trace_json is not None and rank0:
         export_chrome_trace(
             eng.events, trace_json,
             metadata={"arch": arch, "seed": seed,
@@ -194,6 +220,13 @@ def serve_engine(arch: str = "qwen3_8b", smoke: bool = True,
     return {"metrics": m, "results": eng.results(),
             "events": eng.events, "attribution": eng.attribution(),
             "engine": eng}
+
+
+def _engine_rank(device, kwargs: dict) -> dict:
+    """A spawned rank of `serve_engine(mesh_shards > 1)`: its metrics and
+    token streams (what pickles of the result)."""
+    out = serve_engine(**dict(kwargs, device=device))
+    return {"metrics": out["metrics"], "results": out["results"]}
 
 
 def summary_lines(m: dict) -> list[str]:
@@ -282,12 +315,17 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--trace-json", default=None, metavar="PATH",
                     help="engine: export the run as Chrome trace-event "
                          "JSON to PATH (implies --observability trace)")
+    ap.add_argument("--mesh-shards", type=int, default=1,
+                    help="engine: tensor-parallel degree; >1 serves the "
+                         "attention archs over the sharded paged backend "
+                         "on that many ranks (spawned here, or the ones "
+                         "torchrun started)")
     ap.add_argument("--attn-impl", default="gather",
                     choices=["gather", "fused"],
                     help="engine: paged attention core; 'fused' walks "
                          "the block table inside the paged-attention "
                          "kernel (static mode runs the flash-attention "
-                         "kernel under the exact policy)")
+                         "kernel under the exact policy; mesh_shards=1)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain versions)")
@@ -320,7 +358,10 @@ def main(argv: list[str] | None = None) -> None:
         sampled_fraction=sampled_fraction, temperature=args.temperature,
         top_k=args.top_k, top_p=args.top_p, sample_seed=args.sample_seed,
         observability=args.observability, trace_json=args.trace_json,
-        attn_impl=args.attn_impl, device=args.device)
+        mesh_shards=args.mesh_shards, attn_impl=args.attn_impl,
+        device=args.device)
+    if out.get("rank", 0) != 0:
+        return                       # a torchrun rank other than 0
     m = out["metrics"]
     for line in summary_lines(m):
         print(line)

@@ -60,15 +60,18 @@ def _lane_axes(t: torch.Tensor) -> tuple:
     return tuple(range(1, t.dim()))
 
 
-def mm(x: torch.Tensor, w: torch.Tensor,
-       policy: ArithmeticPolicy) -> torch.Tensor:
+def mm(x: torch.Tensor, w: torch.Tensor, policy: ArithmeticPolicy,
+       b_absmax: torch.Tensor | None = None) -> torch.Tensor:
     """x: (..., K) activations, w: (K, N) weights -> (..., N), x.dtype.
-    Under a `LanePolicy` x is (B, ..., K) over B independent lanes."""
+    Under a `LanePolicy` x is (B, ..., K) over B independent lanes.
+    `b_absmax`, the whole weight's absmax when w is a tensor-parallel
+    rank's part of it (`TensorParallel.mm`), gives a quantized policy
+    the single-device scale."""
     if policy.mode == "exact":
         return torch.matmul(x, w.to(x.dtype))
     if isinstance(policy, LanePolicy):
         policy = dataclasses.replace(policy, act_quant_axis=_lane_axes(x))
-    return artemis_matmul(x, w, policy).to(x.dtype)
+    return artemis_matmul(x, w, policy, b_absmax=b_absmax).to(x.dtype)
 
 
 def _int_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -80,17 +83,21 @@ def _int_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _quant_einsum(spec: str, a: torch.Tensor, b: torch.Tensor,
-                  policy: ArithmeticPolicy) -> torch.Tensor:
+                  policy: ArithmeticPolicy, amax=None) -> torch.Tensor:
     """Batched einsum through the int8 / artemis_mxu ladder, in the
     operands' dtype up to the integer product, as the reference. Only
     artemis_mxu takes the sign correction: every other quantized mode
     (artemis included) is a plain int8 contraction here. Under a
     `LanePolicy` both operands and the output lead with the lane axis,
-    and each lane's operands take their own scales."""
+    and each lane's operands take their own scales. `amax` (see
+    `qeinsum`) turns each operand's absmax into the whole tensor's."""
     lanes = isinstance(policy, LanePolicy)
     if lanes:
         sa = q.quant_scale(a, 8, _lane_axes(a))
         sb = q.quant_scale(b, 8, _lane_axes(b))
+    elif amax is not None:
+        sa = q.quant_scale(a, 8, absmax_of=amax(q.absmax(a)))
+        sb = q.quant_scale(b, 8, absmax_of=amax(q.absmax(b)))
     else:
         sa = q.quant_scale(a, 8, policy.act_quant_axis)
         sb = q.quant_scale(b, 8, policy.act_quant_axis)
@@ -110,12 +117,14 @@ def _quant_einsum(spec: str, a: torch.Tensor, b: torch.Tensor,
 
 
 def qeinsum(spec: str, a: torch.Tensor, b: torch.Tensor,
-            policy: ArithmeticPolicy) -> torch.Tensor:
+            policy: ArithmeticPolicy, amax=None) -> torch.Tensor:
     """Attention-style batched contraction under the policy ladder, in
-    a's dtype."""
+    a's dtype. `amax`, the tensor-parallel seam, maps the absmax of a
+    rank's part of an operand (its heads) to the whole operand's (the
+    group's max), so that a per-tensor scale is the single-device one."""
     if policy.mode == "exact":
         return torch.einsum(spec, a, b)
-    return _quant_einsum(spec, a, b, policy).to(a.dtype)
+    return _quant_einsum(spec, a, b, policy, amax).to(a.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -358,11 +367,16 @@ ACTS = {"silu": F.silu,
 
 
 def ffn(p, x: torch.Tensor, act: str, glu: bool,
-        policy: ArithmeticPolicy = ArithmeticPolicy()) -> torch.Tensor:
-    """p: an object with `w_up`, `w_down` (and `w_gate` when glu)."""
-    up = mm(x, p.w_up, policy)
+        policy: ArithmeticPolicy = ArithmeticPolicy(),
+        proj=None, down=None) -> torch.Tensor:
+    """p: an object with `w_up`, `w_down` (and `w_gate` when glu).
+    `proj(x, w, policy)` and `down(h, w_down, policy)`, when given, run
+    the first products and the last in place of `mm` (the
+    tensor-parallel seams: `TensorParallel.mm` and `.out_proj`)."""
+    proj = proj or mm
+    up = proj(x, p.w_up, policy)
     if glu:
-        up = ACTS[act](mm(x, p.w_gate, policy)) * up
+        up = ACTS[act](proj(x, p.w_gate, policy)) * up
     else:
         up = ACTS[act](up)
-    return mm(up, p.w_down, policy)
+    return (down or proj)(up, p.w_down, policy)

@@ -36,6 +36,7 @@ experts included.
 """
 from __future__ import annotations
 
+import functools
 import types
 
 import torch
@@ -148,8 +149,18 @@ def combine(contrib: torch.Tensor, order: torch.Tensor,
 
 
 def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig,
-            policy: ArithmeticPolicy = ArithmeticPolicy()):
-    """x: (B, S, d) -> (out (B, S, d) in x's dtype, aux_loss f32 scalar)."""
+            policy: ArithmeticPolicy = ArithmeticPolicy(), tp=None):
+    """x: (B, S, d) -> (out (B, S, d) in x's dtype, aux_loss f32 scalar).
+    `tp`: a tensor-parallel rank's `TensorParallel`, for a layer holding
+    that rank's block of the experts (expert parallelism): routing and
+    dispatch run whole on every rank, each rank runs its experts, and
+    their outputs are gathered before the combine, which then runs in
+    the single-device order."""
+
+    def whole(stack, xs):
+        return expert_ffn(stack, xs, cfg.act, cfg.glu, policy)
+
+    run = whole if tp is None else functools.partial(tp.experts, run=whole)
     b, s, d = x.shape
     t = b * s
     e, k = cfg.padded_experts, cfg.top_k
@@ -160,15 +171,13 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig,
     # dispatch: row e * cap is the trash row of the dropped choices
     buf = xt.new_zeros((e * cap + 1, d))
     buf[dest] = xt[src_token]
-    out_e = expert_ffn(p.experts, buf[:e * cap].reshape(e, cap, d), cfg.act,
-                       cfg.glu, policy)
+    out_e = run(p.experts, buf[:e * cap].reshape(e, cap, d))
     out_g = torch.cat([out_e.reshape(e * cap, d), xt.new_zeros((1, d))])
     w = gate.reshape(t * k)[order].to(x.dtype)
     combined = combine(out_g[dest] * w[:, None], order, k)
 
     if p.shared is not None:
         ns = cfg.n_shared_experts
-        shared = expert_ffn(p.shared, xt.expand(ns, t, d), cfg.act, cfg.glu,
-                            policy)
+        shared = run(p.shared, xt.expand(ns, t, d))
         combined = combined + shared.float().sum(dim=0).to(x.dtype)
     return combined.reshape(b, s, d), aux

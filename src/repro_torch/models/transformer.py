@@ -114,12 +114,21 @@ class Block(nn.Module):
 
 
 def block_ffn(lp: Block, x: torch.Tensor, cfg: ModelConfig,
-              policy: ArithmeticPolicy):
+              policy: ArithmeticPolicy, tp=None):
     """The FFN half of a block on its normed input x: (out, aux), aux
-    the MoE layer's load-balance loss (None for the dense family)."""
+    the MoE layer's load-balance loss (None for the dense family).
+    `tp`: a tensor-parallel rank's `parallel.tensor_parallel.
+    TensorParallel`, for a model holding that rank's part of the
+    weights."""
     if cfg.family == "moe":
-        return M.moe_ffn(lp.moe, x, cfg, policy)
-    return L.ffn(lp.ffn, x, cfg.act, cfg.glu, policy), None
+        return M.moe_ffn(lp.moe, x, cfg, policy, tp=tp)
+    if tp is None:
+        return L.ffn(lp.ffn, x, cfg.act, cfg.glu, policy), None
+
+    def down(h, w, pol):
+        return tp.out_proj(h, w, pol, k_full=cfg.d_ff)
+    return L.ffn(lp.ffn, x, cfg.act, cfg.glu, policy, proj=tp.mm,
+                 down=down), None
 
 
 class Transformer(nn.Module):
@@ -151,49 +160,69 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Transformer":
         """Seeded random weights with the reference's distributions
-        (`layers.dense_init` / `embed_init`; norm scales are ones).
-        Each matrix is drawn in f32, rounded to the reference's
-        `param_dtype`, then stored in the model's dtype. The stream of
+        (`init_values`), stored in the model's dtype. The stream of
         `generator` is not jax's, so the values differ from
         `repro.models.model.init` for the same seed."""
-        cfg, dev = self.cfg, self.device
-        pdt = torch_dtype(cfg.param_dtype)
-
-        def dense(w):
-            # a stack of matrices (experts) draws them all at once
-            *lead, d_in, d_out = w.shape
-            w.copy_(L.dense_init(generator, d_in, d_out, dev, pdt,
-                                 lead=tuple(lead)))
-
-        v, d = self.embed.shape[-2:]
-        for table in self.embed.view(-1, v, d):    # one per codebook
-            table.copy_(L.embed_init(generator, v, d, dev, pdt))
-        for blk in self.layers:
-            for name in ("wq", "wk", "wv", "wo"):
-                dense(getattr(blk.attn, name))
-            if cfg.family == "moe":
-                dense(blk.moe.router)
-                ffns = [f for f in (blk.moe.experts, blk.moe.shared)
-                        if f is not None]
-            else:
-                ffns = [blk.ffn]
-            for ffn in ffns:
-                for name in ("w_up", "w_down", "w_gate"):
-                    if hasattr(ffn, name):
-                        dense(getattr(ffn, name))
-        if self.head is not None:
-            dense(self.head)
+        for name, value in self.init_values(generator, self.device):
+            self.get_parameter(name).copy_(value)
         return self
 
-    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+    def init_values(self, generator: torch.Generator, device):
+        """(parameter name, whole value) of `init`'s weights, one leaf at
+        a time, in the order they are drawn (`layers.dense_init` /
+        `embed_init`, each matrix drawn in f32 and rounded to the
+        reference's `param_dtype`; norm scales are ones). Only the
+        parameters' shapes are read, so a model on the meta device
+        gives the same stream."""
+        cfg = self.cfg
+        pdt = torch_dtype(cfg.param_dtype)
+
+        def dense(name):
+            # a stack of matrices (experts) draws them all at once
+            *lead, d_in, d_out = self.get_parameter(name).shape
+            return name, L.dense_init(generator, d_in, d_out, device, pdt,
+                                      lead=tuple(lead))
+
+        v, d = self.embed.shape[-2:]
+        tables = [L.embed_init(generator, v, d, device, pdt)
+                  for _ in range(self.embed.numel() // (v * d))]
+        yield "embed", torch.stack(tables).reshape(self.embed.shape)
+        drawn = {"embed"}
+        for i, blk in enumerate(self.layers):
+            names = [f"layers.{i}.attn.{w}" for w in ("wq", "wk", "wv", "wo")]
+            if cfg.family == "moe":
+                names.append(f"layers.{i}.moe.router")
+                ffns = [(f"layers.{i}.moe.{part}", f) for part, f in
+                        (("experts", blk.moe.experts),
+                         ("shared", blk.moe.shared)) if f is not None]
+            else:
+                ffns = [(f"layers.{i}.ffn", blk.ffn)]
+            for prefix, ffn in ffns:
+                names += [f"{prefix}.{w}" for w in ("w_up", "w_down",
+                                                    "w_gate")
+                          if hasattr(ffn, w)]
+            for name in names:
+                yield dense(name)
+            drawn.update(names)
+        if self.head is not None:
+            yield dense("head")
+            drawn.add("head")
+        for name, p in self.named_parameters():
+            if name not in drawn:               # norm scales
+                yield name, torch.ones(p.shape, device=device)
+
+    def embed_tokens(self, tokens: torch.Tensor,
+                     lookup=F.embedding) -> torch.Tensor:
         """`transformer._embed_tokens`: (B, S) [audio: (B, S, C)] ->
         (B, S, d) in the compute dtype, cast after the gather (audio:
-        after the f32 sum over codebooks) as the reference casts."""
+        after the f32 sum over codebooks) as the reference casts.
+        `lookup(tokens, table)` gathers the rows (the vocab-parallel
+        seam: `TensorParallel.embedding`)."""
         if self.cfg.modality == "audio":
-            x = sum(F.embedding(tokens[..., c], self.embed[c])
+            x = sum(lookup(tokens[..., c], self.embed[c])
                     for c in range(self.embed.shape[0]))
         else:
-            x = F.embedding(tokens, self.embed)
+            x = lookup(tokens, self.embed)
         x = x.to(self.compute_dtype)
         if self.cfg.scale_embeddings:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,

@@ -18,11 +18,14 @@ docstring for the full text). Both single-device backends are ported:
                      trash slot 0 for idle lanes.
 
 Every arithmetic policy mode runs (the quantized ones through the
-sc_matmul kernel and the gather core). Refused by `make_backend` with a
-message that says why: the tensor-parallel mesh (`mesh_shards > 1`, not
-ported yet) and the artemis mode with analog readout noise
-(`sigma_analog > 0`), which needs a PRNG key that no serve path has:
-the reference's `mm` passes none, so its noisy serving raises too.
+sc_matmul kernel and the gather core). A multi-shard `ServeMesh`
+(`mesh_shards > 1`, `serve.mesh`) routes the attention families to the
+tensor-parallel `ShardedPagedBackend` (`serve.sharded_backend`); the
+state-slot families refuse it, as in the reference. Refused by
+`make_backend` with a message that says why: the artemis mode with
+analog readout noise (`sigma_analog > 0`), which needs a PRNG key that
+no serve path has: the reference's `mm` passes none, so its noisy
+serving raises too.
 
 The steps run on the device of the model's weights. The pool is owned
 by the backend and updated in place (the reference donates it to its
@@ -39,8 +42,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.policy import ArithmeticPolicy
+from repro_torch.models import model as modellib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import FAMILIES, torch_dtype
+from repro_torch.serve.mesh import (ServeMesh, kv_pool_sharding,
+                                    make_serve_mesh, param_shardings)
 from repro_torch.serve.obs import CowForkEvent, ShareEvent, Tracer
 from repro_torch.serve.paged_cache import (
     TRASH_PAGE,
@@ -87,8 +93,8 @@ class EngineConfig:
     observability: str = "metrics"   # "metrics" = counters/histograms
     #                                  only; "trace" = keep the full
     #                                  typed event log
-    mesh_shards: int = 1             # tensor-parallel degree (only 1 is
-    #                                  ported)
+    mesh_shards: int = 1             # tensor-parallel degree: ranks of
+    #                                  the serve mesh
     attn_impl: str = "gather"        # paged attention core: "gather"
     #                                  materializes the block table into
     #                                  a contiguous KV view (reference
@@ -287,22 +293,37 @@ class PagedKVBackend(SequenceBackend):
     `n_forwards` counts the step calls (prefill chunks + decode
     rounds) that ran a model forward, `n_prefill_forwards` the prefill
     chunks among them.
+
+    Placement flows through the `serve.mesh` seam: on a multi-shard
+    mesh the parameters and the pool are the rank's parts
+    (`_place_params`, `kv_pool_sharding`); on the default single-device
+    mesh every placement helper is None, a strict no-op. Page ids,
+    block tables, the allocator and the PrefixIndex are LOGICAL
+    (host-side), so the sharing and COW machinery never sees the mesh;
+    `ShardedPagedBackend` overrides the step factory.
     """
 
     families = FAMILIES
 
     def __init__(self, cfg: ModelConfig, ecfg: EngineConfig,
-                 policy: ArithmeticPolicy, params, obs: Tracer, clock):
+                 policy: ArithmeticPolicy, params, obs: Tracer, clock,
+                 mesh: ServeMesh | None = None):
         self.cfg = cfg
         self.ecfg = ecfg
-        self.params = params
-        self.device = params.device
+        self.mesh = mesh if mesh is not None \
+            else make_serve_mesh(ecfg.mesh_shards)
+        self.params = self._place_params(params, policy)
+        self.device = self.params.device
+        pool = kv_pool_sharding(self.mesh, cfg)
+        kv_heads = cfg.n_kv_heads
+        if pool is not None and pool[3] is not None:
+            kv_heads //= self.mesh.n_shards
         self.cache = init_paged_cache(
             cfg, ecfg.n_pages, ecfg.page_size,
-            dtype=torch_dtype(ecfg.cache_dtype), device=self.device)
+            dtype=torch_dtype(ecfg.cache_dtype), device=self.device,
+            kv_heads=kv_heads)
         self.prefix = PrefixIndex(ecfg.page_size)
-        self._prefill_fn, self._decode_fn = _paged_steps(
-            cfg, policy, ecfg.attn_impl)
+        self._prefill_fn, self._decode_fn = self._steps(policy)
         self._obs = obs             # Tracer: events + metrics registry
         self._now = clock           # virtual-clock read: now() -> float
         # rid -> (index generation, matched, pages): memoized prefix
@@ -310,6 +331,37 @@ class PagedKVBackend(SequenceBackend):
         self._match_memo: dict[int, tuple[int, int, list[int]]] = {}
         self.n_forwards = 0
         self.n_prefill_forwards = 0
+
+    # -- mesh seam ----------------------------------------------------------
+
+    def _place_params(self, params, policy: ArithmeticPolicy):
+        """The rank's part of the parameters; the model itself on the
+        single-device mesh. A whole model is cut into a new one; a part
+        built already (`tensor_parallel.init_shard`,
+        `bridge.params_from_numpy(mesh=)`) must be this rank's under
+        this policy's placement."""
+        if self.mesh.is_single:
+            return params
+        from repro_torch.parallel import tensor_parallel
+        rank, n = self.mesh.handle.rank, self.mesh.n_shards
+        if getattr(params, "placement", None) is None:
+            return tensor_parallel.shard_of(params, self.cfg, rank, n,
+                                            policy)
+        want = param_shardings(self.mesh, self.cfg,
+                               modellib.empty(self.cfg, device="meta"),
+                               policy)
+        if params.placement != want or params.shard_rank != rank:
+            raise ValueError(
+                f"params hold rank {params.shard_rank}'s part under another "
+                f"placement than rank {rank}'s of a {n}-way mesh under "
+                f"policy {policy.mode!r}")
+        return params
+
+    def _steps(self, policy: ArithmeticPolicy):
+        """The (prefill, decode) step pair of one device, routing the
+        engine config's `attn_impl` to the gather or fused attention
+        core; `ShardedPagedBackend` overrides it."""
+        return _paged_steps(self.cfg, policy, self.ecfg.attn_impl)
 
     # -- admission ----------------------------------------------------------
 
@@ -768,13 +820,21 @@ class StateSlotBackend(SequenceBackend):
 
 def make_backend(cfg: ModelConfig, ecfg: EngineConfig,
                  policy: ArithmeticPolicy, params, obs: Tracer,
-                 clock) -> SequenceBackend:
-    """Route a model family to its sequence backend; refuse, by name,
-    what is not ported yet."""
-    if ecfg.mesh_shards > 1:
-        raise NotImplementedError(
-            f"mesh_shards={ecfg.mesh_shards}: the tensor-parallel serve "
-            f"mesh is not ported yet (set mesh_shards=1)")
+                 clock, mesh: ServeMesh | None = None) -> SequenceBackend:
+    """Route a model family (and mesh) to its sequence backend. `mesh`
+    is the engine's serve-mesh seam (default: from ecfg.mesh_shards); a
+    multi-shard mesh routes the paged families through the
+    tensor-parallel `ShardedPagedBackend`."""
+    mesh = mesh if mesh is not None else make_serve_mesh(ecfg.mesh_shards)
+    if not mesh.is_single:
+        from repro_torch.serve.sharded_backend import ShardedPagedBackend
+        if cfg.family in ShardedPagedBackend.families:
+            return ShardedPagedBackend(cfg, ecfg, policy, params, obs,
+                                       clock, mesh=mesh)
+        raise ValueError(
+            f"family {cfg.family!r} has no multi-device backend "
+            f"(state-slot families serve single-device; set "
+            f"mesh_shards=1)")
     if policy.mode == "artemis" and policy.sigma_analog > 0.0:
         raise NotImplementedError(
             f"sigma_analog={policy.sigma_analog}: the analog readout "

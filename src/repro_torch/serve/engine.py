@@ -82,6 +82,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.serve import sampler
 from repro_torch.serve.backend import EngineConfig, make_backend
 from repro_torch.serve.cost import ArtemisCostModel
+from repro_torch.serve.mesh import make_serve_mesh
 from repro_torch.serve.obs import (
     PHASES,
     AdmitEvent,
@@ -122,9 +123,10 @@ class ServeEngine:
                                      n_shards=ecfg.mesh_shards)
         self.obs = Tracer(level=ecfg.observability)
         self.now = 0.0
+        self.mesh = make_serve_mesh(ecfg.mesh_shards)
         self.backend = make_backend(
             cfg, ecfg, policy, params,
-            obs=self.obs, clock=lambda: self.now)
+            obs=self.obs, clock=lambda: self.now, mesh=self.mesh)
         self.scheduler = Scheduler(
             SchedulerConfig(policy=ecfg.scheduler),
             self.cost, ecfg.prefill_chunk,

@@ -318,15 +318,18 @@ class PagedKVCache:
 
 
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
-                     dtype=torch.float32, device="cuda") -> PagedKVCache:
+                     dtype=torch.float32, device="cuda",
+                     kv_heads: int | None = None) -> PagedKVCache:
     """Build the device page pool: two zeroed (L, n_pages, page, KV, Dh)
-    tensors on `device`."""
+    tensors on `device`; `kv_heads` (default: the config's) is a
+    tensor-parallel rank's part of the KV heads."""
     if cfg.family not in ("dense", "moe"):
         raise ValueError(
             f"paged KV cache needs an attention family, got {cfg.family!r}")
     device = resolve_device(device)
-    kv_heads, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    shape = (cfg.n_layers, n_pages, page_size, kv_heads, hd)
+    hd = cfg.resolved_head_dim
+    shape = (cfg.n_layers, n_pages, page_size, kv_heads or cfg.n_kv_heads,
+             hd)
     kv = {"k": torch.zeros(shape, dtype=dtype, device=device),
           "v": torch.zeros(shape, dtype=dtype, device=device)}
     return PagedKVCache(kv=kv, allocator=PageAllocator(n_pages, page_size))

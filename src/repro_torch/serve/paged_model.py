@@ -33,6 +33,10 @@ Inactive rows / padding chunk positions scatter into the reserved
 trash page 0 and are excluded from every valid query's mask. The pool
 `kv` is updated in place and returned.
 
+The chunked-prefill and decode builders take `tp`, a tensor-parallel
+rank's `parallel.tensor_parallel.TensorParallel`, for a model holding
+that rank's part of the weights (`serve.sharded_backend`).
+
 Every arithmetic policy runs: under a quantized one the projections go
 through the sc_matmul kernel (`L.mm`) and the attention contractions
 through `L.qeinsum`, with the gather core (the fused core is exact
@@ -106,7 +110,8 @@ def make_paged_prefill(cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
-def _attn_core(qg, kall, vall, positions, cfg: ModelConfig, policy):
+def _attn_core(qg, kall, vall, positions, cfg: ModelConfig, policy,
+               amax=None):
     """Default grouped-query attention over the gathered KV view.
     qg: (B, S, KV, G, Dh) grouped queries; kall/vall: (B, Smax, KV, Dh);
     positions: (B, S) absolute query positions. Returns the context
@@ -114,10 +119,11 @@ def _attn_core(qg, kall, vall, positions, cfg: ModelConfig, policy):
     quantized policy quantizes the whole gathered view (trash page, stale
     and idle slots included) with one scale, as the reference does.
     Scores and softmax in f32, probabilities cast to the compute dtype
-    before the value product."""
+    before the value product. `amax`: `qeinsum`'s tensor-parallel seam,
+    for a rank that holds some of the KV heads."""
     hd = qg.shape[-1]
     smax = kall.shape[1]
-    scores = L.qeinsum("bskgd,btkd->bkgst", qg, kall, policy)
+    scores = L.qeinsum("bskgd,btkd->bkgst", qg, kall, policy, amax)
     scores = scores.float() * (hd ** -0.5)
     # page j of a block table holds positions [j*page, (j+1)*page), so
     # the gathered view's kv position IS its index t
@@ -129,7 +135,7 @@ def _attn_core(qg, kall, vall, positions, cfg: ModelConfig, policy):
     scores = torch.where(keep[:, None, None, :, :], scores,
                          torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1).to(qg.dtype)
-    return L.qeinsum("bkgst,btkd->bskgd", probs, vall, policy)
+    return L.qeinsum("bkgst,btkd->bskgd", probs, vall, policy, amax)
 
 
 def make_fused_paged_core(cfg: ModelConfig, policy: ArithmeticPolicy):
@@ -174,9 +180,11 @@ def last_writers(page_idx: torch.Tensor, offset: torch.Tensor,
 
 def _paged_attn_block(lp, x, cfg: ModelConfig, policy, positions,
                       ckl, cvl, block_tables, page_idx, offset, writer,
-                      attn_core=None, paged_core=None):
+                      attn_core=None, paged_core=None, tp=None):
     """One layer's attention with paged K/V. x: (B, S, d); lp: the
-    layer's `Block`.
+    layer's `Block`. The head counts are the weights': a
+    tensor-parallel rank (`tp`) holding some of the heads attends over
+    those, with its part of the pool.
 
     ckl/cvl: this layer's page pool (P, page, KV, Dh), written in place;
     positions, page_idx, offset: (B, S) — the absolute position of every
@@ -190,11 +198,13 @@ def _paged_attn_block(lp, x, cfg: ModelConfig, policy, positions,
     pool + block tables — when it is set, the gather never happens.
     """
     b, s, _ = x.shape
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     p = lp.attn
-    qh = L.mm(x, p.wq, policy).reshape(b, s, h, hd)
-    kh = L.mm(x, p.wk, policy).reshape(b, s, kvh, hd)
-    vh = L.mm(x, p.wv, policy).reshape(b, s, kvh, hd)
+    hd = cfg.resolved_head_dim
+    h, kvh = p.wq.shape[-1] // hd, p.wk.shape[-1] // hd
+    mm = L.mm if tp is None else tp.mm
+    qh = mm(x, p.wq, policy).reshape(b, s, h, hd)
+    kh = mm(x, p.wk, policy).reshape(b, s, kvh, hd)
+    vh = mm(x, p.wv, policy).reshape(b, s, kvh, hd)
     if cfg.qk_norm:
         qh = L.headwise_rmsnorm(p.q_norm, qh, cfg.norm_eps)
         kh = L.headwise_rmsnorm(p.k_norm, kh, cfg.norm_eps)
@@ -224,26 +234,37 @@ def _paged_attn_block(lp, x, cfg: ModelConfig, policy, positions,
         core = attn_core if attn_core is not None else _attn_core
         ctx = core(qg, kall, vall, positions, cfg, policy)
     ctx = ctx.reshape(b, s, h * hd)
+    if tp is not None:
+        return tp.out_proj(ctx, p.wo, policy, k_full=cfg.n_heads * hd)
     return L.mm(ctx, p.wo, policy)
 
 
 def _paged_forward(model, cfg: ModelConfig, policy, tokens, kv,
                    block_tables, positions, page_idx, offset,
-                   attn_core=None, paged_core=None):
+                   attn_core=None, paged_core=None, tp=None):
     """Full-model paged step: embed -> layers -> logits (B, S, V). The
-    pool `kv` is written in place, layer by layer."""
-    x = model.embed_tokens(tokens)                               # (B, S, d)
+    pool `kv` is written in place, layer by layer. With `tp` (a
+    tensor-parallel rank's `TensorParallel`; `model` then holds that
+    rank's part of the weights and `kv` its part of the pool) the
+    embedding, the output projections, the experts and the logits go
+    through its seams, and every rank ends with the same logits."""
+    if tp is None:
+        x = model.embed_tokens(tokens)                           # (B, S, d)
+    else:
+        x = model.embed_tokens(tokens, lookup=tp.embedding)
     writer = last_writers(page_idx, offset, kv["k"].shape[2])
     for li, lp in enumerate(model.layers):
         x = x + _paged_attn_block(
             lp, L.rmsnorm(lp.ln1.scale, x, cfg.norm_eps), cfg, policy,
             positions, kv["k"][li], kv["v"][li], block_tables, page_idx,
-            offset, writer, attn_core=attn_core, paged_core=paged_core)
+            offset, writer, attn_core=attn_core, paged_core=paged_core,
+            tp=tp)
         f, _ = transformer.block_ffn(
-            lp, L.rmsnorm(lp.ln2.scale, x, cfg.norm_eps), cfg, policy)
+            lp, L.rmsnorm(lp.ln2.scale, x, cfg.norm_eps), cfg, policy, tp=tp)
         x = x + f
     x = L.rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
-    return model.logits(x), kv                                   # (B, S, V)
+    logits = model.logits(x) if tp is None else tp.logits(model, x)
+    return logits, kv                                            # (B, S, V)
 
 
 # ---------------------------------------------------------------------------
@@ -253,7 +274,7 @@ def _paged_forward(model, cfg: ModelConfig, policy, tokens, kv,
 
 def make_paged_chunked_prefill(cfg: ModelConfig,
                                policy: ArithmeticPolicy = ArithmeticPolicy(),
-                               attn_core=None, paged_core=None):
+                               attn_core=None, paged_core=None, tp=None):
     """Returns chunked_prefill(model, tokens, kv, block_tables,
     start_pos, chunk_lens, active, write_from) -> (logits (B, C, V), kv).
 
@@ -284,7 +305,8 @@ def make_paged_chunked_prefill(cfg: ModelConfig,
         offset = torch.where(do_write, positions % page, 0).long()
         return _paged_forward(model, cfg, policy, tokens, kv,
                               block_tables, positions, page_idx, offset,
-                              attn_core=attn_core, paged_core=paged_core)
+                              attn_core=attn_core, paged_core=paged_core,
+                              tp=tp)
 
     return chunked_prefill
 
@@ -296,7 +318,7 @@ def make_paged_chunked_prefill(cfg: ModelConfig,
 
 def make_paged_decode(cfg: ModelConfig,
                       policy: ArithmeticPolicy = ArithmeticPolicy(),
-                      attn_core=None, paged_core=None):
+                      attn_core=None, paged_core=None, tp=None):
     """Returns decode(model, tokens, kv, block_tables, seq_lens, active)
     -> (logits (B, V), kv). One token per lane at a fixed batch shape."""
     _check_family(cfg)
@@ -318,7 +340,7 @@ def make_paged_decode(cfg: ModelConfig,
         logits, kv = _paged_forward(model, cfg, policy, tokens, kv,
                                     block_tables, positions, page_idx,
                                     offset, attn_core=attn_core,
-                                    paged_core=paged_core)
+                                    paged_core=paged_core, tp=tp)
         return logits[:, 0], kv
 
     return decode

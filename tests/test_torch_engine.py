@@ -142,8 +142,12 @@ def test_traces_exercise_what_they_name():
 
 
 def test_multi_device_mesh_is_refused():
+    """A multi-shard engine serves only as a rank of a process group
+    (tests/test_torch_serve_mesh.py drives those); outside one it is
+    refused, before any weight is cut."""
     cfg, _, model = _weights()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="2-way serve mesh: this process "
+                                         "is in no process group"):
         ServeEngine(cfg, params=model, ecfg=EngineConfig(mesh_shards=2),
                     device="cpu")
 

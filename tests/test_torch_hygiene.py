@@ -60,6 +60,25 @@ def test_port_covers_the_arithmetic_slice():
         assert f"torch_{script}.py" in names
 
 
+def test_port_covers_the_mesh_slice():
+    """Tensor-parallel serving. The rank workers that spawned processes
+    run (`repro_torch.launch.mesh_cases.run`, `chip_smoke.mesh_rank`)
+    live in the port's own files, so the import-boundary checks below
+    cover every module a rank loads (and tests/test_torch_parallel.py
+    reads what a spawned rank has imported)."""
+    mods = _port_modules()
+    for name in ("repro_torch.launch.mesh", "repro_torch.launch.mesh_cases",
+                 "repro_torch.parallel", "repro_torch.parallel.comm",
+                 "repro_torch.parallel.sharding",
+                 "repro_torch.parallel.ring_attention",
+                 "repro_torch.parallel.split_kv",
+                 "repro_torch.parallel.tensor_parallel",
+                 "repro_torch.serve.mesh",
+                 "repro_torch.serve.sharded_backend"):
+        assert name in mods
+    assert "def mesh_rank(" in (REPO / "chip_smoke.py").read_text()
+
+
 def test_port_imports_without_jax_or_repro():
     """Every module of the port, chip_smoke.py and the port's scripts
     import with `jax`, `jaxlib` and `repro` made unimportable."""
