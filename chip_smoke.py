@@ -197,8 +197,21 @@ without printing a result:
  32. full-width qwen2_moe_a2_7b over 2 ranks (32 of its 64 padded
      experts and 2 of 4 shared a rank): a short exact drain; through 2
      layers at f32, token-identical to one device's drain;
+ 33. the sharded train step (`make_train_step(mesh=, rules=)`) over 2
+     ranks sharing the card over gloo: (a) full-width qwen3_8b through
+     2 layers at f32, batch 8 x 64, at (data 2) and (model 2), exact
+     and int8, each rank's gradient blocks and the metrics held against
+     one card's step on the same weights and batch (`TRAIN_PIN_TOL`),
+     sc_matmul 7 x 2 x 2 a rank an int8 step; (b) qwen2_moe_a2_7b at
+     (data 2) through 2 layers at f32, its ranks agreeing; (c)
+     full-width qwen3_8b through 2 layers, f32 master weights and bf16
+     compute, batch 8 x 128, at (data 2): 3 exact and 2 int8 steps, ms a
+     step, tok/s, each rank's peak GiB, sc_matmul 7 x 2 x 2 a rank an
+     int8 step and none an exact one (counts zeroed just before each
+     step); (d) `compressed_psum` in each mode on the card against the
+     same call on CPU copies, bit for bit; the phase's seconds;
  16. (last) sc_matmul against its plain version at every shape phases
-     7, 9, 14, 19, 22, 23, 24, 25, 26-29 and 30 gave it; print the
+     7, 9, 14, 19, 22, 23, 24, 25, 26-29, 30 and 33 gave it; print the
      kernels line, the card line, then the result line.
 Each phase's seconds are logged as it ends. Phase 4 also times each
 kernel at the qwen2_moe_a2_7b shapes (4b), flash_attention at
@@ -208,9 +221,9 @@ its plain version at the expert products' shapes and flash_attention
 at D 112, G 1 and at D 64, G 1 and G 7 (Sq 1280 = 256 + 1024, 1100,
 8 and 1 over 1312 cache slots).
 
-The ranks of phases 30-32 run this script's `mesh_rank`, which the
-spawned processes import by name; a failing rank fails the phase and
-the script.
+The ranks of phases 30-32 run this script's `mesh_rank` (phase 33's
+`shard_rank`), which the spawned processes import by name; a failing
+rank fails the phase and the script.
 
 Kernels: paged_attention (exact engine path; its rows instance at
 decode, its tensor-core tile instance at a prefill chunk), sc_matmul
@@ -1470,7 +1483,7 @@ def quantized_drains(cfg, sc_rows, n_forwards_exact) -> dict:
     trace = smoke_trace(cfg)
     model = transformer.init(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    drain(cfg, model, trace[:1], "gather",
+    drain(cfg, model, short_trace(cfg)[:1], "gather",
           ArithmeticPolicy(mode="int8"))              # warm-up
     runs = {}
     for mode in SC_MODES:
@@ -2829,8 +2842,8 @@ def first_quantized_activations(into: list, first: int = TIE_PRODUCTS):
     am = importlib.import_module("repro_torch.core.artemis_matmul")
     real = am._quantize_pair
 
-    def recording(a, b, policy, b_absmax=None):
-        out = real(a, b, policy, b_absmax)
+    def recording(a, b, policy, b_absmax=None, a_absmax=None):
+        out = real(a, b, policy, b_absmax, a_absmax)
         if len(into) < first:
             into.append(((a.detach() / out[2].detach()).float().cpu(),
                          out[0].cpu()))
@@ -3597,6 +3610,458 @@ def mesh_moe(moe_cfg) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 33: the sharded train step, 2 ranks sharing the card
+# ---------------------------------------------------------------------------
+
+SHARD_N = 2
+SHARD_PIN_LAYERS = 2
+SHARD_PIN_BATCH, SHARD_PIN_SEQ = 8, 64
+# the optimizer of the pins (the CPU tests'); the runs take phase 23's
+SHARD_PIN_OPT = dict(lr=1e-3, total_steps=10, warmup_steps=2)
+# the bf16 run's depth. Each layer adds 8 B a parameter a rank (f32
+# weights, gradients and AdamW moments, halved over the data ranks) and
+# about 2.3 GB a step of host-staged gathers and reduce-scatters: the
+# phase's time, not the card's memory, sets it (the log prints the
+# depth whose peaks would sum below SHARD_MEM_GIB)
+SHARD_RUN_LAYERS = 2
+SHARD_MEM_GIB = 75.0
+SHARD_RUN_STEPS = (("exact", 3), ("int8", 2))
+# the gradient leaves that phase 33d hands to compressed_psum
+SHARD_COMPRESS_LEAVES = ("layers.0.attn.wq", "layers.0.ffn.w_down",
+                         "layers.1.ln2.scale", "final_norm.scale")
+
+
+# this rank's `launch.mesh.rank_mesh` of each mesh shape, built once a
+# process (its groups are collective to build, and every job reuses them)
+_RANK_MESHES: dict = {}
+
+
+def _rank_mesh(shape: tuple):
+    from repro_torch.launch import mesh as meshlib
+    if shape not in _RANK_MESHES:
+        _RANK_MESHES[shape] = meshlib.rank_mesh(
+            meshlib.make_smoke_mesh(*shape))
+    return _RANK_MESHES[shape]
+
+
+def _shard_cfg(job):
+    from repro_torch import configs
+    cfg = configs.get_config(job["arch"], smoke=job.get("smoke", False))
+    cfg = dataclasses.replace(cfg, n_layers=job["layers"])
+    if job.get("f32"):
+        cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    return cfg
+
+
+def _shard_sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _compress_on_card(grads: dict, group) -> dict:
+    """Phase 33d: `compressed_psum` in each mode, two steps (the second
+    carries the error feedback), on the card and on CPU copies of the
+    same gradients over the same group: bit for bit."""
+    import torch
+    from repro_torch.parallel.compress import (compressed_psum,
+                                               init_compression)
+    out = {}
+    for mode in ("none", "bf16", "int8"):
+        res = []
+        for dev_grads in (grads, {k: g.cpu() for k, g in grads.items()}):
+            state = init_compression(dev_grads, mode)
+            steps_out = []
+            for _ in range(2):
+                mean, state = compressed_psum(dev_grads, state, group)
+                steps_out.append((mean, state.error))
+            res.append(steps_out)
+        same = all(
+            torch.equal(a[0][k].cpu(), b[0][k]) and (
+                a[1] is None or torch.equal(a[1][k].cpu(), b[1][k]))
+            for a, b in zip(*res) for k in grads)
+        out[mode] = same
+        if not same:
+            raise AssertionError(f"compressed_psum {mode}: the card parts "
+                                 f"from the CPU")
+    return out
+
+
+@contextlib.contextmanager
+def step_gradients(into: dict, ref: dict | None, keep: tuple = ()):
+    """Inside the block, each `adamw_update` the train step makes (through
+    the name `launch.steps` calls) first records, per leaf, how far the
+    rank's gradient block lies from `ref["grads"]` (the same block of one
+    card's gradient) over that leaf's max |g| (`ref["gmax"]`), and
+    clones the blocks named in `keep`; the update runs as it is."""
+    from repro_torch.launch import steps
+    real = steps.adamw_update
+
+    def recording(params, grads, *args, **kw):
+        if ref is not None:
+            into["errs"] = {
+                name: float((g - ref["grads"][name]).abs().max()
+                            / ref["gmax"][name]) for name, g in grads.items()}
+        into["kept"] = {k: grads[k].detach().clone() for k in keep}
+        return real(params, grads, *args, **kw)
+
+    steps.adamw_update = recording
+    try:
+        yield into
+    finally:
+        steps.adamw_update = real
+
+
+def one_card_blocks(cfg, batch, pol, opt_cfg, rmesh, device) -> dict:
+    """Phase 33a: one card's step on the whole model (the rank alone on
+    the card, `loss_and_grads` and `adamw_update` as the unsharded step
+    runs them): its loss and metrics, this rank's block of every
+    gradient under the sharded step's placement, and each leaf's max
+    |g|."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import model as modellib
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.parallel import data_parallel as dp
+    from repro_torch.parallel.sharding import param_shapes
+    full = modellib.init(cfg, seed=0, device=device, train=True)
+    opt = adamw_init(full)
+    loss, _, grads = steps.loss_and_grads(full, cfg, batch, pol)
+    grads = dict(grads)
+    metrics = adamw_update(full, grads, opt, opt_cfg)
+    specs = dp.train_placement(cfg, param_shapes(full), rmesh.mesh, pol)
+    out = dict(metrics={k: float(v) for k, v in
+                        dict(metrics, loss=loss).items()},
+               grads={k: dp.cut(g, specs[k], rmesh).clone()
+                      for k, g in grads.items()},
+               gmax={k: float(g.abs().max().clamp_min(1e-30))
+                     for k, g in grads.items()})
+    del full, opt, grads
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def shard_pin(device, job) -> dict:
+    """Phase 33a/b on this rank: the sharded step of a full-width config
+    through 2 layers at f32 over `make_smoke_mesh(*job["mesh"])`, from
+    `modellib.init(cfg, 0)`'s weights (each rank draws its part leaf by
+    leaf), on batch 0 of `make_batch` (8 x 64), one `make_train_step`
+    step a policy. With `against`, each rank first runs one card's step
+    on the whole model in turn (`one_card_blocks`), and the step's
+    gradient blocks are held against it (`step_gradients`). Returns the
+    step's metrics, launch counts and seconds, and the gradients'
+    errors; the parent holds them to `TRAIN_PIN_TOL`."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.policy import ArithmeticPolicy
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import steps
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    from repro_torch.parallel import data_parallel as dp
+    from repro_torch.parallel.sharding import ShardingRules
+    from repro_torch.parallel.tensor_parallel import named_shards
+    cfg, rules = _shard_cfg(job), ShardingRules()
+    rmesh = _rank_mesh(tuple(job["mesh"]))
+    rank, n = dist.get_rank(), dist.get_world_size()
+    opt_cfg = OptimizerConfig(**SHARD_PIN_OPT)
+    batch = make_batch(cfg, DataConfig(seq_len=SHARD_PIN_SEQ,
+                                       global_batch=SHARD_PIN_BATCH), 0,
+                       device=device)
+    label = f"{cfg.name} {meshlib.mesh_name(rmesh.mesh)}"
+    out = dict(coords=rmesh.coords)
+    for mode in job["modes"]:
+        pol = ArithmeticPolicy(mode=mode)
+        ref = None
+        t0 = time.perf_counter()
+        if job.get("against", True):
+            for turn in range(n):
+                if rank == turn:
+                    ref = one_card_blocks(cfg, batch, pol, opt_cfg, rmesh,
+                                          device)
+                dist.barrier()
+        one_s = time.perf_counter() - t0
+        part = dp.init_rank_model(cfg, rmesh, pol, seed=0, device=device)
+        state = adamw_init(named_shards(part))
+        step = steps.make_train_step(cfg, opt_cfg, pol, mesh=rmesh,
+                                     rules=rules)
+        keep = SHARD_COMPRESS_LEAVES if job.get("compress") \
+            and mode == "exact" else ()
+        seen: dict = {}
+        _shard_sync(device)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with step_gradients(seen, ref, keep):
+            part, state, metrics = step(part, state, batch)
+        _shard_sync(device)
+        step_s = time.perf_counter() - t0
+        counts = dict(launch_counts)
+        if rank == 0:
+            log(f"    [{label} {mode}] one card's steps {one_s:.1f} s, the "
+                f"sharded step {step_s:.1f} s")
+        res = dict(metrics={k: float(v) for k, v in metrics.items()},
+                   counts=counts, one_card_s=one_s, step_s=step_s,
+                   errs=seen.get("errs"))
+        if ref is not None:
+            res.update(metrics_one_card=ref["metrics"])
+        if keep:
+            out["compress"] = _compress_on_card(seen["kept"],
+                                                rmesh.group("data"))
+        out[mode] = res
+        del part, state, ref, seen
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def shard_run(device, job) -> dict:
+    """Phase 33c on this rank: full-width qwen3_8b through
+    `job["layers"]` layers (f32 master weights, bf16 compute, remat) at
+    (data 2), batch 8 x 128 of `make_batch`, the steps of
+    SHARD_RUN_STEPS on one model; each step's sc_matmul launches read
+    on this rank (counts zeroed just before), its ms, the rank's peak
+    memory; sc_matmul's shapes recorded for phase 16."""
+    import torch
+    from repro_torch.core.policy import ArithmeticPolicy
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import steps
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    from repro_torch.parallel import data_parallel as dp
+    from repro_torch.parallel.sharding import ShardingRules
+    from repro_torch.parallel.tensor_parallel import named_shards
+    cfg = _shard_cfg(job)
+    rmesh = _rank_mesh((SHARD_N, 1))
+    n_steps = sum(n for _, n in SHARD_RUN_STEPS)
+    opt_cfg = OptimizerConfig(total_steps=n_steps,
+                              warmup_steps=max(n_steps // 20, 5))
+    dcfg = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    part = dp.init_rank_model(cfg, rmesh, seed=0, device=device)
+    state = adamw_init(named_shards(part))
+    _shard_sync(device)
+    build_s = time.perf_counter() - t0
+    n_local = sum(p.numel() for p in part.parameters())
+    want_sc = 2 * dense_projections(cfg) * cfg.n_layers
+    shapes: set = set()
+    runs, step = {}, 0
+    for mode, n in SHARD_RUN_STEPS:
+        fn = steps.make_train_step(cfg, opt_cfg, ArithmeticPolicy(mode=mode),
+                                   mesh=rmesh, rules=ShardingRules())
+        ms, losses, launches, metrics = [], [], [], []
+        for _ in range(n):
+            batch = make_batch(cfg, dcfg, step, device=device)
+            _shard_sync(device)
+            reset_launch_counts()
+            t = time.perf_counter()
+            with sc_path_shapes(shapes):
+                part, state, m = fn(part, state, batch)
+            loss = float(m["loss"])
+            _shard_sync(device)
+            ms.append((time.perf_counter() - t) * 1e3)
+            counts = dict(launch_counts)
+            # the plain version runs on the CPU (a rehearsal): no launch
+            want = 0 if mode == "exact" or device.type != "cuda" else want_sc
+            if counts.get("sc_matmul", 0) != want or \
+                    counts.get("flash_attention", 0) or \
+                    counts.get("paged_attention", 0):
+                raise AssertionError(f"sharded step {step} ({mode}) "
+                                     f"launched {counts}, want sc_matmul "
+                                     f"{want}")
+            if not math.isfinite(loss):
+                raise AssertionError(f"sharded step {step}: loss {loss}")
+            losses.append(loss)
+            launches.append(counts.get("sc_matmul", 0))
+            metrics.append({k: float(v) for k, v in m.items()})
+            step += 1
+        runs[mode] = dict(ms=ms, losses=losses, launches=launches,
+                          metrics=metrics)
+    peak = (torch.cuda.max_memory_allocated(device) / 2**30
+            if device.type == "cuda" else 0.0)
+    del part, state
+    gc.collect()
+    return dict(runs=runs, peak_gib=peak, build_s=build_s,
+                n_local_params=n_local, launches_per_int8_step=want_sc,
+                sc_shapes=shapes)
+
+
+def shard_warm(device) -> None:
+    """A step of smoke qwen3_8b on this rank alone: every rank loads the
+    step's kernels and libraries at once, before the ranks take turns
+    with one card's step."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import model as modellib
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    for mode in ("exact", "int8"):
+        cfg = dataclasses.replace(configs.get_config("qwen3_8b", smoke=True),
+                                  compute_dtype="float32")
+        model = modellib.init(cfg, seed=0, device=device, train=True)
+        steps.make_train_step(cfg, OptimizerConfig())(
+            model, adamw_init(model),
+            make_batch(cfg, DataConfig(seq_len=16, global_batch=4), 0,
+                       device=device))
+    _shard_sync(device)
+    del model
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def shard_rank(device, jobs: list) -> list:
+    """One rank of phase 33 (`launch.mesh.spawn` runs it in each rank;
+    the rank imports this script by name)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shard_warm(device)
+    return [shard_pin(device, job) if job["kind"] == "pin"
+            else shard_run(device, job) for job in jobs]
+
+
+def shard_jobs(smoke: bool = False) -> list:
+    """Phase 33's jobs: (a) qwen3_8b at (data 2), with (d) on its
+    gradients, and at (model 2); (b) qwen2_moe_a2_7b at (data 2); (c)
+    the bf16 run."""
+    pin = dict(kind="pin", layers=SHARD_PIN_LAYERS, f32=True, smoke=smoke)
+    return [dict(pin, arch="qwen3_8b", mesh=(2, 1), modes=("exact", "int8"),
+                 compress=True),
+            dict(pin, arch="qwen3_8b", mesh=(1, 2), modes=("exact", "int8")),
+            dict(pin, arch="qwen2_moe_a2_7b", mesh=(2, 1), modes=("exact",),
+                 against=False),
+            dict(kind="run", arch="qwen3_8b", layers=SHARD_RUN_LAYERS,
+                 smoke=smoke)]
+
+
+def _ranks_agree(label: str, per_rank: list) -> None:
+    for other in per_rank[1:]:
+        if other != per_rank[0]:
+            raise AssertionError(f"{label}: the ranks' metrics differ: "
+                                 f"{per_rank}")
+
+
+def sharded_train(path_sc: set, smoke: bool = False) -> dict:
+    """Phase 33: the sharded train step over 2 ranks sharing the card."""
+    from repro_torch.launch import mesh as meshlib
+    device = "cpu" if smoke else "cuda"
+    jobs = shard_jobs(smoke)
+    if not smoke:
+        gc.collect()
+        free()
+    log(f"  card: {card_line()}" if not smoke else "  CPU rehearsal")
+    log(f"  transport: {meshlib.transport_line(SHARD_N, device)}")
+    t0 = time.perf_counter()
+    per_rank = meshlib.spawn(shard_rank, SHARD_N, jobs, device=device)
+    log(f"  {SHARD_N} ranks ran {len(jobs)} jobs in "
+        f"{time.perf_counter() - t0:.1f} s (process start included)")
+    out = {}
+    for i, job in enumerate(jobs):
+        res = [r[i] for r in per_rank]
+        name = (f"{job['arch']} "
+                + (meshlib.mesh_name(meshlib.make_smoke_mesh(*job["mesh"]))
+                   if job["kind"] == "pin" else "data2xmodel1 run"))
+        if job["kind"] == "pin":
+            for mode in job["modes"]:
+                _ranks_agree(f"{name} {mode}",
+                             [r[mode]["metrics"] for r in res])
+                r0 = res[0][mode]
+                sc = [r[mode]["counts"].get("sc_matmul", 0) for r in res]
+                want = (0 if mode == "exact" or smoke
+                        else 2 * dense_projections(_shard_cfg(job))
+                        * job["layers"])
+                if any(k != want for k in sc):
+                    raise AssertionError(f"{name} {mode}: sc_matmul "
+                                         f"launches {sc}, want {want}")
+                line = (f"  {name} {mode}: loss {r0['metrics']['loss']:.7f}, "
+                        f"the step {r0['step_s']:.1f} s, sc_matmul a rank "
+                        f"{sc}")
+                if r0["errs"] is not None:
+                    tol = TRAIN_PIN_TOL[mode]
+                    errs = sorted(((max(r[mode]["errs"][k] for r in res), k)
+                                   for k in r0["errs"]), reverse=True)
+                    one = r0["metrics_one_card"]
+                    rel = {k: abs(r0["metrics"][k] - one[k]) / abs(one[k])
+                           for k in ("loss", "grad_norm", "param_norm")}
+                    line += (f"; one card {one['loss']:.7f} (relative: "
+                             f"{', '.join(f'{k} {v:.2e}' for k, v in rel.items())}"
+                             f"), farthest gradient {errs[0][1]} "
+                             f"{errs[0][0]:.2e} of its max (bounds {tol})")
+                    r0.update(worst_grad=errs[0], rel=rel, tol=tol)
+                    if max(rel.values()) > tol["loss_rel"] or \
+                            errs[0][0] > tol["grad_of_max"]:
+                        raise AssertionError(
+                            f"{name} {mode}: the sharded step parts from "
+                            f"one card's: {rel}, {errs[:3]} ({tol})")
+                    for r in res:
+                        r[mode].pop("errs")
+                log(line)
+            if "compress" in res[0]:
+                log(f"  (d) compressed_psum, card against CPU bit for bit: "
+                    f"{[r['compress'] for r in res]}")
+            out[name] = res
+            continue
+        for mode, _ in SHARD_RUN_STEPS:
+            _ranks_agree(f"{name} {mode}", [r["runs"][mode]["metrics"]
+                                            for r in res])
+        tok = TRAIN_BATCH * TRAIN_SEQ
+        cfg = _shard_cfg(job)
+        reduced = (f"reduced: depth {job['layers']} of "
+                   f"{configs_full_layers(job['arch'])}, ranks {SHARD_N} "
+                   f"sharing one card")
+        for mode, _ in SHARD_RUN_STEPS:
+            ms = res[0]["runs"][mode]["ms"]
+            rest = statistics.median(ms[1:] or ms)
+            log(f"  {name} {mode}: steps {[f'{x:.1f}' for x in ms]} ms "
+                f"(median of the rest {rest:.1f}; {tok / rest * 1e3:.1f} "
+                f"tok/s); losses {res[0]['runs'][mode]['losses']}; "
+                f"sc_matmul a rank a step "
+                f"{[r['runs'][mode]['launches'] for r in res]}")
+        peak = sum(r["peak_gib"] for r in res)
+        per_layer = 16 * layer_params(cfg) / 2**30
+        fits = job["layers"] + int((SHARD_MEM_GIB - peak) // per_layer)
+        log(f"  {name}: {reduced}; each rank's peak "
+            f"{[round(r['peak_gib'], 2) for r in res]} GiB (sum "
+            f"{peak:.2f}; +{per_layer:.2f} GiB a layer: the ranks' peaks "
+            f"would sum below {SHARD_MEM_GIB} GiB up to about {fits} "
+            f"layers); {cfg.name}, f32 master weights, bf16 compute, "
+            f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat")
+        tables = cfg.padded_vocab * cfg.d_model * (
+            1 if cfg.tie_embeddings else 2)
+        share = tables / cfg.param_count()
+        log(f"  {name}: the embed and head tables are {share:.0%} of the "
+            f"weights a step gathers and reduce-scatters at {job['layers']} "
+            f"layers, so its ms and tok/s stand for their transfers through "
+            f"the host, not for a training step's layers")
+        for r in res:
+            path_sc |= r.pop("sc_shapes")
+        out["run"] = dict(res=res, reduced=reduced, fits_layers=fits,
+                          launches=[sum(r["runs"]["int8"]["launches"])
+                                    for r in res])
+    return out
+
+
+def layer_params(cfg) -> int:
+    """A dense decoder layer's parameters: the attention's four
+    matrices, the FFN's, the two norms (and the qk-norm scales)."""
+    hd = cfg.resolved_head_dim
+    attn = 2 * cfg.d_model * hd * (cfg.n_heads + cfg.n_kv_heads)
+    ffn = (3 if cfg.glu else 2) * cfg.d_model * cfg.d_ff
+    return attn + ffn + 2 * cfg.d_model + (2 * hd if cfg.qk_norm else 0)
+
+
+def configs_full_layers(arch: str) -> int:
+    from repro_torch import configs
+    return configs.get_config(arch).n_layers
+
+
 class Phases:
     """Logs each phase's title, and when the next one starts (or at
     `mark(None)`) the seconds the last one took, kept by its number."""
@@ -3875,6 +4340,13 @@ def main() -> int:
                 "experts a rank): short exact drain; f32 identity through "
                 "2 layers")
     mesh.update(qwen2_moe_a2_7b=mesh_moe(moe_cfg))
+    phases.mark("33. the sharded train step over 2 ranks sharing the card "
+                "(gloo): full-width qwen3_8b through 2 layers at f32 at "
+                "(data 2) and (model 2) against one card's step, exact and "
+                "int8; qwen2_moe_a2_7b at (data 2); a bf16 run at (data 2), "
+                "3 exact and 2 int8 steps; compressed_psum on the card "
+                "against the CPU")
+    sharded = sharded_train(path_sc)
     phases.mark("16. sc_matmul at every shape the main path gave it")
     sc_path = check_sc_path_shapes(path_sc)
     phases.mark(None)
@@ -3904,6 +4376,8 @@ def main() -> int:
                    for arch, r in recurrent_train.items()},
                 **{f"qwen3_8b sharded int8 (rank {r})": n for r, n in
                    enumerate(mesh["qwen3_8b"]["int8"]["launches"])},
+                **{f"qwen3_8b sharded train int8 (rank {r})": n for r, n in
+                   enumerate(sharded["run"]["launches"])},
                 "examples/torch_quickstart.py artemis_mxu forward":
                     ex["quickstart"]["forward_sc_matmul"]}
     fa_paths = {"qwen3_8b static": static["launches"],
@@ -3982,7 +4456,8 @@ def main() -> int:
                     "train": train, "arithmetic": arith,
                     "multimodal": multimodal,
                     "recurrent_train": recurrent_train,
-                    "mesh": mesh, "phase_s": phases.seconds}))
+                    "mesh": mesh, "sharded_train": sharded,
+                    "phase_s": phases.seconds}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

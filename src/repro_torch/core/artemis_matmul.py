@@ -45,11 +45,12 @@ from repro_torch.kernels.sc_matmul.sc_matmul import sc_matmul_quantized
 
 
 def _quantize_pair(a: torch.Tensor, b: torch.Tensor,
-                   policy: ArithmeticPolicy, b_absmax=None):
+                   policy: ArithmeticPolicy, b_absmax=None, a_absmax=None):
     """Per-tensor (activations) / per-column (weights) symmetric int8:
     (aq, bq, sa, sb). `b_absmax`: the whole weight's absmax when b is a
-    rank's part of it (`quant_scale`'s absmax_of)."""
-    sa = q.quant_scale(a, 8, policy.act_quant_axis)
+    rank's part of it; `a_absmax`: the whole batch's activation absmax
+    when a is a data rank's rows of it (`quant_scale`'s absmax_of)."""
+    sa = q.quant_scale(a, 8, policy.act_quant_axis, absmax_of=a_absmax)
     sb = q.quant_scale(b, 8, policy.weight_quant_axis, absmax_of=b_absmax)
     return q.quantize(a, sa), q.quantize(b, sb), sa, sb
 
@@ -102,20 +103,23 @@ def _artemis_noisy(aq: torch.Tensor, bq: torch.Tensor,
 def artemis_matmul(a: torch.Tensor, b: torch.Tensor,
                    policy: ArithmeticPolicy = ArithmeticPolicy(),
                    key: torch.Tensor | None = None,
-                   b_absmax: torch.Tensor | None = None) -> torch.Tensor:
+                   b_absmax: torch.Tensor | None = None,
+                   a_absmax: torch.Tensor | None = None) -> torch.Tensor:
     """Matmul through the ARTEMIS arithmetic ladder.
 
     a: (..., M, K) float; b: (K, N) float. Returns float32 (..., M, N).
     `key` (a `repro_torch.prng` key) draws the readout noise of the
     artemis mode with sigma_analog > 0, which needs one (ValueError
     without); the other modes ignore it. `b_absmax`: the absmax of the
-    whole weight when b is a tensor-parallel rank's part of it.
+    whole weight when b is a tensor-parallel rank's part of it;
+    `a_absmax`: the absmax of the whole activation when a is a data
+    rank's rows of it.
     """
     a = a.float()
     b = b.float()
     if policy.mode == "exact":
         return torch.matmul(a, b)
-    aq, bq, sa, sb = _quantize_pair(a, b, policy, b_absmax)
+    aq, bq, sa, sb = _quantize_pair(a, b, policy, b_absmax, a_absmax)
     if policy.mode == "artemis" and policy.sigma_analog > 0.0:
         acc = _artemis_noisy(aq, bq, policy, key)
     else:

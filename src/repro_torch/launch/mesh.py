@@ -25,7 +25,12 @@ same device). `transport_line` prints it.
 
 The mesh shapes (`make_production_mesh`, `make_smoke_mesh`) are axis
 names and sizes only, what the sharding rules
-(`repro_torch.parallel.sharding`) read. This module imports no jax.
+(`repro_torch.parallel.sharding`) read. `rank_mesh(shape)` is a rank's
+view of a mesh over the ranks of its group: its coordinates and one
+process group an axis (the ranks that differ from it along that axis
+only; under gloo with `LANES` - 1 lanes for its large collectives),
+what the sharded train step runs its collectives over. This module
+imports no jax.
 """
 from __future__ import annotations
 
@@ -43,9 +48,13 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel import comm
 
 # seconds a rank waits in a collective before it fails
 DEFAULT_TIMEOUT_S = 600.0
+# gloo groups over the same ranks that an axis's large collectives split
+# over (`parallel.comm.add_lanes`)
+LANES = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +92,70 @@ def mesh_chips(mesh: MeshShape) -> int:
 
 def mesh_name(mesh: MeshShape) -> str:
     return "x".join(f"{k}{v}" for k, v in mesh.shape.items())
+
+
+@dataclasses.dataclass(frozen=True)
+class RankMesh:
+    """A rank's view of a mesh: its `MeshShape`, its index along each
+    axis (`coords`) and, for each axis, the process group of the ranks
+    that share every other coordinate (`groups`). The ranks lie on the
+    mesh in row-major order, the last axis fastest, as the devices of a
+    jax mesh do: on a (data, model) mesh, rank r sits at data r //
+    model, model r % model."""
+    mesh: MeshShape
+    coords: dict
+    groups: dict
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return self.mesh.shape
+
+    def size(self, axis: str) -> int:
+        return self.mesh.shape.get(axis, 1)
+
+    def index(self, axis: str) -> int:
+        return self.coords.get(axis, 0)
+
+    def group(self, axis: str):
+        return self.groups[axis]
+
+
+def rank_mesh(mesh: MeshShape) -> RankMesh:
+    """This rank's view of `mesh` over the default group, whose size must
+    be `mesh_chips(mesh)`. Every rank of the group must call it, in the
+    same order: each axis's groups are built with `dist.new_group`, all
+    of them on every rank (the call is collective), and the rank keeps
+    the one it is in. They take the default group's transport."""
+    n = dist.get_world_size()
+    lanes = LANES if dist.get_backend() == "gloo" else 1
+    if n != mesh_chips(mesh):
+        raise ValueError(f"mesh {mesh_name(mesh)} needs {mesh_chips(mesh)} "
+                         f"ranks, the group has {n}")
+    rank = dist.get_rank()
+    sizes = [size for _, size in mesh.axes]
+    coords, rest = {}, rank
+    for name, size in reversed(mesh.axes):
+        coords[name] = rest % size
+        rest //= size
+    strides = [1] * len(sizes)
+    for i in range(len(sizes) - 2, -1, -1):
+        strides[i] = strides[i + 1] * sizes[i + 1]
+    groups = {}
+    for i, (name, size) in enumerate(mesh.axes):
+        # the ranks along axis i: every other coordinate fixed; the
+        # groups are enumerated by their first member, the same order
+        # on every rank
+        starts = sorted({r - ((r // strides[i]) % size) * strides[i]
+                         for r in range(n)})
+        for start in starts:
+            members = [start + j * strides[i] for j in range(size)]
+            g, *extra = [dist.new_group(members)
+                         for _ in range(lanes if size > 1 else 1)]
+            if rank in members:
+                groups[name] = g
+                if extra:
+                    comm.add_lanes(g, extra)
+    return RankMesh(mesh, {k: coords[k] for k, _ in mesh.axes}, groups)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """What a rank of a tensor-parallel group runs when the port is checked:
 drains through the serve engine, the collective attention cores on
-given inputs, and the refusals of the sharded backend. `launch.mesh.
+given inputs, the refusals of the sharded backend, the sharded train
+step and the compressed gradient all-reduce. `launch.mesh.
 spawn(run, n, cases, device=...)` runs a list of cases in every rank
 and returns each rank's results; `drain` also runs in a single process
 (one device, no group), so a check can hold the ranks against it. The
@@ -12,6 +13,10 @@ Cases are (kind, keyword arguments) pairs:
   ("drain", {...})      `drain`'s arguments
   ("attention", {...})  `attention`'s arguments
   ("refusals", {})      `refusals`
+  ("train", {...})      `train`'s arguments
+  ("train_refusal", {...})  `train_refusal`'s arguments
+  ("compress", {...})   `compress`'s arguments
+  ("lanes", {})         `lanes`
   ("backend", {})       the transport of the rank's group
   ("modules", {})       the top-level packages the rank imported
 """
@@ -249,6 +254,137 @@ def refusals(device) -> dict:
     return out
 
 
+def train(device, *, cfg, mesh: tuple, weights: dict, batches: list,
+          policy: str = "exact", opt: dict | None = None,
+          round_trip: bool = False) -> dict:
+    """The sharded train step over a `make_smoke_mesh(*mesh)` of this
+    group's ranks, from a reference parameter tree (`weights`, numpy):
+    each rank cuts its part (`data_parallel.shard_train_state`), takes
+    the gradients of the first batch (`steps.sharded_loss_and_grads`,
+    what the step runs) and then one step a batch. Returns the
+    gradients and the parameters after the steps, gathered whole, as
+    reference-layout trees, every step's metrics, and with `round_trip`
+    whether cutting and gathering back the start's model and state
+    gives them bit for bit."""
+    from repro_torch import bridge
+    from repro_torch.launch.mesh import make_smoke_mesh, rank_mesh
+    from repro_torch.launch.steps import (make_train_step,
+                                          sharded_loss_and_grads)
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    from repro_torch.parallel import data_parallel as dp
+    from repro_torch.parallel.context import use_sharding
+    from repro_torch.parallel.sharding import ShardingRules
+    rmesh = rank_mesh(make_smoke_mesh(*mesh))
+    pol, rules = ArithmeticPolicy(mode=policy), ShardingRules()
+    full = bridge.params_from_numpy(weights, cfg, device=device, train=True)
+    opt_state = adamw_init(full)
+    model, state = dp.shard_train_state(full, opt_state, cfg, rmesh, pol,
+                                        rules)
+    out = {}
+    if round_trip:
+        params, st = dp.gather_train_state(model, state, rmesh)
+        out["round_trip"] = all(
+            torch.equal(params[name], p) and
+            torch.equal(st["m"][name], opt_state["m"][name]) and
+            torch.equal(st["v"][name], opt_state["v"][name])
+            for name, p in full.named_parameters())
+    del full, opt_state
+
+    def to_torch(batch):
+        return {k: torch.from_numpy(np.array(v)).to(device)
+                for k, v in batch.items()}
+
+    with use_sharding(rmesh, rules):
+        loss, aux, grads = sharded_loss_and_grads(
+            model, cfg, to_torch(batches[0]), rmesh, pol)
+    out.update(loss=float(loss), aux=float(aux), grads=bridge.named_to_numpy(
+        (name, dp.whole(g, model.placement[name], rmesh))
+        for name, g in grads.items()))
+    step_fn = make_train_step(cfg, OptimizerConfig(**(opt or {})), pol,
+                              mesh=rmesh, rules=rules)
+    reset_launch_counts()
+    metrics = []
+    for batch in batches:
+        model, state, m = step_fn(model, state, to_torch(batch))
+        metrics.append({k: float(v) for k, v in m.items()})
+    params, _ = dp.gather_train_state(model, None, rmesh)
+    out.update(metrics=metrics, counts=dict(launch_counts),
+               params=bridge.named_to_numpy(params.items()))
+    return out
+
+
+def train_refusal(device, *, cfg, mesh: tuple) -> str:
+    """The message of the sharded train step's refusal of `cfg` on a
+    `make_smoke_mesh(*mesh)`."""
+    from repro_torch.launch.mesh import make_smoke_mesh, rank_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.parallel.sharding import ShardingRules
+    rmesh = rank_mesh(make_smoke_mesh(*mesh))
+    try:
+        make_train_step(cfg, OptimizerConfig(), mesh=rmesh,
+                        rules=ShardingRules())
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def compress(device, *, grads: list, mode: str, steps: int = 3) -> list:
+    """`compressed_psum` over the group, `steps` times: rank r sums
+    grads[r] (numpy by name), the error feedback carried from step to
+    step. Returns each step's (mean, error buffers) as numpy."""
+    from repro_torch.parallel.compress import (compressed_psum,
+                                               init_compression)
+    rank, _ = _world()
+    g = {k: torch.from_numpy(np.array(v)).to(device)
+         for k, v in grads[rank].items()}
+    state = init_compression(g, mode)
+    out = []
+    for _ in range(steps):
+        mean, state = compressed_psum(g, state, dist.group.WORLD)
+        out.append(({k: v.cpu().numpy() for k, v in mean.items()},
+                    None if state.error is None else
+                    {k: v.cpu().numpy() for k, v in state.error.items()}))
+    return out
+
+
+def lanes(device) -> dict:
+    """Each collective of `parallel.comm` over the group split over 3
+    extra lanes (every size split: `comm.LANE_MIN_BYTES` set to 0 for
+    the case) against the same collective on one lane, on
+    integer-valued f32 tensors (their sums are exact in any order):
+    {case: equal}."""
+    from repro_torch.parallel import comm
+    rank, n = _world()
+    one = dist.new_group(list(range(n)))
+    split, *extra = [dist.new_group(list(range(n))) for _ in range(4)]
+    comm.add_lanes(split, extra)
+    gen = torch.Generator().manual_seed(rank)
+    x = torch.randint(-1000, 1000, (4 * n, 6, 2 * n), generator=gen).float()
+    x = x.to(device)
+    min_bytes, comm.LANE_MIN_BYTES = comm.LANE_MIN_BYTES, 0
+    try:
+        return _lane_cases(x, split, one)
+    finally:
+        comm.LANE_MIN_BYTES = min_bytes
+
+
+def _lane_cases(x, split, one) -> dict:
+    from repro_torch.parallel import comm
+    out = {}
+    for op in ("sum", "max"):
+        out[f"all_reduce {op}"] = torch.equal(comm.all_reduce(x, split, op),
+                                              comm.all_reduce(x, one, op))
+    for dim in (0, 1):
+        out[f"all_gather {dim}"] = torch.equal(
+            comm.all_gather(x, split, dim), comm.all_gather(x, one, dim))
+    for dim in (0, 2):
+        out[f"reduce_scatter {dim}"] = torch.equal(
+            comm.reduce_scatter(x, split, dim),
+            comm.reduce_scatter(x, one, dim))
+    return out
+
+
 def backend(device) -> str:
     """The transport of this rank's group ("nccl" or "gloo")."""
     return dist.get_backend()
@@ -261,7 +397,9 @@ def modules(device) -> list[str]:
 
 
 _CASES = {"drain": drain, "attention": attention, "refusals": refusals,
-          "backend": backend, "modules": modules}
+          "train": train, "train_refusal": train_refusal,
+          "compress": compress, "lanes": lanes, "backend": backend,
+          "modules": modules}
 
 
 def run(device, cases: list) -> list:

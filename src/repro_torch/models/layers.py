@@ -34,6 +34,7 @@ from repro_torch.core.artemis_matmul import artemis_matmul
 from repro_torch.core.policy import ArithmeticPolicy
 from repro_torch.core.quantization import SC_LEVELS
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.parallel.context import data_absmax, data_size
 
 # ---------------------------------------------------------------------------
 # policy-routed matmuls
@@ -66,12 +67,15 @@ def mm(x: torch.Tensor, w: torch.Tensor, policy: ArithmeticPolicy,
     Under a `LanePolicy` x is (B, ..., K) over B independent lanes.
     `b_absmax`, the whole weight's absmax when w is a tensor-parallel
     rank's part of it (`TensorParallel.mm`), gives a quantized policy
-    the single-device scale."""
+    the single-device scale; inside a data-parallel sharding context
+    the activation's scale is the whole batch's
+    (`parallel.context.data_absmax`)."""
     if policy.mode == "exact":
         return torch.matmul(x, w.to(x.dtype))
     if isinstance(policy, LanePolicy):
         policy = dataclasses.replace(policy, act_quant_axis=_lane_axes(x))
-    return artemis_matmul(x, w, policy, b_absmax=b_absmax).to(x.dtype)
+    return artemis_matmul(x, w, policy, b_absmax=b_absmax,
+                          a_absmax=data_absmax(x, policy)).to(x.dtype)
 
 
 def _int_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -90,14 +94,20 @@ def _quant_einsum(spec: str, a: torch.Tensor, b: torch.Tensor,
     (artemis included) is a plain int8 contraction here. Under a
     `LanePolicy` both operands and the output lead with the lane axis,
     and each lane's operands take their own scales. `amax` (see
-    `qeinsum`) turns each operand's absmax into the whole tensor's."""
+    `qeinsum`) turns each operand's absmax into the whole tensor's; in
+    a data-parallel sharding context that is the max over the data
+    ranks too."""
     lanes = isinstance(policy, LanePolicy)
     if lanes:
         sa = q.quant_scale(a, 8, _lane_axes(a))
         sb = q.quant_scale(b, 8, _lane_axes(b))
-    elif amax is not None:
-        sa = q.quant_scale(a, 8, absmax_of=amax(q.absmax(a)))
-        sb = q.quant_scale(b, 8, absmax_of=amax(q.absmax(b)))
+    elif amax is not None or data_size() > 1:
+        def whole(t):
+            m = q.absmax(t) if amax is None else amax(q.absmax(t))
+            over_data = data_absmax(m, policy)
+            return m if over_data is None else over_data
+        sa = q.quant_scale(a, 8, absmax_of=whole(a))
+        sb = q.quant_scale(b, 8, absmax_of=whole(b))
     else:
         sa = q.quant_scale(a, 8, policy.act_quant_axis)
         sb = q.quant_scale(b, 8, policy.act_quant_axis)
@@ -263,7 +273,7 @@ def attention(p, x: torch.Tensor, dims: AttnDims, *, positions,
               kv_positions=None, policy=ArithmeticPolicy(), qk_norm=False,
               rope_theta=1e4, window=0, norm_eps=1e-6, cache=None,
               cache_index: int | torch.Tensor = 0,
-              attn_impl: str | None = None):
+              attn_impl: str | None = None, proj=None, out=None, amax=None):
     """GQA attention (counterpart of `repro.models.layers.attention`).
     x: (B, S, D); p: an object with wq, wk, wv, wo (and q_norm, k_norm
     when qk_norm).
@@ -280,17 +290,23 @@ def attention(p, x: torch.Tensor, dims: AttnDims, *, positions,
     at position cache_index + r (in-sequence: r), cache slot c at
     position c, so it takes no `kv_positions` and assumes `positions`
     are those contiguous ones.
+
+    The tensor-parallel seams (a rank holding some of the heads, `dims`
+    then its head counts): `proj(x, w, policy)` runs the q/k/v products
+    and `out(ctx, wo, policy)` the output projection in place of `mm`,
+    and `amax` goes to `qeinsum`.
     """
     impl = resolve_attn_impl(attn_impl, policy)
+    proj, out = proj or mm, out or mm
     per_lane = isinstance(cache_index, torch.Tensor)
     if impl == "flash" and (kv_positions is not None or per_lane):
         raise ValueError("attn_impl='flash' derives the key mask from "
                          "a host cache_index; it takes no kv_positions")
     b, s, _ = x.shape
     h, kv, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
-    qh = mm(x, p.wq, policy).reshape(b, s, h, hd)
-    kh = mm(x, p.wk, policy).reshape(b, s, kv, hd)
-    vh = mm(x, p.wv, policy).reshape(b, s, kv, hd)
+    qh = proj(x, p.wq, policy).reshape(b, s, h, hd)
+    kh = proj(x, p.wk, policy).reshape(b, s, kv, hd)
+    vh = proj(x, p.wv, policy).reshape(b, s, kv, hd)
     if qk_norm:
         qh = headwise_rmsnorm(p.q_norm, qh, norm_eps)
         kh = headwise_rmsnorm(p.k_norm, kh, norm_eps)
@@ -339,21 +355,21 @@ def attention(p, x: torch.Tensor, dims: AttnDims, *, positions,
     if impl == "flash":
         ctx = _flash_core(qh, kh, vh, window=window, q_offset=q_offset,
                           kv_len=kv_len, kv_cast=kv_cast)
-        return mm(ctx, p.wo, policy), new_kv
+        return out(ctx, p.wo, policy), new_kv
     if kv_positions is None:
         kv_positions = positions
 
     g = h // kv
     qg = qh.reshape(b, s, kv, g, hd)
-    scores = qeinsum("bskgd,btkd->bkgst", qg, kh, policy)
+    scores = qeinsum("bskgd,btkd->bkgst", qg, kh, policy, amax)
     scores = scores.float() * (hd ** -0.5)
     mask = _causal_mask(positions, kv_positions, window)       # (B,1,Sq,Sk)
     scores = torch.where(mask[:, :, None, :, :], scores,
                          torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx = qeinsum("bkgst,btkd->bskgd", probs, vh, policy)
+    ctx = qeinsum("bkgst,btkd->bskgd", probs, vh, policy, amax)
     ctx = ctx.reshape(b, s, h * hd)
-    return mm(ctx, p.wo, policy), new_kv
+    return out(ctx, p.wo, policy), new_kv
 
 
 # ---------------------------------------------------------------------------

@@ -42,13 +42,19 @@ def init(cfg: ModelConfig, seed: int = 0, device="cuda", train: bool = False):
 def apply(model, cfg: ModelConfig, inputs: dict, *,
           policy: ArithmeticPolicy = ArithmeticPolicy(),
           cache: dict | None = None, attn_impl: str | None = None,
-          remat: bool = False):
+          remat: bool = False, tp=None):
     """The family's forward: (logits, aux, new_cache). `remat` (the
     train step's) recomputes each layer in the backward pass: the
-    transformer's and rwkv6's layers, zamba2's Mamba2 layers."""
+    transformer's and rwkv6's layers, zamba2's Mamba2 layers. `tp`, a
+    tensor-parallel rank's seams, for the dense and MoE families (the
+    transformer's `apply`)."""
+    kw = {} if tp is None else {"tp": tp}
+    if tp is not None and cfg.family not in transformer.FAMILIES:
+        raise ValueError(f"family {cfg.family!r} has no tensor-parallel "
+                         f"forward (dense and MoE have)")
     return _FAMILY[cfg.family].apply(model, cfg, inputs, policy=policy,
                                      cache=cache, attn_impl=attn_impl,
-                                     remat=remat)
+                                     remat=remat, **kw)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -4,13 +4,19 @@ expert capacity, the expert FFNs, and the gate-weighted combine plus
 the always-on shared experts.
 
 The reference splits the tokens into data-parallel groups from its
-sharding context; on one device that is one group (G = 1), which is
-what this module computes:
+sharding context, G = the data ranks, group i the block of rows i; on
+one device that is one group (G = 1), which is what this module
+computes. A data rank of the sharded train step holds exactly its
+group's rows, so each rank computing one group of its own tokens IS
+the reference's grouping: capacity and drops per group. Only the aux
+loss reads the whole batch, through the sharding context
+(`parallel.context.data_sum`):
 
   1. router logits in f32 (exact unless `policy.apply_to_router`), pad
      experts masked to -1e30, softmax, top-k, gates renormalized;
   2. the Switch aux loss: router_aux_weight * E * sum(density *
-     mean probability), density from each token's first choice;
+     mean probability), density from each token's first choice, both
+     over the whole batch (every data rank's tokens);
   3. capacity C = max(int(capacity_factor * T * k / E), 1); the T * k
      choices stably sorted by expert id, each one's slot its rank
      within its expert; choices past C are dropped (their destination
@@ -45,6 +51,7 @@ from torch import nn
 from repro_torch.core.policy import EXACT, ArithmeticPolicy
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.context import data_size, data_sum
 
 NEG_INF = -1e30
 
@@ -61,10 +68,11 @@ class ExpertFFN(nn.Module):
         if glu:
             self.w_gate = L.param((n, d, f), dtype, device)
 
-    def expert(self, i: int):
-        """Expert i's weights, as `layers.ffn` takes them."""
-        return types.SimpleNamespace(
-            **{name: w[i] for name, w in self.named_parameters()})
+    def stacks(self) -> dict:
+        """The stacked weights by name, each read once (a data-parallel
+        rank's read gathers them)."""
+        return {name: getattr(self, name)
+                for name in ("w_up", "w_down", "w_gate") if hasattr(self, name)}
 
 
 class MoE(nn.Module):
@@ -85,8 +93,10 @@ def expert_ffn(p: ExpertFFN, xs: torch.Tensor, act: str, glu: bool,
                policy: ArithmeticPolicy) -> torch.Tensor:
     """xs: (n, C, d) -> (n, C, d), expert i on row block i."""
     if policy.mode != "exact":
-        return torch.stack([L.ffn(p.expert(i), xs[i], act, glu, policy)
-                            for i in range(xs.shape[0])])
+        ws = p.stacks()
+        return torch.stack([
+            L.ffn(types.SimpleNamespace(**{k: w[i] for k, w in ws.items()}),
+                  xs[i], act, glu, policy) for i in range(xs.shape[0])])
     dt = xs.dtype
     up = torch.bmm(xs, p.w_up.to(dt))
     if glu:
@@ -116,7 +126,16 @@ def route(p: MoE, xt: torch.Tensor, cfg: ModelConfig,
     gate = gate / gate.sum(dim=-1, keepdim=True)
 
     density = torch.bincount(ids[:, 0], minlength=e).float() / t
-    aux = cfg.router_aux_weight * e * torch.sum(density * probs.mean(dim=0))
+    mean_probs = probs.mean(dim=0)
+    n_data = data_size()
+    if n_data > 1:
+        # the whole batch's statistics (every data rank holds as many
+        # tokens); the sum's adjoint gives each rank's router, after the
+        # step averages gradients over the ranks, the whole batch's
+        # gradient of the aux loss
+        density = data_sum(density.detach()) / n_data
+        mean_probs = data_sum(mean_probs) / n_data
+    aux = cfg.router_aux_weight * e * torch.sum(density * mean_probs)
 
     cap = max(int(cfg.capacity_factor * t * k / e), 1)
     flat_ids = ids.reshape(t * k)

@@ -218,11 +218,12 @@ class Transformer(nn.Module):
         after the f32 sum over codebooks) as the reference casts.
         `lookup(tokens, table)` gathers the rows (the vocab-parallel
         seam: `TensorParallel.embedding`)."""
+        table = self.embed   # read once: a data-parallel rank's read gathers
         if self.cfg.modality == "audio":
-            x = sum(lookup(tokens[..., c], self.embed[c])
-                    for c in range(self.embed.shape[0]))
+            x = sum(lookup(tokens[..., c], table[c])
+                    for c in range(table.shape[0]))
         else:
-            x = lookup(tokens, self.embed)
+            x = lookup(tokens, table)
         x = x.to(self.compute_dtype)
         if self.cfg.scale_embeddings:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
@@ -233,14 +234,15 @@ class Transformer(nn.Module):
         """`transformer._logits`: (B, S, d) -> (B, S, V) [audio: (B, S,
         C, V)]."""
         audio = self.cfg.modality == "audio"
-        if self.head is None:
+        head = self.head   # read once: a data-parallel rank's read gathers
+        if head is None:
             w = self.embed.to(x.dtype)
             if audio:
                 return torch.einsum("bsd,cvd->bscv", x, w)
             return torch.matmul(x, w.T)
         if audio:
-            return torch.einsum("bsd,cdv->bscv", x, self.head.to(x.dtype))
-        return torch.matmul(x, self.head.to(x.dtype))
+            return torch.einsum("bsd,cdv->bscv", x, head.to(x.dtype))
+        return torch.matmul(x, head.to(x.dtype))
 
 
 def vocab_params(cfg: ModelConfig, dtype, device):
@@ -283,24 +285,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _block(lp: Block, x: torch.Tensor, cfg: ModelConfig, policy, positions,
-           kv_positions, ckv, index, impl):
-    """One decoder layer (the reference's `_block`): (x, aux or None)."""
+           kv_positions, ckv, index, impl, tp=None):
+    """One decoder layer (the reference's `_block`): (x, aux or None).
+    `tp`: a tensor-parallel rank's seams (`block_ffn`)."""
+    seams = dict(dims=_dims(cfg)) if tp is None else tp.attention()
     h, _ = L.attention(
-        lp.attn, L.rmsnorm(lp.ln1.scale, x, cfg.norm_eps), _dims(cfg),
+        lp.attn, L.rmsnorm(lp.ln1.scale, x, cfg.norm_eps),
         positions=positions, kv_positions=kv_positions, policy=policy,
         qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
         window=cfg.attn_window, norm_eps=cfg.norm_eps, cache=ckv,
-        cache_index=index, attn_impl=impl)
+        cache_index=index, attn_impl=impl, **seams)
     x = x + h
     f, a = block_ffn(lp, L.rmsnorm(lp.ln2.scale, x, cfg.norm_eps), cfg,
-                     policy)
+                     policy, tp=tp)
     return x + f, a
 
 
 def apply(model: Transformer, cfg: ModelConfig, inputs: dict, *,
           policy: ArithmeticPolicy = ArithmeticPolicy(),
           cache: dict | None = None, attn_impl: str | None = None,
-          remat: bool = False):
+          remat: bool = False, tp=None):
     """Forward pass (counterpart of `repro.models.transformer.apply`).
 
     inputs: {"tokens": (B, S) int [audio: (B, S, C)], optional
@@ -317,6 +321,11 @@ def apply(model: Transformer, cfg: ModelConfig, inputs: dict, *,
     load-balance losses; 0 for the dense family), new_cache). The
     cache's K/V tensors are updated IN PLACE, layer by layer, and
     returned in new_cache with index + S.
+    tp: a tensor-parallel rank's `parallel.tensor_parallel.
+    TensorParallel` (the sharded train step's), for a model holding
+    that rank's part of the weights: the embedding, the layers and the
+    logits go through its seams, and every rank ends with the same
+    logits. Text models, without a cache, through the gather core.
     """
     impl = L.resolve_attn_impl(attn_impl, policy)
     positions = inputs.get("positions")
@@ -325,7 +334,12 @@ def apply(model: Transformer, cfg: ModelConfig, inputs: dict, *,
             "attn_impl='flash' assumes contiguous positions (cache index "
             "+ arange(S)); explicit inputs['positions'] need "
             "attn_impl='gather'")
-    x = model.embed_tokens(inputs["tokens"])
+    if tp is not None and (cache is not None or impl != "gather"
+                           or cfg.modality != "text"):
+        raise ValueError("a tensor-parallel forward is a text model's, "
+                         "without a cache, through attn_impl='gather'")
+    x = model.embed_tokens(inputs["tokens"],
+                           lookup=F.embedding if tp is None else tp.embedding)
     prefix = inputs.get("prefix_embeds")
     if prefix is not None:
         x = torch.cat([prefix.to(x.dtype), x], dim=1)
@@ -349,7 +363,8 @@ def apply(model: Transformer, cfg: ModelConfig, inputs: dict, *,
         ckv = None
         if cache is not None:
             ckv = {"k": cache["k"][li], "v": cache["v"][li]}
-        args = (lp, x, cfg, policy, positions, kv_positions, ckv, index, impl)
+        args = (lp, x, cfg, policy, positions, kv_positions, ckv, index, impl,
+                tp)
         if remat:
             x, a = checkpoint(_block, *args, use_reentrant=False)
         else:
@@ -357,7 +372,7 @@ def apply(model: Transformer, cfg: ModelConfig, inputs: dict, *,
         if a is not None:
             aux = aux + a
     x = L.rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
-    logits = model.logits(x)
+    logits = model.logits(x) if tp is None else tp.logits(model, x)
     new_cache = None
     if cache is not None:
         new_cache = {"k": cache["k"], "v": cache["v"], "index": index + s}

@@ -64,26 +64,44 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
-def adamw_init(model: torch.nn.Module) -> dict:
-    """Zeroed f32 moments by parameter name, and step 0."""
+def _named(model) -> dict:
+    """{name: parameter} of an `nn.Module`, or the mapping given (a
+    sharded rank's blocks, `parallel.tensor_parallel.named_shards`)."""
+    return dict(model.named_parameters() if isinstance(
+        model, torch.nn.Module) else model)
+
+
+def adamw_init(model) -> dict:
+    """Zeroed f32 moments by parameter name, and step 0, for `model`'s
+    parameters (see `_named`)."""
+    params = _named(model)
+
     def zeros():
         return {name: torch.zeros_like(p, dtype=torch.float32)
-                for name, p in model.named_parameters()}
+                for name, p in params.items()}
+    device = next(iter(params.values())).device
     return {"m": zeros(), "v": zeros(),
-            "step": torch.zeros((), dtype=torch.int32, device=model.device)}
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _norm(tensors: dict) -> torch.Tensor:
+    return global_norm(tensors.values())
 
 
 @torch.no_grad()
-def adamw_update(model: torch.nn.Module, grads: dict, state: dict,
-                 cfg: OptimizerConfig) -> dict:
-    """One AdamW step on `model`'s parameters from `grads` (by name),
-    in place: the parameters, m, v and step. The gradients are scaled
-    in place too (by the clip factor, as f32). Returns the metrics
-    {"lr", "grad_norm", "param_norm"} as 0-dim f32 tensors."""
-    params = dict(model.named_parameters())
+def adamw_update(model, grads: dict, state: dict, cfg: OptimizerConfig,
+                 norm=_norm) -> dict:
+    """One AdamW step on `model`'s parameters (see `_named`) from
+    `grads` (by name), in place: the
+    parameters, m, v and step. Returns the metrics {"lr", "grad_norm",
+    "param_norm"} as 0-dim f32 tensors. `norm({name: tensor})` computes
+    both norms (a sharded step's counts each leaf once over its ranks,
+    `parallel.data_parallel.global_norm`); each parameter's update is
+    elementwise, so a rank's blocks update as the whole leaves would."""
+    params = _named(model)
     step = state["step"] + 1
     lr = cosine_schedule(cfg, step)
-    gnorm = global_norm(grads.values())
+    gnorm = norm(grads)
     scale = torch.clamp(_f32(cfg.clip_norm, gnorm)
                         / torch.clamp_min(gnorm, 1e-12), max=1.0)
     b1, b2 = cfg.b1, cfg.b2
@@ -102,5 +120,4 @@ def adamw_update(model: torch.nn.Module, grads: dict, state: dict,
             u.add_(cfg.weight_decay * p.float())
         p.sub_(u.mul_(lr))
     state["step"] = step
-    return {"lr": lr, "grad_norm": gnorm,
-            "param_norm": global_norm(params.values())}
+    return {"lr": lr, "grad_norm": gnorm, "param_norm": norm(params)}

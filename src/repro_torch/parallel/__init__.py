@@ -1,10 +1,11 @@
 """Multi-device building blocks of the port, on `torch.distributed`
-(counterpart of `repro.parallel`, its serving part): the partition
-specs (`sharding`), the collectives (`comm`), the token-dataflow
-attention cores (`ring_attention`, `split_kv_attention`) and the
-tensor-parallel placement and seams of the serving forward
-(`tensor_parallel`). The sharded train step's modules (`compress`,
-`context`) are not ported yet."""
+(counterpart of `repro.parallel`): the partition specs (`sharding`),
+the collectives (`comm`), the sharding context (`context`), the
+token-dataflow attention cores (`ring_attention`,
+`split_kv_attention`), the tensor-parallel placement and seams
+(`tensor_parallel`), the sharded train step's FSDP and data
+parallelism (`data_parallel`) and the compressed gradient all-reduce
+(`compress`)."""
 from repro_torch.parallel.ring_attention import (layer_dataflow_attention,
                                                  ring_attention)
 from repro_torch.parallel.sharding import (

@@ -36,14 +36,30 @@ So every scale is the single-device one.
 the rank's weights, the vocab-parallel embedding lookup (a masked
 lookup and a sum), the logits' gather, the output projections and the
 expert-parallel expert products. The forward reads what is split from
-the local weights' shapes; the placement's only other record it reads
-is `leaf_absmax`.
+the local weights' shapes; the placement's only other records it reads
+are `leaf_absmax` and whether the vocab is cut.
+
+The seams carry gradients (`parallel.comm`'s training collectives), so
+the same forward trains a rank's part of a dense or MoE model
+(`parallel.data_parallel`): the input of a column-split product sums
+its gradient over the ranks, a row-split product's partial sums and
+the vocab-split lookup sum with an identity backward, and a gathered
+output hands each rank its own block of the gradient. A training
+rank's weights change every step, so its model keeps no `leaf_absmax`
+but `tp_cut`: {weight: whether its matrix is cut over the ranks}, by
+tensor identity (weak keys), for every weight the forward reads (the
+data-parallel gather enters each weight it gathers). A quantized
+product on a cut one takes the group's max of its absmax; a product on
+any tensor not in the table is refused, as in serving.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.utils import parametrize
 
 from repro_torch.core.policy import ArithmeticPolicy
 from repro_torch.launch.mesh import MeshShape
@@ -178,8 +194,20 @@ class TensorParallel:
         self.group, self.rank, self.n = group, rank, n
         self.d_model = cfg.d_model
         self.vocab = cfg.padded_vocab
+        self.vocab_cut = AXIS in model.placement[
+            "embed" if cfg.tie_embeddings else "head"]
+        hd = cfg.resolved_head_dim
+        self.attn_cut = cfg.n_kv_heads % n == 0
+        div = n if self.attn_cut else 1
+        self.attn_dims = L.AttnDims(cfg.n_heads // div,
+                                    cfg.n_kv_heads // div, hd)
+        self.attn_k = cfg.n_heads * hd
+        # a training rank's {weight: cut} (module docstring), else None
+        self._cut = getattr(model, "tp_cut", None)
         # id -> (weight, its whole leaf's absmax or None if it is whole)
         self._weights = {}
+        if self._cut is not None:
+            return
         for name, p in model.named_parameters():
             cut = _cuts_products(name, model.placement[name], p.dim())
             if cut and name not in model.leaf_absmax:
@@ -192,7 +220,20 @@ class TensorParallel:
         """`layers.mm` on one of the rank's weights, a cut one scaled by
         its whole leaf's absmax. A quantized product on any other
         tensor (a slice or a copy of a weight) is refused: its scale
-        could not be the single device's."""
+        could not be the single device's. A training rank's weight
+        (`tp_cut`) is scaled by the group's max of its absmax where it
+        is cut, and its input then sums its gradient over the ranks."""
+        if self._cut is not None:
+            cut = self._cut.get(w)
+            if cut is None:
+                raise ValueError("a tensor-parallel training product takes "
+                                 "one of the rank's weights as read")
+            absmax = None
+            if cut:
+                x = comm.copy_sum_grad(x, self.group)
+                if policy.is_quantized():
+                    absmax = self.all_max(w.detach().abs().amax().float())
+            return L.mm(x, w, policy, b_absmax=absmax)
         if policy.mode == "exact":
             return L.mm(x, w, policy)
         held, absmax = self._weights.get(id(w), (None, None))
@@ -219,13 +260,30 @@ class TensorParallel:
         hit = (local >= 0) & (local < v_local)
         rows = F.embedding(torch.where(hit, local, 0), table)
         rows = torch.where(hit[..., None], rows, torch.zeros_like(rows))
-        return comm.all_reduce(rows.float(), self.group).to(table.dtype)
+        return comm.reduce_sum(rows.float(), self.group).to(table.dtype)
 
     def logits(self, model: nn.Module, x: torch.Tensor) -> torch.Tensor:
         """The model's logits (B, S, V), every rank's vocab columns
         gathered."""
-        out = model.logits(x)
-        return self.gather(out) if out.shape[-1] < self.vocab else out
+        if not self.vocab_cut:
+            return model.logits(x)
+        out = model.logits(comm.copy_sum_grad(x, self.group))
+        return comm.gather_split_grad(out, self.group, -1)
+
+    def partial_grad(self, name: str) -> bool:
+        """Whether a rank's gradient of whole leaf `name` is its heads'
+        part only, to be summed over the ranks: the qk-norm scales,
+        applied to each rank's own heads where they are split."""
+        return self.attn_cut and name.rsplit(".", 1)[-1] in ("q_norm",
+                                                             "k_norm")
+
+    def attention(self) -> dict:
+        """The keyword arguments of `layers.attention` on this rank's
+        heads: their counts, the products and the quantized scores'
+        group max where the heads are split."""
+        return dict(dims=self.attn_dims, proj=self.mm,
+                    out=functools.partial(self.out_proj, k_full=self.attn_k),
+                    amax=self.all_max if self.attn_cut else None)
 
     def out_proj(self, x: torch.Tensor, w: torch.Tensor,
                  policy: ArithmeticPolicy, k_full: int) -> torch.Tensor:
@@ -240,18 +298,40 @@ class TensorParallel:
                 raise ValueError("a quantized policy takes wo and w_down "
                                  "split by columns (placement)")
             part = torch.matmul(x.float(), w.float())
-            return comm.all_reduce(part, self.group).to(x.dtype)
+            return comm.reduce_sum(part, self.group).to(x.dtype)
         if x.shape[-1] < w.shape[0]:
-            x = self.gather(x)
+            x = comm.gather_split_grad(x, self.group, -1)
         y = self.mm(x, w, policy)
-        return self.gather(y) if y.shape[-1] < self.d_model else y
+        if y.shape[-1] < self.d_model:
+            return comm.gather_split_grad(y, self.group, -1)
+        return y
 
     def experts(self, stack: nn.Module, xs: torch.Tensor, run) -> torch.Tensor:
         """Expert parallelism: `run(stack, rows)` over this rank's block
         of the expert stack (xs: (E, C, d), one row block an expert),
         the blocks of every rank gathered back to (E, C, d)."""
-        n_local = stack.w_up.shape[0]
+        n_local = stored(stack, "w_up").shape[0]
         if n_local == xs.shape[0]:
             return run(stack, xs)
+        xs = comm.copy_sum_grad(xs, self.group)
         lo = self.rank * n_local
-        return self.gather(run(stack, xs[lo:lo + n_local]), dim=0)
+        return comm.gather_split_grad(run(stack, xs[lo:lo + n_local]),
+                                      self.group, 0)
+
+
+def stored(module: nn.Module, leaf: str) -> torch.Tensor:
+    """The tensor `module` stores for `leaf`: a data-parallel rank's
+    shard where the leaf is gathered at each use (`parametrize`), never
+    the gathered one."""
+    if parametrize.is_parametrized(module, leaf):
+        return module.parametrizations[leaf].original
+    return getattr(module, leaf)
+
+
+def named_shards(model: nn.Module):
+    """(parameter name, stored tensor) of every parameter, under the
+    names `param_specs` and the bridge read: a gathered leaf's
+    `parametrizations.<leaf>.original` is named `<leaf>`."""
+    for name, p in model.named_parameters():
+        yield name.replace("parametrizations.", "").replace(
+            ".original", ""), p
