@@ -270,6 +270,9 @@ INSTR_ISSUE_PER_S = 132 * 128 * 1.98e9
 # (two k added at once); the kernel issues 2.25, an IMAD for some adds
 ARTEMIS_INSTR_PER_PRODUCT = 2
 
+# phase 34's static path: batch, prompt and generated tokens (phase 8's)
+STATIC_ROOF = (8, 1024, 32)
+
 PA_TOL = dict(rtol=2e-4, atol=2e-4)   # f32 sums in another order, over
 #                                        up to a few hundred keys
 
@@ -2710,7 +2713,7 @@ def train_step_launches(cfg) -> int:
 
 
 def train_full_width(cfg, n_layers: int = TRAIN_LAYERS,
-                     plan=TRAIN_STEPS) -> dict:
+                     plan=TRAIN_STEPS, roofline: dict | None = None) -> dict:
     """Phases 23, 28 and 29: one model of `n_layers` layers of a
     full-width config (f32 master weights, bf16 compute, remat) trained
     through `make_train_step` on `make_batch` batches (internvl's carry
@@ -2719,7 +2722,10 @@ def train_full_width(cfg, n_layers: int = TRAIN_LAYERS,
     step's launches read as the difference around it: sc_matmul
     `train_step_launches` a quantized step (qwen3_8b: 7 projections a
     layer forward, 7 in the recompute), none an exact one, and the
-    attention kernels never; the phase's totals must be the sums."""
+    attention kernels never; the phase's totals must be the sums. With
+    `roofline` (phase 34), one more exact step is counted on the model
+    once the plan's steps are done (`roofline_train`), its results and
+    seconds put there."""
     import torch
     from repro_torch.core.policy import ArithmeticPolicy
     from repro_torch.data import DataConfig, make_batch
@@ -2804,6 +2810,10 @@ def train_full_width(cfg, n_layers: int = TRAIN_LAYERS,
         f"({ADAMW_BYTES_PER_PARAM} B x {n_params / 1e9:.3f} B parameters at "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); peak device memory "
         f"{peak:.2f} GiB")
+    if roofline is not None:
+        t = time.perf_counter()
+        roofline.update(roofline_train(tcfg, model, opt, opt_cfg, batch))
+        roofline["seconds"] = time.perf_counter() - t
     del model, opt, metrics
     free()
     return dict(config=f"{cfg.name} full width, {depth}, f32 master "
@@ -4062,6 +4072,188 @@ def configs_full_layers(arch: str) -> int:
     return configs.get_config(arch).n_layers
 
 
+# ---------------------------------------------------------------------------
+# phase 34: the roofline on the card
+# ---------------------------------------------------------------------------
+
+# card against meta: the FLOPs and the kernel calls are equal; the bytes
+# within ROOF_BYTES_RTOL (the train step's norms: the dry run's one-rank
+# mesh step sums the squares of its blocks through
+# `data_parallel.global_norm`, one stack and sum more than the
+# single-device step's `adamw.global_norm`); the counted peak within
+# ROOF_PEAK_RTOL of the allocator's over the step (its 512-byte rounding
+# and what the kernels keep beside their outputs)
+ROOF_BYTES_RTOL = 1e-6
+ROOF_PEAK_RTOL = 1e-2
+ROOF_PHASE_S = 60.0
+
+
+def roofline_card(hw) -> dict:
+    """Phase 34(a): the card against `HW_H100`: its name holds H100 and
+    its memory is the spec's within 1 GiB."""
+    import torch
+    props = torch.cuda.get_device_properties(0)
+    name = torch.cuda.get_device_name(0)
+    total_gib = props.total_memory / 2**30
+    log(f"  {card_line()} | {props.multi_processor_count} SMs | "
+        f"total_memory {props.total_memory} B = {total_gib:.3f} GiB | "
+        f"{hw.name}: {hw.hbm_gib} GiB, {hw.peak_flops / 1e12} TFLOP/s bf16, "
+        f"{hw.hbm_bw / 1e12} TB/s, {hw.ici_links} x {hw.ici_bw / 1e9} GB/s")
+    if "H100" not in name:
+        raise AssertionError(f"the card is {name!r}, not an H100")
+    if abs(total_gib - hw.hbm_gib) > 1.0:
+        raise AssertionError(f"the card holds {total_gib:.3f} GiB, "
+                             f"{hw.name} says {hw.hbm_gib}")
+    return dict(name=name, sms=props.multi_processor_count,
+                total_memory=props.total_memory, hbm_gib=hw.hbm_gib)
+
+
+def _count_on_card(step, args, inputs) -> dict:
+    """step(*args) once on the card under `roofline.count.Count`, the
+    kernels launching: the count, the kernels' launch-count deltas and
+    the allocator's peak over the step (its peak less what was live
+    before, plus the inputs, as the count counts them)."""
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.roofline.count import Count
+    torch.cuda.synchronize()
+    before = dict(launch_counts)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with Count(inputs) as count:
+        out = step(*args)
+        torch.cuda.synchronize()
+    alloc = torch.cuda.max_memory_allocated() - base + count.input_bytes
+    launches = {k: v - before.get(k, 0) for k, v in launch_counts.items()
+                if "." not in k and v != before.get(k, 0)}
+    return dict(count=count, launches=launches, alloc_peak=alloc, out=out)
+
+
+def _meta_count(cfg, kind: str, batch: int, seq: int, **kw):
+    """The same step through the dry run's path, on meta tensors, at a
+    one-rank mesh over a fake process group."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshlib
+    with dryrun.fake_group(1):
+        rmesh = meshlib.rank_mesh(meshlib.make_smoke_mesh(1, 1))
+        return dryrun.count_cell(cfg, ShapeCell(kind, seq, batch, kind),
+                                 rmesh, **kw)["count"]
+
+
+def hold_counts(label: str, card: dict, meta) -> dict:
+    """34(b): the card's count against meta's (module constants)."""
+    c = card["count"]
+    calls = dict(c.kernel_calls)
+    if c.flops != meta.flops:
+        raise AssertionError(f"{label}: {c.flops} FLOPs on the card, "
+                             f"{meta.flops} on meta")
+    if calls != dict(meta.kernel_calls) or calls != card["launches"]:
+        raise AssertionError(f"{label}: kernel calls {calls} on the card, "
+                             f"{dict(meta.kernel_calls)} on meta, launches "
+                             f"{card['launches']}")
+    bytes_rel = abs(c.bytes - meta.bytes) / meta.bytes
+    peak_rel = abs(meta.peak - card["alloc_peak"]) / card["alloc_peak"]
+    log(f"  {label}: {meta.flops / 1e9:.3f} GFLOP on both; bytes card "
+        f"{c.bytes / 1e9:.4f} GB, meta {meta.bytes / 1e9:.4f} GB (rel "
+        f"{bytes_rel:.2e}, within {ROOF_BYTES_RTOL}); kernel calls {calls} "
+        f"= launches; peak counted on meta {meta.peak / 2**30:.3f} GiB, on "
+        f"the card {c.peak / 2**30:.3f}, allocator "
+        f"{card['alloc_peak'] / 2**30:.3f} (rel {peak_rel:.2e}, within "
+        f"{ROOF_PEAK_RTOL}; inputs {meta.input_bytes / 2**30:.3f} GiB)")
+    if bytes_rel > ROOF_BYTES_RTOL:
+        raise AssertionError(f"{label}: bytes differ by {bytes_rel:.2e}")
+    if peak_rel > ROOF_PEAK_RTOL:
+        raise AssertionError(f"{label}: the counted peak is {peak_rel:.2e} "
+                             f"off the allocator's")
+    return dict(flops=meta.flops, bytes_meta=meta.bytes, bytes_card=c.bytes,
+                bytes_rel=bytes_rel, kernel_calls=calls,
+                launches=card["launches"], peak_meta=meta.peak,
+                peak_card_count=c.peak, peak_alloc=card["alloc_peak"],
+                peak_rel=peak_rel, input_bytes=meta.input_bytes)
+
+
+def roofline_static(cfg, model) -> dict:
+    """34(b) on phase 8's model: one static prefill (batch 8, prompt 1024,
+    an f32 cache of 1056 slots, flash) and one decode step at index 1024,
+    each counted on the card and on meta."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import model as modellib
+    b, s, gen_len = STATIC_ROOF
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(34)
+    tokens = torch.randint(2, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    cache = modellib.init_cache(cfg, b, s + gen_len, dtype=torch.float32,
+                                device="cuda")
+    params = dict(model.named_parameters())
+    prefill = _count_on_card(steps.make_prefill_step(cfg),
+                             (model, {"tokens": tokens}, cache),
+                             [params, tokens, cache])
+    logits, cache = prefill["out"]
+    nxt = steps.greedy_sample(logits)[:, None]
+    decode = _count_on_card(steps.make_decode_step(cfg), (model, nxt, cache),
+                            [params, nxt, cache])
+    kw = dict(cache_len=s + gen_len, cache_dtype=torch.float32)
+    out = dict(
+        prefill=hold_counts("prefill", prefill,
+                            _meta_count(cfg, "prefill", b, s, **kw)),
+        decode=hold_counts("decode", decode,
+                           _meta_count(cfg, "decode", b, s, cache_index=s,
+                                       **kw)))
+    del prefill, decode, cache, logits
+    free()
+    return out
+
+
+def roofline_train(tcfg, model, opt, opt_cfg, batch) -> dict:
+    """34(b) on phase 23's model, once its steps are timed: one more exact
+    step counted on the card and on meta."""
+    from repro_torch.core.policy import ArithmeticPolicy
+    from repro_torch.launch import steps
+    step = steps.make_train_step(tcfg, opt_cfg, ArithmeticPolicy())
+    card = _count_on_card(step, (model, opt, batch),
+                          [dict(model.named_parameters()), opt, batch])
+    meta = _meta_count(tcfg, "train", *batch["tokens"].shape,
+                       opt_cfg=opt_cfg)
+    out = hold_counts("train step", card, meta)
+    del card
+    return out
+
+
+def roofline_shares(cfg, hw, static: dict, train: dict,
+                    roof: dict) -> dict:
+    """34(c): each path's measured median (phases 8 and 23) beside its
+    counted terms under `hw` and its share of the bf16 peak."""
+    from repro_torch.roofline import model_flops
+    b, s, _ = STATIC_ROOF
+    tcfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    paths = (
+        ("prefill", static["prefill_ms"], roof["static"]["prefill"],
+         model_flops(cfg, b * s, "prefill", kv_len=s)),
+        ("decode", static["step_ms"], roof["static"]["decode"],
+         model_flops(cfg, b, "decode", kv_len=s + 1)),
+        ("train step", train["runs"]["exact"]["median_rest_ms"],
+         roof["train"], model_flops(tcfg, TRAIN_BATCH * TRAIN_SEQ, "train",
+                                    kv_len=TRAIN_SEQ)))
+    out = {}
+    for label, ms, counted, mflops in paths:
+        t_c = counted["flops"] / hw.peak_flops * 1e3
+        t_m = counted["bytes_meta"] / hw.hbm_bw * 1e3
+        bound = max(t_c, t_m)
+        share = mflops / (ms / 1e3 * hw.peak_flops)
+        out[label] = dict(ms=ms, t_compute_ms=t_c, t_memory_ms=t_m,
+                          step_time_ms=bound, bound_share=bound / ms,
+                          model_flops=mflops, peak_share=share)
+        log(f"  {label:10s}: measured {ms:9.2f} ms | t_compute {t_c:8.3f} "
+            f"ms, t_memory {t_m:8.3f} ms, step_time {bound:8.3f} ms "
+            f"({bound / ms:.1%} of the measured) | model_flops "
+            f"{mflops / 1e9:.1f} GFLOP: {share:.2%} of the bf16 peak "
+            f"({card_line()})")
+    return out
+
+
 class Phases:
     """Logs each phase's title, and when the next one starts (or at
     `mark(None)`) the seconds the last one took, kept by its number."""
@@ -4188,6 +4380,14 @@ def main() -> int:
                 "batch 8, prompt 1024, gen 32, exact (flash)")
     static = static_drain(cfg)
 
+    from repro_torch.roofline import HW_H100
+    phases.mark("34a. the roofline on the card: the card against HW_H100; "
+                "phase 8's static prefill and a decode step counted on the "
+                "card (kernels launching) and on meta (the dry run's path, "
+                "one rank)")
+    roof = dict(card=roofline_card(HW_H100))
+    roof["static"] = roofline_static(cfg, static["model"])
+
     phases.mark("9. static path: f32 token identity (flash vs gather), "
                 "int8 run")
     with sc_path_shapes(path_sc):
@@ -4274,8 +4474,14 @@ def main() -> int:
     phases.mark("23. full-width qwen3_8b training: 8 of 36 layers, f32 "
                 "master weights, bf16 compute, batch 8 x seq 128, remat; 4 "
                 "steps exact, 2 each int8, artemis_mxu, artemis")
+    roof["train"] = {}
     with sc_path_shapes(path_sc):
-        train = train_full_width(cfg)
+        train = train_full_width(cfg, roofline=roof["train"])
+    phases.mark("34c. the roofline on the card: phases 8 and 23's measured "
+                "medians beside their counted terms under HW_H100 (34b, "
+                "phase 23's step counted on the card and on meta, ran "
+                "inside phase 23)")
+    roof["shares"] = roofline_shares(cfg, HW_H100, static, train, roof)
     phases.mark("24. training pins: a step on the card against the CPU (2 "
                 "layers, f32, exact and int8); train() resumed from a "
                 "checkpoint on the card")
@@ -4350,6 +4556,12 @@ def main() -> int:
     phases.mark("16. sc_matmul at every shape the main path gave it")
     sc_path = check_sc_path_shapes(path_sc)
     phases.mark(None)
+    roof["seconds"] = (phases.seconds["34a"] + phases.seconds["34c"]
+                       + roof["train"]["seconds"])
+    log(f"phase 34: {roof['seconds']:.1f} s (34a {phases.seconds['34a']:.1f}"
+        f", 34b {roof['train']['seconds']:.1f}, 34c "
+        f"{phases.seconds['34c']:.1f}; at most {ROOF_PHASE_S:.0f} s? "
+        f"{roof['seconds'] <= ROOF_PHASE_S})")
 
     decode = timing[0]
     # sc_matmul's headline row: int8 at the decode shape of w_gate/w_up,
@@ -4457,7 +4669,7 @@ def main() -> int:
                     "multimodal": multimodal,
                     "recurrent_train": recurrent_train,
                     "mesh": mesh, "sharded_train": sharded,
-                    "phase_s": phases.seconds}))
+                    "roofline": roof, "phase_s": phases.seconds}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

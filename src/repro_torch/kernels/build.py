@@ -14,10 +14,18 @@ backward, so a wrapper raises where autograd would record through it
 `launch_counts` holds one plain integer per kernel: a wrapper adds one
 where it launches its kernel and nowhere else, so a caller can zero the
 counts, run the serve path, and see which kernels it went through.
+
+`kernel_call` wraps each wrapper's dispatch: while a work counter
+(`roofline.count.Count`) is open, it counts the call once with the
+work of the function the kernel computes, declared by the wrapper from
+the call's shapes and arguments, and nothing of the ops inside, so a
+kernel's work reads the same whether the kernel, its plain version or
+a meta tensor's shape computes it.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -35,6 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 launch_counts: collections.Counter = collections.Counter()
 _LIBS: dict[str, ctypes.CDLL] = {}
+# the open work counters (`roofline.count.Count`), innermost last
+COUNTERS: list = []
 
 
 def reset_launch_counts() -> None:
@@ -101,3 +111,16 @@ def refuse_autograd(name: str, route: str, *tensors) -> None:
         raise RuntimeError(
             f"{name} has no backward: a differentiable caller takes "
             f"{route} (or runs under torch.no_grad())")
+
+
+def kernel_call(name: str, work, int8: bool = False):
+    """The context a wrapper dispatches in: a no-op unless a work counter
+    is open; then every open counter counts one call of kernel `name`,
+    `work()` -> (FLOPs, bytes) of its function (on int8 operands if
+    `int8`), in place of the ops run inside."""
+    if not COUNTERS:
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    for counter in COUNTERS:
+        stack.enter_context(counter.kernel(name, work, int8))
+    return stack

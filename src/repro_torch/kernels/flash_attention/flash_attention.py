@@ -16,9 +16,12 @@ Entries, as in the reference:
 
 Dispatch is by the tensors' device, explicitly: CPU tensors go to the
 plain version (`ref.flash_attention_ref`), CUDA tensors to the kernel,
-and anything the kernel does not take raises. There is no fallback
-from the kernel to the plain version, nor from one kernel instance to
-the other.
+meta tensors (the dry run's) to outputs of the right shape and dtype
+and nothing else, and anything the kernel does not take raises. There
+is no fallback from the kernel to the plain version, nor from one
+kernel instance to the other. On every device the outputs have the
+kernel's layout (o a view of a (B, Sq, Hq, D) tensor), and a work
+counter counts the call by `work` (`build.kernel_call`).
 
 The kernel has two instances (`kernel_variant` picks one per call):
 "tile", bf16 tensor-core tiles of 128 query rows, for bf16 q over K/V
@@ -143,12 +146,7 @@ def _launch(q, k, v, *, causal, window, kv_len, q_offset, scale, bq, bk,
         # a copy of K/V (a whole cache) would cost more than the attention
         raise ValueError("flash_attention kernel needs K/V with unit stride "
                          "over D and 4-element aligned rows")
-    # o is laid out (B, Sq, Hq, D), returned as a (B, Hq, Sq, D) view: the
-    # attention layer's reshape to (B, Sq, Hq * D) is then free
-    o = torch.empty((b, sq, hq, d), dtype=torch.float32,
-                    device=q.device).transpose(1, 2)
-    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    nvis = torch.empty_like(lse)
+    o, lse, nvis = _outputs(q)
     round_kv = int(kv_cast == torch.bfloat16 and k.dtype == torch.float32)
     variant = variant or kernel_variant(q.dtype, k.dtype, kv_cast, sq, d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -185,8 +183,8 @@ def flash_attention_all(q, k, v, *, causal: bool = True,
     every device; the plain version computes the same function for both.
 
     Returns (o (B, Hq, Sq, D) f32, lse (B, Hq, Sq) f32, nvis (B, Hq, Sq)
-    f32: the K tiles each row's query tile executed). On CUDA, o is a
-    view of a (B, Sq, Hq, D) tensor.
+    f32: the K tiles each row's query tile executed); o is a view of a
+    (B, Sq, Hq, D) tensor, on every device.
     """
     build.refuse_autograd(NAME, "the gather core (attn_impl='gather')", q,
                           k, v)
@@ -200,13 +198,65 @@ def flash_attention_all(q, k, v, *, causal: bool = True,
               q_offset=int(q_offset), scale=scale, bq=bq, bk=bk,
               kv_cast=kv_cast)
     tensors = (q, k, v)
-    if all(t.device.type == "cpu" for t in tensors):
-        return flash_attention_ref(q, k, v, **kw)
-    if not all(t.device.type == "cuda" and t.device == q.device
-               for t in tensors):
-        raise ValueError(f"flash_attention: all operands must be on one "
-                         f"device, got {[str(t.device) for t in tensors]}")
-    return _launch(q, k, v, variant=variant, **kw)
+    with build.kernel_call(NAME, lambda: work(
+            q, k, causal=causal, window=window, kv_len=kv_len,
+            q_offset=int(q_offset))):
+        if all(t.device.type == "meta" for t in tensors):
+            return _outputs(q)
+        if all(t.device.type == "cpu" for t in tensors):
+            out = _outputs(q)
+            for dst, src in zip(out, flash_attention_ref(q, k, v, **kw)):
+                dst.copy_(src)
+            return out
+        if not all(t.device.type == "cuda" and t.device == q.device
+                   for t in tensors):
+            raise ValueError(f"flash_attention: all operands must be on "
+                             f"one device, got "
+                             f"{[str(t.device) for t in tensors]}")
+        return _launch(q, k, v, variant=variant, **kw)
+
+
+def _outputs(q) -> tuple:
+    """Empty (o, lse, nvis) in the kernel's layout, on q's device: o laid
+    out (B, Sq, Hq, D) and returned as a (B, Hq, Sq, D) view, so the
+    attention layer's reshape to (B, Sq, Hq * D) is free."""
+    b, hq, sq, d = q.shape
+    o = torch.empty((b, sq, hq, d), dtype=torch.float32,
+                    device=q.device).transpose(1, 2)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    return o, lse, torch.empty_like(lse)
+
+
+def _kept_pairs(sq: int, *, causal: bool, window: int | None, kv_len: int,
+               q_offset: int) -> tuple[int, int]:
+    """(the (query row, key) pairs the call's mask keeps, the keys any row
+    keeps), per (batch, query head): row r at position p = r + q_offset
+    keeps keys c < kv_len with, if causal, c <= p and, with a window W,
+    c > p - W."""
+    p = torch.arange(sq, dtype=torch.int64) + q_offset
+    hi = torch.clamp(p + 1, max=kv_len) if causal else torch.full_like(
+        p, kv_len)
+    lo = torch.clamp(p - window + 1, min=0) if window else torch.zeros_like(p)
+    pairs = int(torch.clamp(hi - lo, min=0).sum())
+    keys = max(0, int(hi.max()) - int(lo.min()))
+    return pairs, keys
+
+
+def work(q, k, *, causal: bool = True, window: int | None = None,
+         kv_len: int | None = None, q_offset: int = 0) -> tuple[int, int]:
+    """(FLOPs, bytes) of one call's function: 2 * D FLOPs of q.k and 2 *
+    D of p.v per kept (query head, key) pair; q read once, K and V once
+    over the keys some row keeps, o (f32), lse and nvis written once."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    kv_len = sk if kv_len is None else min(int(kv_len), sk)
+    pairs, keys = _kept_pairs(sq, causal=causal, window=window,
+                             kv_len=kv_len, q_offset=q_offset)
+    flops = 4 * d * hq * b * pairs
+    n_bytes = (q.numel() * q.element_size()
+               + 2 * b * hkv * keys * d * k.element_size()
+               + b * hq * sq * (d + 2) * 4)
+    return flops, n_bytes
 
 
 def _check_multiples(q, k, bq, bk):

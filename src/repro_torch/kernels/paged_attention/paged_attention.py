@@ -4,9 +4,12 @@
 
 Dispatch is by the tensors' device, explicitly: CPU tensors go to the
 plain version (`ref.paged_attention_ref`), CUDA tensors to the kernel,
-and anything the kernel does not take raises. There is no fallback
-from the kernel to the plain version, nor from one kernel instance to
-the other.
+meta tensors (the dry run's) to an output of the right shape and dtype
+and nothing else, and anything the kernel does not take raises. There
+is no fallback from the kernel to the plain version, nor from one
+kernel instance to the other. On every device the output is a
+contiguous (B, S, H, Dh) f32 tensor, and a work counter counts the call
+by `work` (`build.kernel_call`).
 
 The kernel has two instances (`kernel_variant` picks one per call):
 "rows" for few query rows per (lane, kv head), the engine's decode
@@ -112,9 +115,57 @@ def paged_attention(q, k_pages, v_pages, block_tables, positions, *,
     if scale is None:
         scale = 1.0 / (hd**0.5)
     tensors = (q, k_pages, v_pages, block_tables, positions)
-    if all(t.device.type == "cpu" for t in tensors):
-        return paged_attention_ref(q, k_pages, v_pages, block_tables,
-                                   positions, window=window, scale=scale)
+    with build.kernel_call(NAME, lambda: work(q, k_pages, block_tables,
+                                              positions, window=window)):
+        if all(t.device.type == "meta" for t in tensors):
+            return _output(q)
+        if all(t.device.type == "cpu" for t in tensors):
+            return _output(q).copy_(paged_attention_ref(
+                q, k_pages, v_pages, block_tables, positions, window=window,
+                scale=scale))
+        return _launch(q, k_pages, v_pages, block_tables, positions,
+                       window=window, scale=scale, variant=variant)
+
+
+def _output(q) -> torch.Tensor:
+    b, s, h, hd = q.shape
+    return torch.empty((b, s, h, hd), dtype=torch.float32, device=q.device)
+
+
+def work(q, k_pages, block_tables, positions, *,
+         window: int | None = None) -> tuple[int, int]:
+    """(FLOPs, bytes) of one call's function: 4 * Dh FLOPs (q.k and p.v)
+    per kept (query head, key) pair, a query at position p keeping keys
+    0..p (the last `window` of them with a window); each lane's K/V rows
+    from its first kept key to its last position read once, q, the
+    tables and the positions read once, the f32 context written once.
+    Meta positions hold no values: each lane then counts its table's
+    capacity (Pmax * page keys) for its keys and for every query."""
+    b, s, h, hd = q.shape
+    page, kvh = k_pages.shape[1], k_pages.shape[2]
+    if positions.device.type == "meta":
+        cap = block_tables.shape[1] * page
+        kept = min(cap, window) if window else cap
+        pairs, keys = b * s * kept, b * cap
+    else:
+        pos = positions.detach().to("cpu", torch.int64)
+        kept = torch.clamp(pos + 1, max=window) if window else pos + 1
+        pairs = int(kept.sum())
+        first = (torch.clamp(pos[:, 0] - window + 1, min=0) if window
+                 else torch.zeros_like(pos[:, 0]))
+        keys = int((pos[:, -1] + 1 - first).sum())
+    n_bytes = (2 * keys * kvh * hd * k_pages.element_size()
+               + q.numel() * q.element_size()
+               + block_tables.numel() * block_tables.element_size()
+               + positions.numel() * positions.element_size()
+               + b * s * h * hd * 4)
+    return 4 * hd * h * pairs, n_bytes
+
+
+def _launch(q, k_pages, v_pages, block_tables, positions, *, window, scale,
+            variant):
+    b, s, h, hd = q.shape
+    tensors = (q, k_pages, v_pages, block_tables, positions)
     if not all(t.device.type == "cuda" and t.device == q.device
                for t in tensors):
         raise ValueError(f"paged_attention: all operands must be on one "
@@ -140,7 +191,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, positions, *,
         q = q.clone()                # the tile instance reads 16 bytes
     bt = block_tables.to(torch.int32).contiguous()
     pos = positions.to(torch.int32).contiguous()
-    out = torch.empty((b, s, h, hd), dtype=torch.float32, device=q.device)
+    out = _output(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _entry()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

@@ -3,9 +3,13 @@ hand-written Hopper kernel (`csrc/sc_matmul.cu`), the port of the
 Pallas kernel `repro.kernels.sc_matmul.sc_matmul.sc_matmul_quantized`.
 
 Dispatch is by the tensors' device, explicitly: CPU tensors go to the
-plain version (`ref.sc_matmul_ref`), CUDA tensors to the kernel, and
-anything the kernel does not take raises. There is no fallback from the
-kernel to the plain version.
+plain version (`ref.sc_matmul_ref`), CUDA tensors to the kernel, meta
+tensors (the dry run's) to an output of the right shape and dtype and
+nothing else, and anything the kernel does not take raises. There is
+no fallback from the kernel to the plain version. On every device the
+output has the kernel's layout (the (M, N) corner of an (M, N padded
+to `DOT_N_GRANULE`) tensor), and a work counter counts the call by
+`work` (`build.kernel_call`).
 
 The kernel computes what `repro.core.artemis_matmul`'s quantized core
 computes, bit for bit: exact integer dots for `int8` and `artemis_mxu`
@@ -130,38 +134,69 @@ def sc_matmul_quantized(aq: torch.Tensor, bq: torch.Tensor, *,
     build.refuse_autograd(NAME, "the straight-through estimator "
                           "(core.artemis_matmul with policy.ste)", aq, bq)
     _check(aq, bq, mode, acc_depth, readout_bits)
-    if aq.device.type == "cpu" and bq.device.type == "cpu":
-        return sc_matmul_ref(aq, bq, mode=mode, acc_depth=acc_depth,
-                             readout_bits=readout_bits, rbar=rbar)
-    if not (aq.device.type == "cuda" and bq.device == aq.device):
-        raise ValueError(f"sc_matmul_quantized: both operands must be on "
-                         f"one device, got {aq.device} and {bq.device}")
-    if mode == "artemis" and acc_depth > MAX_ACC_DEPTH:
-        raise ValueError(f"sc_matmul kernel takes acc_depth <= "
-                         f"{MAX_ACC_DEPTH}, got {acc_depth}")
-    a, b = pad_operands(aq, bq, mode, acc_depth)
-    m, kp = a.shape
-    n, np_ = bq.shape[1], b.shape[1]
-    out = torch.empty((m, np_), device=aq.device,
+    with build.kernel_call(NAME, lambda: work(aq, bq), int8=True):
+        if aq.device.type == "meta" and bq.device.type == "meta":
+            return _output(aq.shape[0], bq.shape[1], mode, aq.device)
+        if aq.device.type == "cpu" and bq.device.type == "cpu":
+            return _output(aq.shape[0], bq.shape[1], mode,
+                           aq.device).copy_(sc_matmul_ref(
+                               aq, bq, mode=mode, acc_depth=acc_depth,
+                               readout_bits=readout_bits, rbar=rbar))
+        if not (aq.device.type == "cuda" and bq.device == aq.device):
+            raise ValueError(f"sc_matmul_quantized: both operands must be "
+                             f"on one device, got {aq.device} and "
+                             f"{bq.device}")
+        if mode == "artemis" and acc_depth > MAX_ACC_DEPTH:
+            raise ValueError(f"sc_matmul kernel takes acc_depth <= "
+                             f"{MAX_ACC_DEPTH}, got {acc_depth}")
+        a, b = pad_operands(aq, bq, mode, acc_depth)
+        m, kp = a.shape
+        n, np_ = bq.shape[1], b.shape[1]
+        out = torch.empty((m, np_), device=aq.device, dtype=torch.int32
+                          if mode == "int8" else torch.float32)
+        launch, scratch_bytes = _entries()
+        # artemis_mxu sums its two integer dots here first (split over K);
+        # artemis at decode every group's exact sums, for the scan
+        nbytes = scratch_bytes(m, np_, kp, _MODE_IDS[mode], acc_depth)
+        scratch = (torch.empty(nbytes, dtype=torch.uint8, device=aq.device)
+                   if nbytes else out)
+        table = (_table(acc_depth, readout_bits, aq.device)
+                 if mode == "artemis" else out)
+        levels = (0.0 if readout_bits is None
+                  else float(2**readout_bits - 1))
+        delta = (acc_depth * (SC_LEVELS - 1) / levels) if levels else 0.0
+        stream = torch.cuda.current_stream(aq.device).cuda_stream
+        err = launch(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                     scratch.data_ptr(), table.data_ptr(), m, np_, kp,
+                     _MODE_IDS[mode], acc_depth,
+                     -1 if readout_bits is None else readout_bits, delta,
+                     float(rbar), stream)
+        if err != 0:
+            raise RuntimeError(f"sc_matmul kernel launch failed: CUDA error "
+                               f"{err}")
+        build.launch_counts[NAME] += 1
+        return out if np_ == n else out[:, :n]
+
+
+def _padded_n(n: int) -> int:
+    return n + (-n) % DOT_N_GRANULE
+
+
+def _output(m: int, n: int, mode: str, device) -> torch.Tensor:
+    """An empty (M, N) product in the kernel's layout: the corner of an
+    (M, N padded) tensor, int32 for int8, f32 otherwise."""
+    out = torch.empty((m, _padded_n(n)), device=device,
                       dtype=torch.int32 if mode == "int8" else torch.float32)
-    launch, scratch_bytes = _entries()
-    # artemis_mxu sums its two integer dots here first (split over K);
-    # artemis at decode every group's exact sums, for the scan
-    nbytes = scratch_bytes(m, np_, kp, _MODE_IDS[mode], acc_depth)
-    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=aq.device)
-               if nbytes else out)
-    table = (_table(acc_depth, readout_bits, aq.device)
-             if mode == "artemis" else out)
-    levels = 0.0 if readout_bits is None else float(2**readout_bits - 1)
-    delta = (acc_depth * (SC_LEVELS - 1) / levels) if levels else 0.0
-    stream = torch.cuda.current_stream(aq.device).cuda_stream
-    err = launch(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 scratch.data_ptr(), table.data_ptr(), m, np_, kp,
-                 _MODE_IDS[mode], acc_depth,
-                 -1 if readout_bits is None else readout_bits, delta,
-                 float(rbar), stream)
-    if err != 0:
-        raise RuntimeError(f"sc_matmul kernel launch failed: CUDA error "
-                           f"{err}")
-    build.launch_counts[NAME] += 1
-    return out if np_ == n else out[:, :n]
+    return out[:, :n]
+
+
+def work(aq: torch.Tensor, bq: torch.Tensor) -> tuple[int, int]:
+    """(FLOPs, bytes) of one call's function in every mode: a multiply
+    and an add per (m, k, n) product, int8 operations, which the
+    roofline prices at the int8 tensor cores' rate (artemis_mxu's second
+    integer dot and artemis's readouts are the implementation's, not the
+    function's); A and B read once, the 4-byte (M, N) output written
+    once."""
+    m, k = aq.shape
+    n = bq.shape[1]
+    return 2 * m * k * n, m * k + k * n + 4 * m * n

@@ -13,6 +13,7 @@ Cases are (kind, keyword arguments) pairs:
   ("drain", {...})      `drain`'s arguments
   ("attention", {...})  `attention`'s arguments
   ("refusals", {})      `refusals`
+  ("serve_steps", {...})  `serve_steps`'s arguments
   ("train", {...})      `train`'s arguments
   ("train_refusal", {...})  `train_refusal`'s arguments
   ("compress", {...})   `compress`'s arguments
@@ -220,8 +221,10 @@ def attention(device, *, fn: str, q, k, v, q_positions=None,
 
 def refusals(device) -> dict:
     """The messages the sharded serve path raises on a multi-rank mesh:
-    the fused attention core, a state-slot family, and a rank's part cut
-    for another placement (int8's, served exact)."""
+    the fused attention core, a state-slot family, a rank's part cut
+    for another placement (int8's, served exact), and the
+    tensor-parallel serving steps' refusals of a cache holding every KV
+    head and of a model that is not a text one."""
     from repro_torch import configs
     from repro_torch.parallel.tensor_parallel import init_shard
     from repro_torch.serve.sharded_backend import ShardedPagedBackend
@@ -251,7 +254,70 @@ def refusals(device) -> dict:
                      clock=lambda: 0.0, mesh=mesh)
     except ValueError as e:
         out["state_slot"] = str(e)
+    out.update(_step_refusals(cfg, rank, n, device))
     return out
+
+
+def _step_refusals(cfg, rank: int, n: int, device) -> dict:
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_smoke_mesh, rank_mesh
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.parallel.tensor_parallel import init_shard
+    rmesh = rank_mesh(make_smoke_mesh(1, n))
+    pol = ArithmeticPolicy()
+    out = {}
+    part = init_shard(cfg, rank, n, pol, device=device)
+    whole = modellib.init_cache(cfg, 1, 8, dtype=torch.float32,
+                                device=device)
+    tokens = torch.zeros((1, 4), dtype=torch.int32, device=device)
+    try:
+        make_prefill_step(cfg, pol, mesh=rmesh)(part, {"tokens": tokens},
+                                                whole)
+    except ValueError as e:
+        out["whole_cache"] = str(e)
+    try:
+        make_prefill_step(configs.get_config("musicgen_large", smoke=True),
+                          pol, mesh=rmesh)
+    except ValueError as e:
+        out["audio"] = str(e)
+    return out
+
+
+def serve_steps(device, *, cfg, tokens, policy: str = "exact",
+                seed: int = 0) -> dict:
+    """One prefill of `tokens` (numpy (B, S)) and one greedy decode step
+    through `launch.steps`' serving steps over a (data 1, model n) mesh
+    of the group's ranks (`mesh=`): the rank's part of
+    `modellib.init(cfg, seed)` (`tensor_parallel.init_shard`) and an f32
+    cache of its KV heads. Returns both steps' logits, the cache's K
+    and V after the decode (on the CPU), the rank's KV heads, the
+    kernel calls the steps made (`roofline.count.Count`'s) and the
+    launch counts."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_smoke_mesh, rank_mesh
+    from repro_torch.parallel.data_parallel import tensor_parallel
+    from repro_torch.parallel.tensor_parallel import init_shard
+    from repro_torch.roofline.count import Count
+    rank, n = _world()
+    pol = ArithmeticPolicy(mode=policy)
+    rmesh = rank_mesh(make_smoke_mesh(1, n))
+    part = init_shard(cfg, rank, n, pol, seed=seed, device=device)
+    kv = tensor_parallel(part, cfg, rmesh).attn_dims.n_kv_heads
+    tok = torch.from_numpy(np.asarray(tokens)).to(device)
+    b, s = tok.shape
+    cache = modellib.init_cache(dataclasses.replace(cfg, n_kv_heads=kv), b,
+                                s + 1, dtype=torch.float32, device=device)
+    reset_launch_counts()
+    with Count() as count:
+        first, cache = steps.make_prefill_step(cfg, pol, mesh=rmesh)(
+            part, {"tokens": tok}, cache)
+        second, cache = steps.make_decode_step(cfg, pol, mesh=rmesh)(
+            part, steps.greedy_sample(first)[:, None], cache)
+    return dict(rank=rank, n=n, kv_heads=kv, counts=dict(launch_counts),
+                kernel_calls=dict(count.kernel_calls),
+                logits=[first.cpu(), second.cpu()],
+                k=cache["k"].cpu(), v=cache["v"].cpu(),
+                index=cache["index"])
 
 
 def train(device, *, cfg, mesh: tuple, weights: dict, batches: list,
@@ -397,6 +463,7 @@ def modules(device) -> list[str]:
 
 
 _CASES = {"drain": drain, "attention": attention, "refusals": refusals,
+          "serve_steps": serve_steps,
           "train": train, "train_refusal": train_refusal,
           "compress": compress, "lanes": lanes, "backend": backend,
           "modules": modules}

@@ -129,19 +129,34 @@ def _sharded_train_step(cfg, opt_cfg, policy, mesh, rules, remat):
     return train_step
 
 
+def _check_serve_mesh(cfg: ModelConfig, mesh) -> None:
+    if mesh is not None and mesh.size("model") > 1:
+        modellib.check_tp(cfg)
+
+
+def _serve_tp(model, cfg: ModelConfig, mesh):
+    """A serving rank's seams over the mesh's model ranks, or None."""
+    return None if mesh is None else dp.tensor_parallel(model, cfg, mesh)
+
+
 def make_prefill_step(cfg: ModelConfig,
                       policy: ArithmeticPolicy = ArithmeticPolicy(),
-                      attn_impl: str | None = None):
+                      attn_impl: str | None = None, mesh=None):
     """(model, batch, cache) -> (last_logits (B, V) [audio: (B, C, V)],
     cache). Writes the prompt (after a vlm batch's `prefix_embeds`)
-    into the cache and returns the next-token logits."""
+    into the cache and returns the next-token logits. With `mesh` (a
+    rank's `launch.mesh.RankMesh`), one rank's step: `model` holds its
+    part of the weights (`parallel.tensor_parallel.placement` over the
+    model ranks), `batch` and `cache` its rows."""
     L.resolve_attn_impl(attn_impl, policy)
+    _check_serve_mesh(cfg, mesh)
 
     @torch.no_grad()
     def prefill_step(model, batch, cache):
         logits, _, new_cache = modellib.apply(
             model, cfg, _model_inputs(batch), policy=policy,
-            cache=cache, attn_impl=attn_impl)
+            cache=cache, attn_impl=attn_impl,
+            tp=_serve_tp(model, cfg, mesh))
         return logits[:, -1], new_cache
 
     return prefill_step
@@ -149,17 +164,18 @@ def make_prefill_step(cfg: ModelConfig,
 
 def make_decode_step(cfg: ModelConfig,
                      policy: ArithmeticPolicy = ArithmeticPolicy(),
-                     attn_impl: str | None = None):
+                     attn_impl: str | None = None, mesh=None):
     """(model, tokens (B, 1) [audio: (B, 1, C)], cache) -> (logits (B,
     V) [audio: (B, C, V)], cache): ONE new token against the populated
-    KV cache."""
+    KV cache. `mesh` as in `make_prefill_step`."""
     L.resolve_attn_impl(attn_impl, policy)
+    _check_serve_mesh(cfg, mesh)
 
     @torch.no_grad()
     def decode_step(model, tokens, cache):
         logits, _, new_cache = modellib.apply(
             model, cfg, {"tokens": tokens}, policy=policy, cache=cache,
-            attn_impl=attn_impl)
+            attn_impl=attn_impl, tp=_serve_tp(model, cfg, mesh))
         return logits[:, -1], new_cache
 
     return decode_step

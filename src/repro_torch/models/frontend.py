@@ -15,9 +15,8 @@ pipeline and the static serve path synthesize deterministic stand-ins.
 
 `synth_prefix_embeds` draws through `repro_torch.prng.normal`, which is
 `jax.random.normal` bit for bit, so a prefix equals the reference's for
-the same key. The reference's `prefix_embed_spec` (a
-`jax.ShapeDtypeStruct` for its dry run, `launch/specs.py`) belongs to
-the XLA-bound tooling, which is not ported: it is left out here.
+the same key. The reference's `prefix_embed_spec` is the dry run's
+meta tensor in `launch/specs.py` (`batch_shapes`).
 """
 from __future__ import annotations
 

@@ -49,12 +49,20 @@ def apply(model, cfg: ModelConfig, inputs: dict, *,
     tensor-parallel rank's seams, for the dense and MoE families (the
     transformer's `apply`)."""
     kw = {} if tp is None else {"tp": tp}
-    if tp is not None and cfg.family not in transformer.FAMILIES:
-        raise ValueError(f"family {cfg.family!r} has no tensor-parallel "
-                         f"forward (dense and MoE have)")
+    if tp is not None:
+        check_tp(cfg)
     return _FAMILY[cfg.family].apply(model, cfg, inputs, policy=policy,
                                      cache=cache, attn_impl=attn_impl,
                                      remat=remat, **kw)
+
+
+def check_tp(cfg: ModelConfig) -> None:
+    """Refuse a tensor-parallel forward for a model that has none: the
+    dense and MoE text models have one."""
+    if cfg.family not in transformer.FAMILIES or cfg.modality != "text":
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} "
+                         f"({cfg.modality}) has no tensor-parallel forward "
+                         f"(the dense and MoE text models have)")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -125,7 +125,11 @@ def route(p: MoE, xt: torch.Tensor, cfg: ModelConfig,
     gate, ids = gate[:, :k], ids[:, :k]
     gate = gate / gate.sum(dim=-1, keepdim=True)
 
-    density = torch.bincount(ids[:, 0], minlength=e).float() / t
+    # the first choices counted per expert (bincount's counts, in a
+    # tensor whose shape does not depend on the ids: meta tensors have it)
+    first = ids[:, 0]
+    density = torch.zeros(e, dtype=first.dtype, device=first.device)
+    density = density.index_add_(0, first, torch.ones_like(first)).float() / t
     mean_probs = probs.mean(dim=0)
     n_data = data_size()
     if n_data > 1:

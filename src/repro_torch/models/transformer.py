@@ -322,10 +322,12 @@ def apply(model: Transformer, cfg: ModelConfig, inputs: dict, *,
     cache's K/V tensors are updated IN PLACE, layer by layer, and
     returned in new_cache with index + S.
     tp: a tensor-parallel rank's `parallel.tensor_parallel.
-    TensorParallel` (the sharded train step's), for a model holding
-    that rank's part of the weights: the embedding, the layers and the
-    logits go through its seams, and every rank ends with the same
-    logits. Text models, without a cache, through the gather core.
+    TensorParallel` (the sharded train step's, the dry run's serving
+    cells), for a model holding that rank's part of the weights: the
+    embedding, the layers and the logits go through its seams, and
+    every rank ends with the same logits. Text models only
+    (`models.model.check_tp`); a cache then holds the rank's KV heads
+    (`TensorParallel.attn_dims`).
     """
     impl = L.resolve_attn_impl(attn_impl, policy)
     positions = inputs.get("positions")
@@ -334,10 +336,11 @@ def apply(model: Transformer, cfg: ModelConfig, inputs: dict, *,
             "attn_impl='flash' assumes contiguous positions (cache index "
             "+ arange(S)); explicit inputs['positions'] need "
             "attn_impl='gather'")
-    if tp is not None and (cache is not None or impl != "gather"
-                           or cfg.modality != "text"):
-        raise ValueError("a tensor-parallel forward is a text model's, "
-                         "without a cache, through attn_impl='gather'")
+    if tp is not None and cache is not None and \
+            cache["k"].shape[3] != tp.attn_dims.n_kv_heads:
+        raise ValueError(f"a tensor-parallel rank's cache holds its "
+                         f"{tp.attn_dims.n_kv_heads} KV heads, got "
+                         f"{cache['k'].shape[3]}")
     x = model.embed_tokens(inputs["tokens"],
                            lookup=F.embedding if tp is None else tp.embedding)
     prefix = inputs.get("prefix_embeds")

@@ -45,11 +45,19 @@ there are lanes, each block's collective running on its own lane
 concurrently, and the results put back together. Each element still
 takes the same collective over the same ranks, so the result is the
 one-lane result. Under NCCL no group has lanes.
+
+Each of all_reduce, all_gather, reduce_scatter and ring_shift writes
+one record a call (one a tensor for ring_shift) to the open
+`roofline.collectives.recording()`s, before any lane split. On meta
+tensors ring_shift returns tensors of the same shapes and moves
+nothing (the dry run's ranks hold no data).
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.roofline import collectives
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 # the name torch gives the one-tensor reduce-scatter (newer releases
@@ -81,6 +89,14 @@ def _lanes(x: torch.Tensor, group) -> list:
     return [group, *extra]
 
 
+def _note(kind: str, x: torch.Tensor, group) -> None:
+    """The record of one collective of x over `group` (module
+    docstring)."""
+    if collectives.recording_open():
+        collectives.record(kind, x.numel() * x.element_size(),
+                           dist.get_world_size(group))
+
+
 def _wait(works) -> None:
     for w in works:
         w.wait()
@@ -98,6 +114,7 @@ def _host(x: torch.Tensor) -> torch.Tensor:
 
 def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """The elementwise `op` ("sum" or "max") of x over the group."""
+    _note("all-reduce", x, group)
     staged = _staged(x, group)
     buf = _host(x) if staged else x.clone(memory_format=torch.contiguous_format)
     lanes = _lanes(buf, group)
@@ -115,6 +132,7 @@ def _empty(shape, like: torch.Tensor) -> torch.Tensor:
 
 def all_gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     """Every rank's x, concatenated along `dim` in rank order."""
+    _note("all-gather", x, group)
     n = dist.get_world_size(group)
     dim = dim % x.dim()
     src = x.movedim(dim, 0).contiguous()
@@ -135,6 +153,7 @@ def all_gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
 def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """The sum of x over the ranks, cut into n blocks along `dim`; rank r
     keeps block r."""
+    _note("reduce-scatter", x, group)
     n = dist.get_world_size(group)
     dim = dim % x.dim()
     src = x.movedim(dim, 0).contiguous()
@@ -230,6 +249,10 @@ def ring_shift(xs: list[torch.Tensor], group) -> list[torch.Tensor]:
     n = dist.get_world_size(group)
     if n == 1:
         return list(xs)
+    for x in xs:
+        _note("collective-permute", x, group)
+    if all(x.device.type == "meta" for x in xs):
+        return [torch.empty_like(x) for x in xs]
     rank = dist.get_rank(group)
     nxt = dist.get_global_rank(group, (rank + 1) % n)
     prv = dist.get_global_rank(group, (rank - 1) % n)

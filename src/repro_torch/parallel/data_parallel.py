@@ -197,6 +197,12 @@ def _fill(model: nn.Module, leaves, specs: dict, rmesh) -> nn.Module:
     missing = set(specs) - covered
     if missing:
         raise ValueError(f"no leaf given for {sorted(missing)}")
+    return _reads(model, specs, rmesh)
+
+
+def _reads(model: nn.Module, specs: dict, rmesh) -> nn.Module:
+    """Set up the reads of the model's leaves (module docstring) and
+    record its placement."""
     # (a placement names only axes of more than one rank)
     table = WeakIdKeyDictionary()
     for name, spec in specs.items():
@@ -241,6 +247,19 @@ def init_rank_model(cfg: ModelConfig, rmesh, policy=ArithmeticPolicy(),
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return _fill(model, meta.init_values(gen, dev), specs, rmesh)
+
+
+def shape_rank_model(cfg: ModelConfig, rmesh,
+                     policy: ArithmeticPolicy = ArithmeticPolicy(),
+                     rules: ShardingRules = ShardingRules()) -> nn.Module:
+    """This rank's part of the training model as shapes only (the dry
+    run's): every parameter a meta block of its placement, with the
+    placement and the reads `init_rank_model` sets up, and no value
+    drawn or copied."""
+    meta = modellib.empty(cfg, device="meta", train=True)
+    specs = train_placement(cfg, param_shapes(meta), rmesh.mesh, policy,
+                            rules)
+    return _reads(_empty(cfg, specs, rmesh, "meta"), specs, rmesh)
 
 
 def shard_train_state(model: nn.Module, opt_state: dict, cfg: ModelConfig,

@@ -183,6 +183,24 @@ def init_shard(cfg: ModelConfig, rank: int, n: int, policy: ArithmeticPolicy,
                       rank, n)
 
 
+def shape_shard(cfg: ModelConfig, rank: int, n: int,
+                policy: ArithmeticPolicy) -> nn.Module:
+    """Rank `rank`'s part of the serving model as shapes only (the dry
+    run's): every parameter a meta tensor of its local shape, the
+    placement recorded and a meta absmax kept for each cut matrix, no
+    value drawn or copied."""
+    meta = modellib.empty(cfg, device="meta")
+    specs = placement(cfg, param_shapes(meta), n, policy)
+    shard = empty_shard(cfg, specs, n, "meta")
+    shard.placement = specs
+    shard.leaf_absmax = {
+        name: torch.empty((), dtype=torch.float32, device="meta")
+        for name, p in shard.named_parameters()
+        if _cuts_products(name, specs[name], p.dim())}
+    shard.shard_rank = rank
+    return shard
+
+
 class TensorParallel:
     """A rank's view of the tensor-parallel group and the forward's seams
     (module docstring). `group` is the process group, `rank` this

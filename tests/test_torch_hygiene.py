@@ -79,6 +79,19 @@ def test_port_covers_the_mesh_slice():
     assert "def mesh_rank(" in (REPO / "chip_smoke.py").read_text()
 
 
+def test_port_covers_the_roofline_slice():
+    """The dry run and the roofline."""
+    mods = _port_modules()
+    for name in ("repro_torch.roofline", "repro_torch.roofline.model",
+                 "repro_torch.roofline.collectives",
+                 "repro_torch.roofline.count", "repro_torch.launch.specs",
+                 "repro_torch.launch.dryrun"):
+        assert name in mods
+    names = {p.name for p in _port_scripts()}
+    assert {"torch_roofline_table.py", "torch_perf_compare.py",
+            "torch_collective_bytes.py"} <= names
+
+
 def test_port_imports_without_jax_or_repro():
     """Every module of the port, chip_smoke.py and the port's scripts
     import with `jax`, `jaxlib` and `repro` made unimportable."""

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -30,17 +31,6 @@ from repro_torch.core import lut as tlut  # noqa: E402
 from repro_torch.core import softmax as tsoftmax  # noqa: E402
 
 SUM_TOL = dict(rtol=2e-6, atol=0)
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several workers on the
-    machine's cores, where torch's thread pools oversubscribe them and
-    these many small ops slow down tenfold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

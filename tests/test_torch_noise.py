@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -40,17 +41,6 @@ from repro_torch.kernels.sc_matmul import ops as tops  # noqa: E402
 
 # Table V's calibrated readout noise: MAE 0.0085 of full scale
 SIGMA_CAL = 0.0085 / math.sqrt(2.0 / math.pi)
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several workers on the
-    machine's cores, where torch's thread pools oversubscribe them and
-    these many small ops slow down tenfold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -37,17 +38,6 @@ from repro.kernels import attention_ref as jattention_ref  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several workers on the
-    machine's cores, where torch's thread pools oversubscribe them and
-    these many small ops slow down tenfold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _scripts(name):

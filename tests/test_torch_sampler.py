@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 from repro.serve import sample_tokens as jsample  # noqa: E402
 from repro_torch.serve import sampler  # noqa: E402

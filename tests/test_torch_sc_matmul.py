@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -192,12 +193,16 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         sc_matmul_quantized(a, b, acc_depth=0)
     with pytest.raises(ValueError, match="readout_bits"):
         sc_matmul_quantized(a, b, readout_bits=0)
-    # no device but the CPU's plain version and the CUDA kernel
+    # no device but the CPU's plain version, the CUDA kernel and meta
+    # shapes (the dry run's: an output of the right shape, nothing run)
     with pytest.raises(ValueError, match="one device"):
         sc_matmul_quantized(a, b.to("meta"))
     reset_launch_counts()
-    with pytest.raises(ValueError, match="one device"):
-        sc_matmul_quantized(a.to("meta"), b.to("meta"))
+    out = sc_matmul_quantized(a.to("meta"), b.to("meta"))
+    assert (out.device.type, out.shape, out.dtype) == (
+        "meta", (4, 4), torch.float32)
+    assert sc_matmul_quantized(a.to("meta"), b.to("meta"),
+                               mode="int8").dtype == torch.int32
     assert launch_counts["sc_matmul"] == 0
 
 

@@ -26,8 +26,13 @@ compares every rank's results:
   * the shard gauges and counts, `snapshot_metrics`, the Chrome trace's
     shard tracks, and each step's price against the reference's
     `ArtemisCostModel(n_shards=N)`;
+  * `launch.steps`' prefill and decode steps with `mesh=` at N 2 (the
+    rank's part of the weights, a cache of its KV heads, flash for
+    exact): exact and int8 logits and cache against the single-device
+    steps';
   * the refusals (the fused core, a state-slot family, a part cut for
-    another placement), and the CLI with `--mesh-shards 2`.
+    another placement, a tensor-parallel step given every KV head or an
+    audio model), and the CLI with `--mesh-shards 2`.
 """
 import dataclasses
 import functools
@@ -39,6 +44,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 
@@ -68,6 +74,7 @@ from repro_torch.serve.sharded_backend import ShardedPagedBackend  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QUANT = ["int8", "artemis_mxu", "artemis"]
+STEP_MODES = ["exact", "int8"]
 # the reference pin's engine geometry (tests/test_serve_backend.py)
 ECFG = dict(page_size=8, n_pages=64, max_batch=3, max_pages_per_seq=8,
             prefill_chunk=8, max_seq_len=64, cache_dtype="float32")
@@ -82,6 +89,13 @@ PREFIX_TRAFFIC = dict(n_requests=8, arrival_rate=1e6, prompt_len_min=4,
                       seed=1, n_prefix_groups=2, prefix_len=16)
 PREFIX_ECFG = dict(page_size=8, n_pages=64, max_batch=4, max_pages_per_seq=6,
                    prefill_chunk=8, cache_dtype="float32")
+# the tensor-parallel serving steps' prompt, and the exact logits' and
+# cache's tolerance against one device's (f32: the row-parallel
+# products' partial sums are added across the ranks in another order;
+# int8's integer dots make them bit-equal)
+STEP_TOKENS = np.random.default_rng(27).integers(2, 200, (2, 12),
+                                                 dtype=np.int32)
+STEP_TOL = 1e-5
 
 
 @functools.lru_cache(maxsize=None)
@@ -173,6 +187,9 @@ def _cases(n):
     if n == 2:
         cases["moe"] = _drain_case("qwen2_moe_a2_7b")
         cases["refusals"] = ("refusals", {})
+        for mode in STEP_MODES:
+            cases[f"steps {mode}"] = ("serve_steps", dict(
+                cfg=cfg, tokens=STEP_TOKENS, policy=mode))
     return cases
 
 
@@ -332,6 +349,42 @@ def test_refusals_on_a_mesh(ranks):
         assert "has no multi-device path" in r["fused"]
         assert "has no multi-device backend" in r["state_slot"]
         assert "another placement" in r["placement"]
+        assert "holds its 1 KV heads, got 2" in r["whole_cache"]
+        assert "(audio) has no tensor-parallel forward" in r["audio"]
+
+
+@pytest.mark.parametrize("mode", STEP_MODES)
+def test_tensor_parallel_serve_steps_match_single_device(ranks, mode):
+    """`make_prefill_step` / `make_decode_step(mesh=)` on 2 ranks: every
+    rank's logits of the prefill and of one greedy decode step, and its
+    cache, which holds its KV heads, equal the single-device steps'
+    (exact within STEP_TOL, int8 bit for bit); exact calls flash (the
+    kernel's plain version here) once a layer a step, int8 sc_matmul
+    once a projection."""
+    from repro_torch.launch import steps
+    cfg = _setup("qwen3_8b")[1]
+    pol = ArithmeticPolicy(mode=mode)
+    model = modellib.init(cfg, seed=0, device="cpu")
+    tok = torch.from_numpy(STEP_TOKENS)
+    b, s = tok.shape
+    cache = modellib.init_cache(cfg, b, s + 1, dtype=torch.float32,
+                                device="cpu")
+    first, cache = steps.make_prefill_step(cfg, pol)(model, {"tokens": tok},
+                                                     cache)
+    second, cache = steps.make_decode_step(cfg, pol)(
+        model, steps.greedy_sample(first)[:, None], cache)
+    want_calls = {"flash_attention": 2 * cfg.n_layers} if mode == "exact" \
+        else {"sc_matmul": 2 * 7 * cfg.n_layers}
+    tol = STEP_TOL if mode == "exact" else 0.0
+    for r in ranks[2][f"steps {mode}"]:
+        kv = r["kv_heads"]
+        assert kv * 2 == cfg.n_kv_heads and r["index"] == s + 1
+        heads = slice(r["rank"] * kv, (r["rank"] + 1) * kv)
+        pairs = [*zip(r["logits"], (first, second)),
+                 *((r[key], cache[key][..., heads, :]) for key in ("k", "v"))]
+        for got, want in pairs:
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        assert r["kernel_calls"] == want_calls
 
 
 def test_rank_parts_are_cut_from_the_single_device_weights():
