@@ -210,9 +210,25 @@ without printing a result:
      int8 step and none an exact one (counts zeroed just before each
      step); (d) `compressed_psum` in each mode on the card against the
      same call on CPU copies, bit for bit; the phase's seconds;
+ 35. tensor parallelism for every family, run by phase 33's ranks after
+     its jobs (2 ranks sharing the card over gloo, the same groups):
+     rwkv6_3b (2 layers), zamba2_7b (7: one shared invocation and a
+     tail layer), musicgen_large, internvl2_1b and qwen3_8b (2 each) at
+     full width (reduced: depth, ranks), each rank its part of the
+     seeded weights and a cache of its part: (a) a (model 2) f32
+     prefill and 2 greedy decode steps (batch 2, prompt 64; zamba2's 80
+     over a window of 64, so the ring wraps; internvl's after its
+     256-token prefix), every logits row and cache leaf within
+     TP_STEP_TOL of one card's same steps on the rank's part; (b) the
+     same at bf16 under int8, tokens equal to one card's (or parting
+     only at a printed near tie), sc_matmul once a policy product of
+     every forward a rank; (c) exact bf16, flash_attention once an
+     attention layer of every forward a rank; (d) each family's (model
+     2) f32 train step (8 x 64) against one card's (`TRAIN_PIN_TOL`),
+     as phase 33a; each family's seconds;
  16. (last) sc_matmul against its plain version at every shape phases
-     7, 9, 14, 19, 22, 23, 24, 25, 26-29, 30 and 33 gave it; print the
-     kernels line, the card line, then the result line.
+     7, 9, 14, 19, 22, 23, 24, 25, 26-29, 30, 33 and 35 gave it; print
+     the kernels line, the card line, then the result line.
 Each phase's seconds are logged as it ends. Phase 4 also times each
 kernel at the qwen2_moe_a2_7b shapes (4b), flash_attention at
 zamba2_7b's static shapes (4c) and at musicgen_large's and
@@ -221,9 +237,9 @@ its plain version at the expert products' shapes and flash_attention
 at D 112, G 1 and at D 64, G 1 and G 7 (Sq 1280 = 256 + 1024, 1100,
 8 and 1 over 1312 cache slots).
 
-The ranks of phases 30-32 run this script's `mesh_rank` (phase 33's
-`shard_rank`), which the spawned processes import by name; a failing
-rank fails the phase and the script.
+The ranks of phases 30-32 run this script's `mesh_rank` (phases 33 and
+35's `shard_rank`), which the spawned processes import by name; a
+failing rank fails the phase and the script.
 
 Kernels: paged_attention (exact engine path; its rows instance at
 decode, its tensor-core tile instance at a prefill chunk), sc_matmul
@@ -3927,14 +3943,19 @@ def shard_warm(device) -> None:
 
 
 def shard_rank(device, jobs: list) -> list:
-    """One rank of phase 33 (`launch.mesh.spawn` runs it in each rank;
-    the rank imports this script by name)."""
+    """One rank of phases 33 and 35 (`launch.mesh.spawn` runs it in each
+    rank; the rank imports this script by name); each job's seconds."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     shard_warm(device)
-    return [shard_pin(device, job) if job["kind"] == "pin"
-            else shard_run(device, job) for job in jobs]
+    run = {"pin": shard_pin, "run": shard_run, "tp_static": tp_static}
+    out = []
+    for job in jobs:
+        t0 = time.perf_counter()
+        out.append(run[job["kind"]](device, job))
+        out[-1]["job_s"] = time.perf_counter() - t0
+    return out
 
 
 def shard_jobs(smoke: bool = False) -> list:
@@ -3959,10 +3980,12 @@ def _ranks_agree(label: str, per_rank: list) -> None:
 
 
 def sharded_train(path_sc: set, smoke: bool = False) -> dict:
-    """Phase 33: the sharded train step over 2 ranks sharing the card."""
+    """Phase 33: the sharded train step over 2 ranks sharing the card;
+    its ranks then run phase 35's jobs (`tp_jobs`), whose results go to
+    `out["phase35"]`."""
     from repro_torch.launch import mesh as meshlib
     device = "cpu" if smoke else "cuda"
-    jobs = shard_jobs(smoke)
+    jobs = shard_jobs(smoke) + tp_jobs(smoke)
     if not smoke:
         gc.collect()
         free()
@@ -3973,8 +3996,17 @@ def sharded_train(path_sc: set, smoke: bool = False) -> dict:
     log(f"  {SHARD_N} ranks ran {len(jobs)} jobs in "
         f"{time.perf_counter() - t0:.1f} s (process start included)")
     out = {}
+    p35 = dict(static={}, train={}, seconds={})
     for i, job in enumerate(jobs):
         res = [r[i] for r in per_rank]
+        if job.get("phase") == 35:
+            p35["seconds"][f"{job['arch']} {job['kind']}"] = max(
+                r["job_s"] for r in res)
+        if job["kind"] == "tp_static":
+            for r in res:
+                path_sc |= r.pop("sc_shapes")
+            p35["static"][job["arch"]] = check_tp_static(job, res, smoke)
+            continue
         name = (f"{job['arch']} "
                 + (meshlib.mesh_name(meshlib.make_smoke_mesh(*job["mesh"]))
                    if job["kind"] == "pin" else "data2xmodel1 run"))
@@ -4017,6 +4049,12 @@ def sharded_train(path_sc: set, smoke: bool = False) -> dict:
                 log(f"  (d) compressed_psum, card against CPU bit for bit: "
                     f"{[r['compress'] for r in res]}")
             out[name] = res
+            if job.get("phase") == 35:
+                p35["train"][job["arch"]] = dict(
+                    loss=res[0]["exact"]["metrics"]["loss"],
+                    step_s=res[0]["exact"]["step_s"],
+                    worst_grad=res[0]["exact"].get("worst_grad"),
+                    rel=res[0]["exact"].get("rel"))
             continue
         for mode, _ in SHARD_RUN_STEPS:
             _ranks_agree(f"{name} {mode}", [r["runs"][mode]["metrics"]
@@ -4055,6 +4093,245 @@ def sharded_train(path_sc: set, smoke: bool = False) -> dict:
         out["run"] = dict(res=res, reduced=reduced, fits_layers=fits,
                           launches=[sum(r["runs"]["int8"]["launches"])
                                     for r in res])
+    total = sum(p35["seconds"].values())
+    log(f"  phase 35 (in these ranks): {total:.1f} s; by family and job "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in p35["seconds"].items()))
+    out["phase35"] = dict(p35, total_s=total)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 35: tensor parallelism for every family, in phase 33's ranks
+# ---------------------------------------------------------------------------
+
+# (arch, layers): full width, reduced depth; zamba2's 7 are one shared
+# invocation (period 6) and a tail layer
+TP_FAMILIES = (("rwkv6_3b", 2), ("zamba2_7b", 7), ("musicgen_large", 2),
+               ("internvl2_1b", 2))
+# the dense family's tensor-parallel serving steps (e)
+TP_DENSE = ("qwen3_8b", 2)
+# the static steps: batch, prompt (after internvl's 256-token image
+# prefix) and decode steps
+TP_BATCH, TP_PROMPT, TP_DECODE = 2, 64, 2
+# (a)'s zamba2 window: its 80-token prompt fills the ring in sequence and
+# the decodes wrap it, as on one device
+TP_RING_WINDOW, TP_RING_PROMPT = 64, 80
+# (a): every logits row and cache leaf of the ranks within this share of
+# its max abs of one card's (f32 sums in another order)
+TP_STEP_TOL = 1e-4
+
+
+def _tp_inputs(cfg, device, prompt: int):
+    """Phase 35's prompt (and internvl's prefix) from a seeded CPU
+    generator, the same on both ranks."""
+    import torch
+    from repro_torch.models import frontend
+    from repro_torch.models.transformer import torch_dtype
+    gen = torch.Generator().manual_seed(35)
+    batch = {"tokens": torch.randint(
+        2, cfg.vocab_size, frontend.token_shape(cfg, TP_BATCH, prompt),
+        generator=gen, dtype=torch.int32).to(device)}
+    if cfg.modality == "vlm":
+        batch["prefix_embeds"] = torch.randn(
+            (TP_BATCH, frontend.VLM_PREFIX_TOKENS, cfg.d_model),
+            generator=gen).to(device, torch_dtype(cfg.compute_dtype))
+    return batch
+
+
+def _tp_greedy(cfg, pol, model, batch, cache, mesh=None) -> dict:
+    """A prefill and TP_DECODE greedy decode steps through the serving
+    steps (`mesh`: a rank's): every step's logits (f32) and tokens."""
+    import torch
+    from repro_torch.launch import steps
+    prefill = steps.make_prefill_step(cfg, pol, mesh=mesh)
+    decode = steps.make_decode_step(cfg, pol, mesh=mesh)
+    out, cache = prefill(model, batch, cache)
+    logits = [out.float()]
+    for _ in range(TP_DECODE):
+        out, cache = decode(model, steps.greedy_sample(out)[:, None], cache)
+        logits.append(out.float())
+    _shard_sync(logits[0].device)
+    return dict(logits=logits, cache=cache,
+                tokens=[steps.greedy_sample(x) for x in logits])
+
+
+def _tp_variant(device, base, label: str, shapes: set) -> dict:
+    """One of (a) f32 exact against one card, (b) int8 against one card,
+    (c) bf16 exact alone, on this rank; launch counts zeroed just before
+    the rank's steps and read just after."""
+    import torch
+    from repro_torch.core.policy import ArithmeticPolicy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import mesh_cases
+    from repro_torch.models import model as modellib
+    from repro_torch.parallel import tensor_parallel as tpl
+    from repro_torch.parallel.sharding import shard_leaf
+    rmesh = _rank_mesh((1, SHARD_N))
+    rank, n = rmesh.index("model"), rmesh.size("model")
+    cfg = dataclasses.replace(
+        base, compute_dtype="float32" if label == "a" else "bfloat16")
+    prompt = TP_PROMPT
+    if label == "a" and cfg.family == "zamba2":
+        cfg = dataclasses.replace(cfg, attn_window=TP_RING_WINDOW)
+        prompt = TP_RING_PROMPT
+    pol = ArithmeticPolicy(mode="int8" if label == "b" else "exact")
+    batch = _tp_inputs(cfg, device, prompt)
+    max_len = prompt + TP_DECODE + batch.get(
+        "prefix_embeds", torch.empty(0, 0)).shape[1]
+    out = {}
+    if label in ("a", "b"):
+        one = _tp_greedy(cfg, pol, modellib.init(cfg, seed=0, device=device),
+                         batch, modellib.init_cache(
+                             cfg, TP_BATCH, max_len, dtype=torch.float32,
+                             device=device))
+        _tp_free(device)
+    part = tpl.init_shard(cfg, rank, n, pol, seed=0, device=device)
+    cache = tpl.rank_cache(cfg, n, TP_BATCH, max_len, dtype=torch.float32,
+                           device=device)
+    _shard_sync(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with sc_path_shapes(shapes):
+        mine = _tp_greedy(cfg, pol, part, batch, cache, mesh=rmesh)
+    out.update(steps_s=time.perf_counter() - t0, counts=dict(launch_counts),
+               tokens=[t.tolist() for t in mine["tokens"]],
+               finite=all(bool(torch.isfinite(x).all())
+                          for x in mine["logits"]))
+    if label == "a":
+        specs = mesh_cases.flatten(tpl.cache_placement(cfg, n))
+        theirs = mesh_cases.flatten(one["cache"])
+        errs = {f"logits {i}": float((a - b).abs().max()
+                                     / b.abs().max().clamp_min(1e-30))
+                for i, (a, b) in enumerate(zip(mine["logits"],
+                                               one["logits"]))}
+        for key, t in mesh_cases.flatten(mine["cache"]).items():
+            if key == "index":
+                continue
+            want = shard_leaf(theirs[key], specs[key], rank, n).float()
+            errs[key] = float((t.float() - want).abs().max()
+                              / want.abs().max().clamp_min(1e-30))
+        out.update(errs=errs)
+    if label == "b":
+        out.update(one_tokens=[t.tolist() for t in one["tokens"]],
+                   one_margins=[[mesh_cases._top2_margin(row)
+                                 for row in x.reshape(-1, x.shape[-1])]
+                                for x in one["logits"]],
+                   bit_equal=all(torch.equal(a, b) for a, b in zip(
+                       mine["logits"], one["logits"])))
+    del part, cache, mine
+    _tp_free(device)
+    return out
+
+
+def _tp_free(device) -> None:
+    gc.collect()
+    if device.type == "cuda":
+        free()
+
+
+def tp_static(device, job) -> dict:
+    """Phase 35 (a)-(c) (and (e) for qwen3_8b) on this rank: the
+    family's (model 2) static steps at full width through
+    `job["layers"]` layers, from `modellib.init(cfg, 0)`'s weights
+    (each rank its part, `tensor_parallel.init_shard`), a cache of its
+    part (`tensor_parallel.rank_cache`); sc_matmul's shapes recorded for
+    phase 16."""
+    cfg = _shard_cfg(dict(job, f32=False))
+    t0 = time.perf_counter()
+    shapes: set = set()
+    out = {label: _tp_variant(device, cfg, label, shapes)
+           for label in ("a", "b", "c")}
+    out.update(sc_shapes=shapes, seconds=time.perf_counter() - t0)
+    return out
+
+
+def tp_jobs(smoke: bool = False) -> list:
+    """Phase 35's jobs: each family's static steps and its (model 2)
+    train step against one card's, and qwen3_8b's static steps."""
+    jobs = [dict(kind="tp_static", arch=arch, layers=layers, smoke=smoke,
+                 phase=35) for arch, layers in TP_FAMILIES + (TP_DENSE,)]
+    jobs += [dict(kind="pin", arch=arch, layers=layers, f32=True,
+                  smoke=smoke, mesh=(1, SHARD_N), modes=("exact",),
+                  phase=35) for arch, layers in TP_FAMILIES]
+    return jobs
+
+
+def _tp_products(cfg) -> tuple[int, int]:
+    """(policy products, attention layers) of one forward of cfg."""
+    if cfg.family == "rwkv6":
+        return 9 * cfg.n_layers, 0
+    attn = 4 + (3 if cfg.glu else 2)
+    if cfg.family == "zamba2":
+        inv = cfg.n_layers // cfg.shared_attn_period
+        return 2 * cfg.n_layers + attn * inv, inv
+    return attn * cfg.n_layers, cfg.n_layers
+
+
+def check_tp_static(job, res: list, smoke: bool = False) -> dict:
+    """Phase 35's parent side of one family's static steps: every rank's
+    (a) errors within TP_STEP_TOL, (b) tokens equal to one card's (or
+    parting only at a printed near tie of one card's logits) and
+    sc_matmul once a policy product of every forward, (c) flash_attention
+    once an attention layer of every forward; the ranks' tokens equal."""
+    cfg = _shard_cfg(job)
+    products, attn = _tp_products(cfg)
+    forwards = 1 + TP_DECODE
+    name = f"{job['arch']} model{SHARD_N}"
+    for label in ("a", "b", "c"):
+        toks = [r[label]["tokens"] for r in res]
+        if any(t != toks[0] for t in toks) or \
+                not all(r[label]["finite"] for r in res):
+            raise AssertionError(f"{name} ({label}): the ranks' tokens differ "
+                                 f"or a logit is not finite")
+    errs = {k: max(r["a"]["errs"][k] for r in res)
+            for k in res[0]["a"]["errs"]}
+    worst = max(errs, key=errs.get)
+    if errs[worst] > TP_STEP_TOL:
+        raise AssertionError(f"{name} (a): {worst} parts from one card's by "
+                             f"{errs[worst]:.2e} of its max")
+    b = res[0]["b"]
+    parted = []
+    if b["tokens"] != b["one_tokens"]:
+        for step, (mine, one) in enumerate(zip(b["tokens"],
+                                               b["one_tokens"])):
+            flat_m, flat_o = _flatten(mine), _flatten(one)
+            for i, (x, y) in enumerate(zip(flat_m, flat_o)):
+                if x != y:
+                    margin = b["one_margins"][step][i]
+                    if margin >= NEAR_TIE:
+                        raise AssertionError(
+                            f"{name} (b): int8 token {i} of step {step} "
+                            f"parts from one card's at margin {margin:.2e}")
+                    parted.append((step, i, margin))
+            if parted:
+                break
+    want_sc = 0 if smoke else products * forwards
+    want_fa = 0 if smoke else attn * forwards
+    sc = [r["b"]["counts"].get("sc_matmul", 0) for r in res]
+    fa = [r["c"]["counts"].get("flash_attention", 0) for r in res]
+    if any(k != want_sc for k in sc) or any(k != want_fa for k in fa) or \
+            any(r[v]["counts"].get("paged_attention", 0)
+                for r in res for v in "abc"):
+        raise AssertionError(f"{name}: sc_matmul {sc} (want {want_sc}), "
+                             f"flash_attention {fa} (want {want_fa}) a rank")
+    secs = max(r["seconds"] for r in res)
+    log(f"  {name} static (reduced: depth {cfg.n_layers} of "
+        f"{configs_full_layers(job['arch'])}, ranks {SHARD_N} sharing one "
+        f"card): (a) f32 farthest {worst} {errs[worst]:.2e} of its max; "
+        f"(b) int8 tokens equal one card's: {not parted} (logits bit-equal "
+        f"on rank 0: {b['bit_equal']}; parted at near ties {parted}), "
+        f"sc_matmul a rank {sc}; (c) bf16 flash_attention a rank {fa}; "
+        f"{secs:.1f} s")
+    return dict(worst=(worst, errs[worst]), int8_equal=not parted,
+                int8_bit_equal=b["bit_equal"], parted=parted,
+                sc_matmul=sc, flash_attention=fa, seconds=secs,
+                steps_s={v: res[0][v]["steps_s"] for v in "abc"})
+
+
+def _flatten(tokens) -> list:
+    out = []
+    for t in tokens:
+        out.extend(_flatten(t) if isinstance(t, list) else [t])
     return out
 
 
@@ -4551,8 +4828,16 @@ def main() -> int:
                 "(data 2) and (model 2) against one card's step, exact and "
                 "int8; qwen2_moe_a2_7b at (data 2); a bf16 run at (data 2), "
                 "3 exact and 2 int8 steps; compressed_psum on the card "
-                "against the CPU")
+                "against the CPU; then, in the same ranks, phase 35's jobs")
     sharded = sharded_train(path_sc)
+    phases.mark("35. tensor parallelism for every family (ran in phase 33's "
+                "ranks, 2 sharing the card over gloo): rwkv6_3b, zamba2_7b, "
+                "musicgen_large, internvl2_1b and qwen3_8b at full width, "
+                "(model 2) static steps f32 / int8 / bf16 against one card, "
+                "and the families' (model 2) train step")
+    p35 = sharded["phase35"]
+    log(f"  phase 35 took {p35['total_s']:.1f} s in phase 33's ranks "
+        f"(under about 60 s? {p35['total_s'] <= 60.0})")
     phases.mark("16. sc_matmul at every shape the main path gave it")
     sc_path = check_sc_path_shapes(path_sc)
     phases.mark(None)
@@ -4590,6 +4875,9 @@ def main() -> int:
                    enumerate(mesh["qwen3_8b"]["int8"]["launches"])},
                 **{f"qwen3_8b sharded train int8 (rank {r})": n for r, n in
                    enumerate(sharded["run"]["launches"])},
+                **{f"{arch} tensor-parallel int8 static (rank {r})": n
+                   for arch, t in p35["static"].items()
+                   for r, n in enumerate(t["sc_matmul"])},
                 "examples/torch_quickstart.py artemis_mxu forward":
                     ex["quickstart"]["forward_sc_matmul"]}
     fa_paths = {"qwen3_8b static": static["launches"],
@@ -4597,6 +4885,9 @@ def main() -> int:
                 "zamba2_7b static": zamba["static"]["launches"],
                 **{f"{arch} static": m["static"]["launches"]
                    for arch, m in multimodal.items()},
+                **{f"{arch} tensor-parallel static (rank {r})": n
+                   for arch, t in p35["static"].items()
+                   for r, n in enumerate(t["flash_attention"])},
                 "examples/torch_serve_batched.py":
                     ex["serve_batched"]["launches"]["flash_attention"]}
     kernels = [{

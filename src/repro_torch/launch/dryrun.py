@@ -23,19 +23,19 @@ peak storage, kernel calls and collectives. Its inputs are
            its rows).
   prefill, decode  `make_prefill_step` / `make_decode_step` with the
            mesh, on the rank's rows of the batch and of a bf16 cache:
-           the dense and MoE text models tensor-parallel over `model`
-           (`tensor_parallel.placement`, the rank's KV heads in the
-           cache), the rest whole. Decode writes the last slot of a
+           every family tensor-parallel over `model`
+           (`tensor_parallel.placement`, the rank's part of the cache:
+           `tensor_parallel.rank_cache`). Decode writes the last slot of a
            cache of seq_len (+ a vlm prefix), so it attends the whole
            context. Where the reference keeps FSDP for serving (a
            tensor-parallel bf16 copy over 4 GiB a chip: dbrx_132b), the
            row's `note` says that the port does not.
 
-A cell the port cannot place yet is recorded as `status: "error"` with
-the port's own ValueError, as the reference records a cell that fails
-to lower: training at `model > 1` outside the dense and MoE text
-families (`data_parallel.check_mesh`) and serving at `model > 1` for
-them (`models.model.check_tp`). `main` exits 1 when any cell errs.
+A cell the port cannot place is recorded as `status: "error"` with the
+port's own ValueError, as the reference records a cell that fails to
+lower (per-channel scales under `--policy`, which the sharded steps
+refuse: `data_parallel.check_mesh`); every cell of the single-pod sweep
+places. `main` exits 1 when any cell errs.
 
 No probes and no `inner_scan_correction`: both correct XLA counting a
 loop body once, while the eager count sees every layer and every

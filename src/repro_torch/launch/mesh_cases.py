@@ -224,7 +224,7 @@ def refusals(device) -> dict:
     the fused attention core, a state-slot family, a rank's part cut
     for another placement (int8's, served exact), and the
     tensor-parallel serving steps' refusals of a cache holding every KV
-    head and of a model that is not a text one."""
+    head and of per-channel scales."""
     from repro_torch import configs
     from repro_torch.parallel.tensor_parallel import init_shard
     from repro_torch.serve.sharded_backend import ShardedPagedBackend
@@ -277,46 +277,83 @@ def _step_refusals(cfg, rank: int, n: int, device) -> dict:
         out["whole_cache"] = str(e)
     try:
         make_prefill_step(configs.get_config("musicgen_large", smoke=True),
-                          pol, mesh=rmesh)
+                          ArithmeticPolicy(mode="int8", act_quant_axis=-1),
+                          mesh=rmesh)
     except ValueError as e:
-        out["audio"] = str(e)
+        out["per_channel"] = str(e)
+    return out
+
+
+def flatten(tree, prefix: str = "") -> dict:
+    """{dotted path: leaf} of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
     return out
 
 
 def serve_steps(device, *, cfg, tokens, policy: str = "exact",
-                seed: int = 0) -> dict:
-    """One prefill of `tokens` (numpy (B, S)) and one greedy decode step
+                seed: int = 0, weights=None, prefix=None, decode=None,
+                max_len: int | None = None) -> dict:
+    """One prefill of `tokens` (numpy (B, S) [audio: (B, S, C)], after a
+    vlm's `prefix` embeddings (B, P, d) when given) and decode steps
     through `launch.steps`' serving steps over a (data 1, model n) mesh
     of the group's ranks (`mesh=`): the rank's part of
-    `modellib.init(cfg, seed)` (`tensor_parallel.init_shard`) and an f32
-    cache of its KV heads. Returns both steps' logits, the cache's K
-    and V after the decode (on the CPU), the rank's KV heads, the
-    kernel calls the steps made (`roofline.count.Count`'s) and the
-    launch counts."""
+    `modellib.init(cfg, seed)` (`tensor_parallel.init_shard`) or of the
+    reference tree `weights` (numpy, through the bridge), and an f32
+    cache of its part (`tensor_parallel.rank_cache`, `max_len` slots,
+    default every token). `decode`: the tokens of each decode step
+    (numpy (T, B, 1[, C])); default one greedy step. Returns every
+    step's logits, the rank's cache leaves after the last step
+    (`cache`, by dotted path, on the CPU; a dense cache's K and V also
+    as `k` and `v`), its KV heads, the kernel calls the steps made
+    (`roofline.count.Count`'s) and the launch counts."""
+    from repro_torch.bridge import params_from_numpy
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_smoke_mesh, rank_mesh
     from repro_torch.parallel.data_parallel import tensor_parallel
-    from repro_torch.parallel.tensor_parallel import init_shard
+    from repro_torch.parallel.tensor_parallel import init_shard, rank_cache
     from repro_torch.roofline.count import Count
     rank, n = _world()
     pol = ArithmeticPolicy(mode=policy)
     rmesh = rank_mesh(make_smoke_mesh(1, n))
-    part = init_shard(cfg, rank, n, pol, seed=seed, device=device)
-    kv = tensor_parallel(part, cfg, rmesh).attn_dims.n_kv_heads
+    if weights is None:
+        part = init_shard(cfg, rank, n, pol, seed=seed, device=device)
+    else:
+        part = params_from_numpy(weights, cfg, device=device,
+                                 mesh=make_serve_mesh(n), policy=pol)
+    dims = tensor_parallel(part, cfg, rmesh).attn_dims
     tok = torch.from_numpy(np.asarray(tokens)).to(device)
-    b, s = tok.shape
-    cache = modellib.init_cache(dataclasses.replace(cfg, n_kv_heads=kv), b,
-                                s + 1, dtype=torch.float32, device=device)
+    batch = {"tokens": tok}
+    if prefix is not None:
+        batch["prefix_embeds"] = torch.from_numpy(np.asarray(prefix)).to(
+            device)
+    b, s = tok.shape[:2]
+    p = 0 if prefix is None else batch["prefix_embeds"].shape[1]
+    n_dec = 1 if decode is None else len(decode)
+    cache = rank_cache(cfg, n, b, max_len or p + s + n_dec,
+                       dtype=torch.float32, device=device)
+    prefill = steps.make_prefill_step(cfg, pol, mesh=rmesh)
+    decode_step = steps.make_decode_step(cfg, pol, mesh=rmesh)
     reset_launch_counts()
     with Count() as count:
-        first, cache = steps.make_prefill_step(cfg, pol, mesh=rmesh)(
-            part, {"tokens": tok}, cache)
-        second, cache = steps.make_decode_step(cfg, pol, mesh=rmesh)(
-            part, steps.greedy_sample(first)[:, None], cache)
-    return dict(rank=rank, n=n, kv_heads=kv, counts=dict(launch_counts),
+        out, cache = prefill(part, batch, cache)
+        logits = [out]
+        for i in range(n_dec):
+            nxt = (steps.greedy_sample(out)[:, None] if decode is None
+                   else torch.from_numpy(np.asarray(decode[i])).to(device))
+            out, cache = decode_step(part, nxt, cache)
+            logits.append(out)
+    flat = {k: v.cpu() for k, v in flatten(cache).items() if k != "index"}
+    return dict(rank=rank, n=n,
+                kv_heads=None if dims is None else dims.n_kv_heads,
+                counts=dict(launch_counts),
                 kernel_calls=dict(count.kernel_calls),
-                logits=[first.cpu(), second.cpu()],
-                k=cache["k"].cpu(), v=cache["v"].cpu(),
+                logits=[x.cpu() for x in logits], cache=flat,
+                **{k: flat[k] for k in ("k", "v") if k in flat},
                 index=cache["index"])
 
 
@@ -379,17 +416,20 @@ def train(device, *, cfg, mesh: tuple, weights: dict, batches: list,
     return out
 
 
-def train_refusal(device, *, cfg, mesh: tuple) -> str:
+def train_refusal(device, *, cfg, mesh: tuple, rules: dict | None = None,
+                  policy: dict | None = None) -> str:
     """The message of the sharded train step's refusal of `cfg` on a
-    `make_smoke_mesh(*mesh)`."""
+    `make_smoke_mesh(*mesh)` under `ShardingRules(**rules)` and
+    `ArithmeticPolicy(**policy)`, or "" where it takes them."""
     from repro_torch.launch.mesh import make_smoke_mesh, rank_mesh
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import OptimizerConfig
     from repro_torch.parallel.sharding import ShardingRules
     rmesh = rank_mesh(make_smoke_mesh(*mesh))
     try:
-        make_train_step(cfg, OptimizerConfig(), mesh=rmesh,
-                        rules=ShardingRules())
+        make_train_step(cfg, OptimizerConfig(),
+                        ArithmeticPolicy(**(policy or {})), mesh=rmesh,
+                        rules=ShardingRules(**(rules or {})))
     except ValueError as e:
         return str(e)
     return ""

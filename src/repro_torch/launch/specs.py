@@ -21,8 +21,6 @@ a host int, as in the port's models.
 """
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from repro_torch.configs import ShapeCell
@@ -57,20 +55,22 @@ def batch_shapes(cfg: ModelConfig, batch: int, seq: int,
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
-                 dtype=torch.bfloat16) -> dict:
+                 dtype=torch.bfloat16, n_model: int = 1) -> dict:
+    """The decode carry's meta tensors; over n_model > 1 model ranks a
+    rank's part (`tensor_parallel.rank_cache`)."""
+    if n_model > 1:
+        return tpl.rank_cache(cfg, n_model, batch, max_len, dtype=dtype,
+                              device=META)
     return modellib.init_cache(cfg, batch, max_len, dtype=dtype, device=META)
 
 
 def serve_model(cfg: ModelConfig, rmesh,
                 policy: ArithmeticPolicy = ArithmeticPolicy()):
-    """(a serving rank's shape-only model, the KV heads its cache holds)
-    over the mesh's model ranks."""
+    """A serving rank's shape-only model over the mesh's model ranks."""
     n = rmesh.size("model")
     if n == 1:
-        return modellib.empty(cfg, device=META), cfg.n_kv_heads
-    model = tpl.shape_shard(cfg, rmesh.index("model"), n, policy)
-    kv = cfg.n_kv_heads // n if cfg.n_kv_heads % n == 0 else cfg.n_kv_heads
-    return model, kv
+        return modellib.empty(cfg, device=META)
+    return tpl.shape_shard(cfg, rmesh.index("model"), n, policy)
 
 
 def local_rows(cfg: ModelConfig, rmesh, batch: int) -> int:
@@ -101,7 +101,8 @@ def input_specs(cfg: ModelConfig, cell: ShapeCell, rmesh,
 
     A serving cell's batch and cache are the rank's rows, the cache of
     `cache_len` slots (default seq_len + a vlm prefix) of `cache_dtype`
-    holding the rank's KV heads.
+    holding the rank's part (`tensor_parallel.rank_cache`: its KV
+    heads, its part of a recurrent state).
     """
     b, s = cell.global_batch, cell.seq_len
     if cell.kind == "train":
@@ -111,12 +112,11 @@ def input_specs(cfg: ModelConfig, cell: ShapeCell, rmesh,
                 "batch": batch_shapes(cfg, b, s)}
     if cell.kind not in ("prefill", "decode"):
         raise ValueError(f"unknown cell kind {cell.kind!r}")
-    model, kv = serve_model(cfg, rmesh, policy)
+    model = serve_model(cfg, rmesh, policy)
     rows = local_rows(cfg, rmesh, b)
     max_len = cache_len or s + frontend.n_prefix_tokens(cfg)
-    ccfg = (dataclasses.replace(cfg, n_kv_heads=kv)
-            if cfg.family in transformer.FAMILIES else cfg)
-    cache = cache_shapes(ccfg, rows, max_len, dtype=cache_dtype)
+    cache = cache_shapes(cfg, rows, max_len, dtype=cache_dtype,
+                         n_model=rmesh.size("model"))
     if cell.kind == "prefill":
         return {"model": model,
                 "batch": batch_shapes(cfg, rows, s, with_labels=False),

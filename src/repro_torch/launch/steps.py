@@ -129,9 +129,15 @@ def _sharded_train_step(cfg, opt_cfg, policy, mesh, rules, remat):
     return train_step
 
 
-def _check_serve_mesh(cfg: ModelConfig, mesh) -> None:
-    if mesh is not None and mesh.size("model") > 1:
-        modellib.check_tp(cfg)
+def _check_serve_mesh(mesh, policy: ArithmeticPolicy) -> None:
+    """Refuse per-channel scales on a mesh of several model ranks: a
+    rank's part of a weight takes the whole leaf's per-tensor scale."""
+    if mesh is not None and mesh.size("model") > 1 and (
+            policy.act_quant_axis is not None
+            or policy.weight_quant_axis is not None):
+        raise ValueError("the tensor-parallel serving steps keep per-tensor "
+                         "scales; act_quant_axis and weight_quant_axis must "
+                         "be None")
 
 
 def _serve_tp(model, cfg: ModelConfig, mesh):
@@ -145,11 +151,12 @@ def make_prefill_step(cfg: ModelConfig,
     """(model, batch, cache) -> (last_logits (B, V) [audio: (B, C, V)],
     cache). Writes the prompt (after a vlm batch's `prefix_embeds`)
     into the cache and returns the next-token logits. With `mesh` (a
-    rank's `launch.mesh.RankMesh`), one rank's step: `model` holds its
-    part of the weights (`parallel.tensor_parallel.placement` over the
-    model ranks), `batch` and `cache` its rows."""
+    rank's `launch.mesh.RankMesh`), one rank's step, any family: `model`
+    holds its part of the weights (`parallel.tensor_parallel.placement`
+    over the model ranks), `batch` its rows and `cache` its rows of its
+    part (`parallel.tensor_parallel.rank_cache`)."""
     L.resolve_attn_impl(attn_impl, policy)
-    _check_serve_mesh(cfg, mesh)
+    _check_serve_mesh(mesh, policy)
 
     @torch.no_grad()
     def prefill_step(model, batch, cache):
@@ -169,7 +176,7 @@ def make_decode_step(cfg: ModelConfig,
     V) [audio: (B, C, V)], cache): ONE new token against the populated
     KV cache. `mesh` as in `make_prefill_step`."""
     L.resolve_attn_impl(attn_impl, policy)
-    _check_serve_mesh(cfg, mesh)
+    _check_serve_mesh(mesh, policy)
 
     @torch.no_grad()
     def decode_step(model, tokens, cache):

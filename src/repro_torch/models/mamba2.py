@@ -154,13 +154,21 @@ def _causal_conv(x, w, b, tail=None):
 
 
 def mamba2_layer(p: Mamba2Layer, x: torch.Tensor, cfg: ModelConfig,
-                 policy: ArithmeticPolicy = ArithmeticPolicy(), state=None):
+                 policy: ArithmeticPolicy = ArithmeticPolicy(), state=None,
+                 tp=None):
     """x: (B, S, d); state: `init_state` or None. Returns (out (B, S, d),
     new_state or None); the state is not modified. With S == 1 and a
-    state this is the O(1) decode step."""
+    state this is the O(1) decode step. `tp`: a tensor-parallel rank's
+    seams, for a layer holding that rank's SSD heads
+    (`parallel.tensor_parallel.placement`): z, x and dt of its heads, B
+    and C whole; the gated RMSNorm runs over the whole d_inner, its
+    input gathered."""
     b, s, d = x.shape
-    di, n, h, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    proj = L.mm(x, p.in_proj, policy)
+    n, hp = cfg.ssm_state, cfg.ssm_head_dim
+    h = p.A_log.shape[0]            # this rank's SSD heads
+    di = h * hp
+    proj = L.mm(x, p.in_proj, policy) if tp is None else \
+        tp.mm(x, p.in_proj, policy)
     z, xi, bm, cm, dt = torch.split(proj, [di, di, n, n, h], dim=-1)
 
     conv_in = torch.cat([xi, bm, cm], dim=-1)
@@ -182,10 +190,14 @@ def mamba2_layer(p: Mamba2Layer, x: torch.Tensor, cfg: ModelConfig,
     y, s_final = _ssd_chunked(xbar, bm.float(), cm.float(), log_decay, s0,
                               min(cfg.chunk_size, max(s, 1)))
     y = y + xh * p.D.float()[None, None, :, None]
-    y = y.reshape(b, s, di).to(x.dtype)
+    y = y.reshape(b, s, di).to(x.dtype) * F.silu(z)
 
-    y = L.rmsnorm(p.norm.scale, y * F.silu(z), cfg.norm_eps)
-    out = L.mm(y, p.out_proj, policy)
+    if tp is None:
+        out = L.mm(L.rmsnorm(p.norm.scale, y, cfg.norm_eps), p.out_proj,
+                   policy)
+    else:
+        out = tp.whole_out(L.rmsnorm(p.norm.scale, tp.gather(y),
+                                     cfg.norm_eps), p.out_proj, policy)
 
     new_state = None
     if state is not None:

@@ -46,23 +46,12 @@ def apply(model, cfg: ModelConfig, inputs: dict, *,
     """The family's forward: (logits, aux, new_cache). `remat` (the
     train step's) recomputes each layer in the backward pass: the
     transformer's and rwkv6's layers, zamba2's Mamba2 layers. `tp`, a
-    tensor-parallel rank's seams, for the dense and MoE families (the
-    transformer's `apply`)."""
-    kw = {} if tp is None else {"tp": tp}
-    if tp is not None:
-        check_tp(cfg)
+    tensor-parallel rank's seams (`parallel.tensor_parallel.
+    TensorParallel`) for a model holding that rank's part of the
+    weights, goes through every family's forward."""
     return _FAMILY[cfg.family].apply(model, cfg, inputs, policy=policy,
                                      cache=cache, attn_impl=attn_impl,
-                                     remat=remat, **kw)
-
-
-def check_tp(cfg: ModelConfig) -> None:
-    """Refuse a tensor-parallel forward for a model that has none: the
-    dense and MoE text models have one."""
-    if cfg.family not in transformer.FAMILIES or cfg.modality != "text":
-        raise ValueError(f"{cfg.name}: family {cfg.family!r} "
-                         f"({cfg.modality}) has no tensor-parallel forward "
-                         f"(the dense and MoE text models have)")
+                                     remat=remat, tp=tp)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -41,6 +41,7 @@ its own (`layers` module docstring).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -193,20 +194,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0,
 
 
 def _wkv_chunked(r, k, v, log_w, u, s0, chunk: int):
-    """r,k,v: (B,S,H,N); log_w: (B,S,H,N) <= 0; u: (H,N); s0: (B,H,N,N).
+    """r,k: (B,S,H,N); v: (B,S,H,Nv); log_w: (B,S,H,N) <= 0; u: (H,N);
+    s0: (B,H,N,Nv). N counts the key channels and Nv the value ones
+    (both the head size, but for a tensor-parallel rank's part).
 
-    Returns (o: (B,S,H,N), s_final). The reference's three-operand
+    Returns (o: (B,S,H,Nv), s_final). The reference's three-operand
     einsums run as two-operand contractions after the elementwise
     factor."""
     b, s, h, n = r.shape
+    nv = v.shape[-1]
     pad = (-s) % chunk
     if pad:
         z = (0, 0, 0, 0, 0, pad)
         r, k, v, log_w = (torch.nn.functional.pad(a, z)
                           for a in (r, k, v, log_w))
     nc = r.shape[1] // chunk
-    shp = (b, nc, chunk, h, n)
-    r, k, v, log_w = (a.reshape(shp) for a in (r, k, v, log_w))
+    r, k, log_w = (a.reshape(b, nc, chunk, h, n) for a in (r, k, log_w))
+    v = v.reshape(b, nc, chunk, h, nv)
     lc = torch.cumsum(log_w, dim=2)                   # inclusive
     # exclusive cumsum for the output side (S_{t-1} uses lc_{t-1})
     lx = lc - log_w
@@ -234,7 +238,7 @@ def _wkv_chunked(r, k, v, log_w, u, s0, chunk: int):
         state = state * torch.exp(lcc[:, -1])[:, :, :, None] \
             + torch.einsum("bmhn,bmhj->bhnj", kc * dlast, vc)
         outs.append(o)
-    o = torch.stack(outs, dim=1).reshape(b, nc * chunk, h, n)
+    o = torch.stack(outs, dim=1).reshape(b, nc * chunk, h, nv)
     return o[:, :s], state
 
 
@@ -252,11 +256,17 @@ def _shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:
 
 
 def rwkv6_layer(p: Block, x: torch.Tensor, cfg: ModelConfig,
-                policy: ArithmeticPolicy = ArithmeticPolicy(), state=None):
+                policy: ArithmeticPolicy = ArithmeticPolicy(), state=None,
+                tp=None):
     """x: (B, S, d) -> (out, new_state or None); the state is not
-    modified."""
+    modified. `tp`: a tensor-parallel rank's seams (module docstring),
+    for a layer holding that rank's part of the weights."""
     b, s, d = x.shape
-    h, n = d // cfg.ssm_head_dim, cfg.ssm_head_dim
+    hn = cfg.ssm_head_dim
+    mm = L.mm if tp is None else tp.mm
+    # this rank's wkv heads and key channels a head (all of them on one
+    # device)
+    h, n = p.u.shape
 
     # ---- time mix ---------------------------------------------------------
     xt = layernorm(p.ln1, x)
@@ -272,27 +282,39 @@ def rwkv6_layer(p: Block, x: torch.Tensor, cfg: ModelConfig,
         p.maa_wkvrg.to(dt)[None, None] + dyn)             # (B,S,5,d)
     mw, mk, mv, mr, mg = mixes.unbind(2)
 
-    dd = torch.tanh(L.mm(mw, p.td_w1, policy)).float()
+    dd = torch.tanh(mm(mw, p.td_w1, policy)).float()
+    if tp is not None:
+        dd = tp.enter(dd)        # td_w2's columns are the rank's channels
     log_w = -torch.exp(clip(
         p.td_base.float()[None, None] + torch.matmul(dd, p.td_w2.float()),
         -8.0, 6.0))
 
     # projections go through the policy ladder; the wkv recurrence
     # itself stays exact f32
-    r = L.mm(mr, p.wr, policy).reshape(b, s, h, n).float()
-    k = L.mm(mk, p.wk, policy).reshape(b, s, h, n).float()
-    v = L.mm(mv, p.wv, policy).reshape(b, s, h, n).float()
-    g = torch.nn.functional.silu(L.mm(mg, p.wg, policy))
+    r = mm(mr, p.wr, policy).reshape(b, s, h, n).float()
+    k = mm(mk, p.wk, policy).reshape(b, s, h, n).float()
+    v = mm(mv, p.wv, policy)
+    if tp is not None and n < hn:
+        v = tp.enter(v)          # whole, read by the rank's key channels
+    v = v.reshape(b, s, h, hn).float()
+    g = torch.nn.functional.silu(mm(mg, p.wg, policy))
     log_w = log_w.reshape(b, s, h, n)
 
     s0 = (state["wkv"].float() if state is not None
-          else torch.zeros((b, h, n, n), dtype=torch.float32,
+          else torch.zeros((b, h, n, hn), dtype=torch.float32,
                            device=x.device))
     o, s_final = _wkv_chunked(r, k, v, log_w, p.u.float(), s0,
                               min(cfg.chunk_size, max(s, 1)))
-    o = o.reshape(b, s, d).to(x.dtype)
-    o = layernorm(p.ln_x, o) * g
-    x = x + L.mm(o, p.wo, policy)
+    o = o.reshape(b, s, h * hn)
+    if tp is None:
+        o = layernorm(p.ln_x, o.to(x.dtype)) * g
+        x = x + L.mm(o, p.wo, policy)
+    else:
+        # ln_x normalizes over the whole d: the heads gathered, or the
+        # key channels' partial readouts summed (in f32), first
+        o = tp.gather(o.to(x.dtype)) if n == hn else \
+            tp.reduce(o).to(x.dtype)
+        x = x + tp.whole_out(layernorm(p.ln_x, o), p.wo, policy, gate=g)
 
     # ---- channel mix (a squared ReLU of its own, not `layers.ffn`) --------
     xc = layernorm(p.ln2, x)
@@ -300,9 +322,13 @@ def rwkv6_layer(p: Block, x: torch.Tensor, cfg: ModelConfig,
     dxc = _shift(xc, prevc) - xc
     xk = xc + dxc * p.cm_maa_k.to(xc.dtype)
     xr = xc + dxc * p.cm_maa_r.to(xc.dtype)
-    kk = torch.square(torch.relu(L.mm(xk, p.cm_wk, policy)))
-    cm = torch.sigmoid(L.mm(xr, p.cm_wr, policy)) \
-        * L.mm(kk, p.cm_wv, policy)
+    kk = torch.square(torch.relu(mm(xk, p.cm_wk, policy)))
+    if tp is None:
+        cm = torch.sigmoid(L.mm(xr, p.cm_wr, policy)) \
+            * L.mm(kk, p.cm_wv, policy)
+    else:
+        cm = tp.gather(torch.sigmoid(mm(xr, p.cm_wr, policy))) \
+            * tp.out_proj(kk, p.cm_wv, policy, k_full=cfg.d_ff)
     x = x + cm
 
     new_state = None
@@ -321,13 +347,18 @@ def rwkv6_layer(p: Block, x: torch.Tensor, cfg: ModelConfig,
 def apply(model: RWKV6, cfg: ModelConfig, inputs: dict, *,
           policy: ArithmeticPolicy = ArithmeticPolicy(),
           cache: dict | None = None, attn_impl: str | None = None,
-          remat: bool = False):
+          remat: bool = False, tp=None):
     """Returns (logits, aux (= 0), new_cache). The family has no
     attention, so `attn_impl` is not read. The cache's state tensors
     are updated IN PLACE and returned with index + S. `remat`
     recomputes each layer in the backward pass; without a cache only,
-    and only while autograd records."""
-    x = model.embed_tokens(inputs["tokens"])
+    and only while autograd records. `tp`: a tensor-parallel rank's
+    seams for a model holding its part of the weights (module
+    docstring); the cache then holds the rank's part of the wkv state
+    (`tensor_parallel.rank_cache`), and every rank ends with the same
+    logits."""
+    x = model.embed_tokens(inputs["tokens"],
+                           lookup=F.embedding if tp is None else tp.embedding)
     x = layernorm(model.ln0, x)
     s = x.shape[1]
     if cache is not None and isinstance(cache["index"], torch.Tensor):
@@ -338,15 +369,15 @@ def apply(model: RWKV6, cfg: ModelConfig, inputs: dict, *,
         if cache is not None:
             st = {k: a[li] for k, a in cache["layers"].items()}
         if remat:
-            x, new_st = checkpoint(rwkv6_layer, lp, x, cfg, policy,
+            x, new_st = checkpoint(rwkv6_layer, lp, x, cfg, policy, None, tp,
                                    use_reentrant=False)
         else:
-            x, new_st = rwkv6_layer(lp, x, cfg, policy, st)
+            x, new_st = rwkv6_layer(lp, x, cfg, policy, st, tp)
         if cache is not None:
             for k, a in new_st.items():
                 st[k].copy_(a)
     x = layernorm(model.final_norm, x)
-    logits = model.logits(x)
+    logits = model.logits(x) if tp is None else tp.logits(model, x)
     new_cache = None
     if cache is not None:
         new_cache = {"layers": cache["layers"], "index": cache["index"] + s}

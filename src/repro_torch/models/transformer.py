@@ -325,9 +325,8 @@ def apply(model: Transformer, cfg: ModelConfig, inputs: dict, *,
     TensorParallel` (the sharded train step's, the dry run's serving
     cells), for a model holding that rank's part of the weights: the
     embedding, the layers and the logits go through its seams, and
-    every rank ends with the same logits. Text models only
-    (`models.model.check_tp`); a cache then holds the rank's KV heads
-    (`TensorParallel.attn_dims`).
+    every rank ends with the same logits; a cache then holds the rank's
+    KV heads (`TensorParallel.attn_dims`).
     """
     impl = L.resolve_attn_impl(attn_impl, policy)
     positions = inputs.get("positions")

@@ -40,6 +40,7 @@ activations there as here.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -53,6 +54,7 @@ from repro_torch.models.transformer import (
     Attention,
     RMSNorm,
     Transformer,
+    block_ffn,
     torch_dtype,
 )
 
@@ -184,35 +186,44 @@ def shared_attn_impl(attn_impl: str | None, policy: ArithmeticPolicy, *,
 
 
 def _shared_block(sp: SharedBlock, x, cfg, policy, positions, kv_positions,
-                  cache_kv, slot, impl):
+                  cache_kv, slot, impl, tp=None):
+    """The shared transformer block; `tp` splits it over the ranks as a
+    dense layer (`transformer.block_ffn`)."""
+    seams = dict(dims=_dims(cfg)) if tp is None else tp.attention()
     h, new_kv = L.attention(
-        sp.attn, L.rmsnorm(sp.ln1.scale, x, cfg.norm_eps), _dims(cfg),
+        sp.attn, L.rmsnorm(sp.ln1.scale, x, cfg.norm_eps),
         positions=positions, kv_positions=kv_positions, policy=policy,
         qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
         window=cfg.attn_window, norm_eps=cfg.norm_eps, cache=cache_kv,
-        cache_index=slot, attn_impl=impl)
+        cache_index=slot, attn_impl=impl, **seams)
     x = x + h
-    f = L.ffn(sp.ffn, L.rmsnorm(sp.ln2.scale, x, cfg.norm_eps), cfg.act,
-              cfg.glu, policy)
+    f, _ = block_ffn(sp, L.rmsnorm(sp.ln2.scale, x, cfg.norm_eps), cfg,
+                     policy, tp=tp)
     return x + f, new_kv
 
 
-def _mamba_residual(lp: M2.Mamba2Layer, x, cfg, policy):
+def _mamba_residual(lp: M2.Mamba2Layer, x, cfg, policy, tp=None):
     """x plus a Mamba2 layer's output, without a cache: the unit that
     `remat` recomputes (the reference's `mamba_body`)."""
-    return x + M2.mamba2_layer(lp, x, cfg, policy)[0]
+    return x + M2.mamba2_layer(lp, x, cfg, policy, tp=tp)[0]
 
 
 def apply(model: Zamba2, cfg: ModelConfig, inputs: dict, *,
           policy: ArithmeticPolicy = ArithmeticPolicy(),
           cache: dict | None = None, attn_impl: str | None = None,
-          remat: bool = False):
+          remat: bool = False, tp=None):
     """Returns (logits, aux (= 0), new_cache). inputs: {"tokens": (B,
     S), optional "positions": (B, S)}. The cache's states, rings and
     `attn_pos` are updated IN PLACE and returned with index + S.
     `remat` recomputes each Mamba2 layer in the backward pass; without
-    a cache only, and only while autograd records."""
-    x = model.embed_tokens(inputs["tokens"])
+    a cache only, and only while autograd records. `tp`: a
+    tensor-parallel rank's seams for a model holding its part of the
+    weights (the Mamba2 layers by SSD heads, the shared block as a
+    dense layer); the cache then holds the rank's part
+    (`tensor_parallel.rank_cache`), and every rank ends with the same
+    logits."""
+    x = model.embed_tokens(inputs["tokens"],
+                           lookup=F.embedding if tp is None else tp.embedding)
     b, s, _ = x.shape
     dev = x.device
     period = cfg.shared_attn_period
@@ -259,11 +270,12 @@ def apply(model: Zamba2, cfg: ModelConfig, inputs: dict, *,
     def mamba(li, x):
         if remat:
             return checkpoint(_mamba_residual, model.layers[li], x, cfg,
-                              policy, use_reentrant=False)
+                              policy, tp, use_reentrant=False)
         st = None
         if cache is not None:
             st = {k: a[li] for k, a in cache["mamba"].items()}
-        out, new_st = M2.mamba2_layer(model.layers[li], x, cfg, policy, st)
+        out, new_st = M2.mamba2_layer(model.layers[li], x, cfg, policy, st,
+                                      tp)
         if cache is not None:
             for k, a in new_st.items():
                 st[k].copy_(a)
@@ -276,12 +288,12 @@ def apply(model: Zamba2, cfg: ModelConfig, inputs: dict, *,
         if cache is not None:
             ckv = {"k": cache["attn_k"][g], "v": cache["attn_v"][g]}
         x, _ = _shared_block(model.shared, x, cfg, policy, positions,
-                             kv_positions, ckv, slot, impl)
+                             kv_positions, ckv, slot, impl, tp)
     for li in range(ninv * period, cfg.n_layers):
         x = mamba(li, x)
 
     x = L.rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
-    logits = model.logits(x)
+    logits = model.logits(x) if tp is None else tp.logits(model, x)
     new_cache = None
     if cache is not None:
         new_cache = dict(cache, index=index + s)

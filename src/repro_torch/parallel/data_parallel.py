@@ -8,9 +8,7 @@ Placement (`train_placement`): a spec a parameter, one entry a dim,
 "data", "model" or None.
   * "model" entries are tensor-parallel serving's placement
     (`tensor_parallel.placement`: the reference's tp and ep dims, with
-    the port's choices named there), for the dense and MoE families of
-    text models; the others take no "model" entry and a `model > 1`
-    mesh refuses them (`check_mesh`).
+    the port's choices named there), for every family.
   * "data" entries are the reference's fsdp dims. Where the placement
     moved a matrix's model cut onto that dim (wo and w_down under a
     quantized policy), "data" takes the first other dim it divides.
@@ -54,11 +52,12 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.policy import ArithmeticPolicy
 from repro_torch.models import model as modellib
-from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel import comm
-from repro_torch.parallel.sharding import (ShardingRules, batch_specs,
-                                           param_shapes, param_specs)
+from repro_torch.parallel.sharding import (Segments, ShardingRules,
+                                           batch_specs, cut_dim, entry_axis,
+                                           local_size, param_shapes,
+                                           param_specs, spec_axes)
 from repro_torch.parallel.tensor_parallel import (AXIS, TensorParallel,
                                                   named_shards, placement)
 
@@ -67,21 +66,18 @@ DATA = "data"
 
 def check_mesh(cfg: ModelConfig, mesh, policy: ArithmeticPolicy,
                rules: ShardingRules) -> None:
-    """Refuse what the sharded step does not run: tensor parallelism for
-    a family other than the text dense and MoE ones, per-channel scales
-    (a per-tensor scale is taken over the ranks), a gradient through
-    the scales (they are taken over the ranks without one), a mesh
-    axis other than data and model."""
+    """Refuse what the sharded step does not run: a sequence-parallel
+    placement, per-channel scales (a per-tensor scale is taken over the
+    ranks), a gradient through the scales (they are taken over the
+    ranks without one), a mesh axis other than data and model."""
     axes = set(mesh.shape)
     if not axes <= {DATA, AXIS}:
         raise ValueError(f"the sharded train step runs over (data, model) "
                          f"meshes, got axes {sorted(axes)}")
-    if mesh.shape.get(AXIS, 1) > 1 and (
-            cfg.family not in transformer.FAMILIES or cfg.modality != "text"):
-        raise ValueError(
-            f"{cfg.name}: tensor-parallel training (model > 1) runs the "
-            f"dense and MoE text families; {cfg.family} "
-            f"({cfg.modality}) trains over data only")
+    if rules.seq_parallel:
+        raise ValueError(f"{cfg.name}: the sharded train step has no "
+                         f"sequence-parallel placement "
+                         f"(ShardingRules.seq_parallel)")
     if policy.is_quantized() and (policy.act_quant_axis is not None or
                                   policy.weight_quant_axis is not None):
         raise ValueError("the sharded train step keeps per-tensor scales; "
@@ -120,32 +116,53 @@ def train_placement(cfg: ModelConfig, shapes: dict[str, tuple], mesh,
     return out
 
 
-def _size(rmesh, axis) -> int:
+def _size(rmesh, entry) -> int:
+    axis = entry_axis(entry)
     return 1 if axis is None else rmesh.size(axis)
 
 
 def local_shape(shape: tuple, spec: tuple, rmesh) -> tuple:
     """The shape of a rank's block of a tensor of `shape` under `spec`."""
-    return tuple(d // _size(rmesh, a) for d, a in zip(shape, _pad(spec,
-                                                                  len(shape))))
+    return tuple(local_size(d, e, _size(rmesh, e))
+                 for d, e in zip(shape, _pad(spec, len(shape))))
 
 
 def cut(x: torch.Tensor, spec: tuple, rmesh) -> torch.Tensor:
     """This rank's block of x under `spec`."""
-    for i, axis in enumerate(_pad(spec, x.dim())):
-        if axis is not None:
-            size = x.shape[i] // rmesh.size(axis)
-            x = x.narrow(i, rmesh.index(axis) * size, size)
+    for i, entry in enumerate(_pad(spec, x.dim())):
+        if entry is not None:
+            axis = entry_axis(entry)
+            x = cut_dim(x, i, entry, rmesh.index(axis), rmesh.size(axis))
     return x
 
 
 def whole(x: torch.Tensor, spec: tuple, rmesh) -> torch.Tensor:
     """The whole tensor of which x is this rank's block under `spec`
     (every rank's blocks gathered, on every rank)."""
-    for i, axis in enumerate(_pad(spec, x.dim())):
-        if axis is not None and rmesh.size(axis) > 1:
-            x = comm.all_gather(x, rmesh.group(axis), i)
+    for i, entry in enumerate(_pad(spec, x.dim())):
+        axis = entry_axis(entry)
+        if axis is None or rmesh.size(axis) == 1:
+            continue
+        group, n = rmesh.group(axis), rmesh.size(axis)
+        if isinstance(entry, Segments):
+            x = torch.cat([comm.all_gather(p, group, i) if c else p
+                           for p, c in zip(torch.split(
+                               x, entry.local_sizes(n), dim=i), entry.cut)],
+                          dim=i)
+        else:
+            x = comm.all_gather(x, group, i)
     return x
+
+
+def _held_once(t: torch.Tensor, spec: tuple, rmesh) -> torch.Tensor:
+    """The elements of a rank's block that no other rank holds as well:
+    a `Segments` cut's whole segments count on its axis's rank 0 only."""
+    for i, entry in enumerate(_pad(spec, t.dim())):
+        if isinstance(entry, Segments) and rmesh.index(entry.axis):
+            t = torch.cat([p for p, c in zip(torch.split(
+                t, entry.local_sizes(rmesh.size(entry.axis)), dim=i),
+                entry.cut) if c], dim=i)
+    return t
 
 
 class _Gather(nn.Module):
@@ -207,12 +224,13 @@ def _reads(model: nn.Module, specs: dict, rmesh) -> nn.Module:
     table = WeakIdKeyDictionary()
     for name, spec in specs.items():
         owner, leaf = _owner(model, name)
-        if DATA in spec:
+        axes = spec_axes(spec)
+        if DATA in axes:
             parametrize.register_parametrization(
-                owner, leaf, _Gather(rmesh.group(DATA), spec.index(DATA),
-                                     AXIS in spec, table), unsafe=True)
+                owner, leaf, _Gather(rmesh.group(DATA), axes.index(DATA),
+                                     AXIS in axes, table), unsafe=True)
         else:
-            table[getattr(owner, leaf)] = AXIS in spec
+            table[getattr(owner, leaf)] = AXIS in axes
     model.placement, model.tp_cut = specs, table
     return model
 
@@ -309,7 +327,9 @@ def global_norm(tensors: dict, specs: dict, rmesh) -> torch.Tensor:
     held whole by several ranks counts once."""
     groups: dict[tuple, list] = {}
     for name, t in tensors.items():
-        axes = tuple(sorted(a for a in specs[name] if a is not None))
+        axes = tuple(sorted(a for a in spec_axes(specs[name])
+                            if a is not None))
+        t = _held_once(t, specs[name], rmesh)
         groups.setdefault(axes, []).append(torch.sum(torch.square(t.float())))
     total = []
     for axes in sorted(groups):
@@ -334,14 +354,15 @@ def whole_batch(model: nn.Module, loss: torch.Tensor, grads: dict, rmesh,
     """(the whole batch's loss, gradients) from this rank's: its rows'
     loss averaged over the data ranks; every gradient block not
     reduce-scattered by its FSDP read summed over the data ranks (the
-    step back-propagates `(loss + aux) / data`), and the qk-norm
-    scales, read by each model rank on its own heads, over the model
-    ranks first. Every rank returns the same loss."""
+    step back-propagates `(loss + aux) / data`), and the parts each
+    model rank reads for its own part of the work only
+    (`TensorParallel.sum_partial`) over the model ranks first. Every
+    rank returns the same loss."""
     n_data = rmesh.size(DATA)
     for name, g in grads.items():
-        if tp is not None and tp.partial_grad(name):
-            g = comm.all_reduce(g, rmesh.group(AXIS))
-        if n_data > 1 and DATA not in model.placement[name]:
+        if tp is not None:
+            g = tp.sum_partial(name, g)
+        if n_data > 1 and DATA not in spec_axes(model.placement[name]):
             g = comm.all_reduce(g, rmesh.group(DATA))
         grads[name] = g
     if n_data > 1:

@@ -19,7 +19,13 @@ that the axis size does not divide stays whole. `param_specs` takes the
 port's named parameters; a leaf under `layers.<i>.` is the reference's
 stacked leaf less its leading L axis, and its spec is the reference's
 less that axis's None. `shard_leaf` cuts a rank's part of a tensor by
-its spec.
+its spec and `join_parts` puts the ranks' parts back together.
+
+The port's placements add one kind of entry, `Segments`: a dim made of
+segments, some cut over the axis and some whole on every rank (Mamba2's
+`in_proj` columns [z, x, B, C, dt]: z, x and dt by SSD heads, B and C
+whole), or every segment cut (rwkv6's key channels of each head).
+`entry_axis` and `spec_axes` name the axes of any entry.
 """
 from __future__ import annotations
 
@@ -31,6 +37,31 @@ import torch
 from repro_torch.models.config import ModelConfig
 
 Spec = tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class Segments:
+    """A spec entry that cuts a dim segment by segment: the dim is the
+    concatenation of segments of `sizes`, each one marked in `cut` split
+    into contiguous blocks over `axis` and each other one whole on every
+    rank. A rank's part of the dim is, in the dim's order, its block of
+    every cut segment and every whole segment."""
+    axis: str
+    sizes: tuple[int, ...]
+    cut: tuple[bool, ...]
+
+    def local_sizes(self, n: int) -> list[int]:
+        return [s // n if c else s for s, c in zip(self.sizes, self.cut)]
+
+
+def entry_axis(entry):
+    """The mesh axis (or axes) of one spec entry."""
+    return entry.axis if isinstance(entry, Segments) else entry
+
+
+def spec_axes(spec: Spec) -> tuple:
+    """The mesh axes a spec cuts, one entry each (None where whole)."""
+    return tuple(entry_axis(e) for e in spec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -269,27 +300,72 @@ def _sharded_dims(spec: Spec, ndim: int) -> list[int]:
             if s is not None]
 
 
+def local_size(size: int, entry, n: int) -> int:
+    """A rank's length of a dim of `size` under one spec entry over n
+    ranks."""
+    if entry is None:
+        return size
+    if isinstance(entry, Segments):
+        if sum(entry.sizes) != size:
+            raise ValueError(f"segments {entry.sizes} do not make a dim of "
+                             f"{size}")
+        return sum(entry.local_sizes(n))
+    return size // n
+
+
 def local_shape(shape: tuple, spec: Spec, n: int) -> tuple:
     """The shape of one rank's part of a tensor of `shape` cut by `spec`
     over n ranks (one mesh axis of size n)."""
-    out = list(shape)
-    for i in _sharded_dims(spec, len(shape)):
-        out[i] //= n
-    return tuple(out)
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(local_size(d, e, n) for d, e in zip(shape, spec))
+
+
+def cut_dim(x: torch.Tensor, dim: int, entry, rank: int,
+            n: int) -> torch.Tensor:
+    """Rank `rank`'s part of x along `dim` under one spec entry over n
+    ranks."""
+    if isinstance(entry, Segments):
+        pieces = torch.split(x, list(entry.sizes), dim=dim)
+        return torch.cat([p.narrow(dim, rank * (p.shape[dim] // n),
+                                   p.shape[dim] // n) if c else p
+                          for p, c in zip(pieces, entry.cut)], dim=dim)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
+                         f"into {n} shards")
+    size = x.shape[dim] // n
+    return x.narrow(dim, rank * size, size)
+
+
+def join_dim(parts: list, dim: int, entry) -> torch.Tensor:
+    """The inverse of `cut_dim`: every rank's part, in rank order, put
+    back together along `dim`."""
+    if not isinstance(entry, Segments):
+        return torch.cat(parts, dim=dim)
+    n = len(parts)
+    split = [torch.split(p, entry.local_sizes(n), dim=dim) for p in parts]
+    return torch.cat([torch.cat([s[i] for s in split], dim=dim) if c
+                      else split[0][i] for i, c in enumerate(entry.cut)],
+                     dim=dim)
 
 
 def shard_leaf(x: torch.Tensor, spec: Spec, rank: int,
                n: int) -> torch.Tensor:
-    """Rank `rank`'s contiguous block of x under `spec` over n ranks
-    (every sharded dim is cut into n equal blocks: one mesh axis)."""
+    """Rank `rank`'s part of x under `spec` over n ranks (every sharded
+    dim is cut into n: one mesh axis), a contiguous block of a plain
+    entry's dim, a block of each cut segment of a `Segments` one."""
     dims = _sharded_dims(spec, x.dim())
     if len(dims) > 1:
         raise ValueError(f"spec {spec} shards {len(dims)} dims over one "
                          f"mesh axis")
     for i in dims:
-        if x.shape[i] % n:
-            raise ValueError(f"dim {i} of {tuple(x.shape)} does not divide "
-                             f"into {n} shards")
-        size = x.shape[i] // n
-        x = x.narrow(i, rank * size, size)
+        x = cut_dim(x, i, spec[i], rank, n)
     return x
+
+
+def join_parts(parts: list, spec: Spec) -> torch.Tensor:
+    """The whole tensor whose parts over len(parts) ranks under `spec`
+    are `parts` (in rank order): the inverse of `shard_leaf`."""
+    dims = _sharded_dims(spec, parts[0].dim())
+    if not dims:
+        return parts[0]
+    return join_dim(list(parts), dims[0], spec[dims[0]])

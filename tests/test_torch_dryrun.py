@@ -4,9 +4,10 @@ models `count_cell` runs: `shape_rank_model`, the serving model) leaf
 by leaf against `repro.launch.specs` (shapes through `jax.eval_shape`,
 nothing allocated) for the four archs of tests/test_launch.py's
 `test_input_specs_cover_all_kinds` at full width; `run_cell` over a
-fake (data 2, model 2) mesh on smoke configs: an ok row with the
-reference's keys written to a cache file, and an error row naming the
-family for rwkv6 at model 2; the table and compare scripts.
+fake (data 2, model 2) mesh on smoke configs: ok rows with the
+reference's keys written to a cache file (rwkv6's tensor-parallel
+train step among them), and an error row for per-channel scales, which
+the sharded step refuses; the table and compare scripts.
 """
 import importlib.util
 import json
@@ -25,6 +26,7 @@ import torch.distributed as dist  # noqa: E402
 from repro import configs as jconfigs  # noqa: E402
 from repro.launch import specs as jspecs  # noqa: E402
 from repro_torch import configs  # noqa: E402
+from repro_torch.core.policy import ArithmeticPolicy  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh as meshlib  # noqa: E402
 from repro_torch.launch import specs  # noqa: E402
@@ -159,7 +161,11 @@ def test_run_cell_rows(smoke_cells, tmp_path):
     assert not dist.is_initialized()
     with open(path) as f:
         assert json.load(f) == cache
-    assert len(cache) == 3
+    bad = dryrun.run_cell("rwkv6_3b", "tiny_train", mesh, "smoke_2x2",
+                          policy=ArithmeticPolicy(mode="int8",
+                                                  act_quant_axis=-1),
+                          cache=cache, cache_path=path, verbose=False)
+    assert len(cache) == 4
     for shape in ("tiny_train", "tiny_decode"):
         row = rows[("qwen3_8b", shape)]
         assert row["status"] == "ok", row.get("error")
@@ -169,9 +175,12 @@ def test_run_cell_rows(smoke_cells, tmp_path):
         assert row["coll_ops"] and row["fits_hbm"]
     assert rows[("qwen3_8b", "tiny_decode")]["kernel_calls"] == {
         "flash_attention": 2}
-    err = rows[("rwkv6_3b", "tiny_train")]
-    assert err["status"] == "error"
-    assert err["error"].startswith("ValueError") and "rwkv6" in err["error"]
+    ok = rows[("rwkv6_3b", "tiny_train")]
+    assert ok["status"] == "ok", ok.get("error")
+    assert _reference_ok_keys() <= set(ok) and ok["hlo_gflops"] > 0
+    assert bad["status"] == "error"
+    assert bad["error"].startswith("ValueError") and \
+        "act_quant_axis" in bad["error"]
     # a cached ok row is returned as it is; an existing group is refused
     again = dryrun.run_cell("qwen3_8b", "tiny_decode", mesh, "smoke_2x2",
                             cache=cache, cache_path=path, verbose=False)

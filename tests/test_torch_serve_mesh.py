@@ -31,8 +31,8 @@ compares every rank's results:
     exact): exact and int8 logits and cache against the single-device
     steps';
   * the refusals (the fused core, a state-slot family, a part cut for
-    another placement, a tensor-parallel step given every KV head or an
-    audio model), and the CLI with `--mesh-shards 2`.
+    another placement, a tensor-parallel step given every KV head or
+    per-channel scales), and the CLI with `--mesh-shards 2`.
 """
 import dataclasses
 import functools
@@ -350,7 +350,7 @@ def test_refusals_on_a_mesh(ranks):
         assert "has no multi-device backend" in r["state_slot"]
         assert "another placement" in r["placement"]
         assert "holds its 1 KV heads, got 2" in r["whole_cache"]
-        assert "(audio) has no tensor-parallel forward" in r["audio"]
+        assert "keep per-tensor scales" in r["per_channel"]
 
 
 @pytest.mark.parametrize("mode", STEP_MODES)

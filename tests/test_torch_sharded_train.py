@@ -32,7 +32,9 @@ scales are taken over the data ranks, as the reference's per-tensor
 absmax of the whole batch. Every rank's metrics and gathered
 parameters are the same; cutting a model and its AdamW state and
 gathering them back gives them bit for bit; rwkv6_3b at (1, 2) is
-refused naming the family; `mesh=None` is the single-device step bit
+refused with a sequence-parallel placement, naming the family, and
+taken without one (tests/test_torch_tp_families.py holds its
+tensor-parallel step); `mesh=None` is the single-device step bit
 for bit; the ranks import neither jax nor `repro`.
 """
 import concurrent.futures
@@ -123,8 +125,10 @@ def _group_cases(n):
     cases = [c for c in CASES + [INT8] if c[2][0] * c[2][1] == n]
     jobs = [_case(*c) for c in cases]
     if n == 2:
-        jobs.append(("train_refusal", dict(cfg=_cfgs("rwkv6_3b")[1],
-                                           mesh=(1, 2))))
+        rw = _cfgs("rwkv6_3b")[1]
+        jobs += [("train_refusal", dict(cfg=rw, mesh=(1, 2),
+                                        rules=dict(seq_parallel=True))),
+                 ("train_refusal", dict(cfg=rw, mesh=(1, 2)))]
     jobs += [("lanes", {}), ("modules", {})]
     return cases, jobs
 
@@ -135,7 +139,7 @@ def _spawn(n):
                              timeout_s=120)
     out = {c: [r[i] for r in per_rank] for i, c in enumerate(cases)}
     if n == 2:
-        out["refusal"] = [r[len(cases)] for r in per_rank]
+        out["refusal"] = [r[len(cases):len(cases) + 2] for r in per_rank]
     out["lanes"] = [r[-2] for r in per_rank]
     out["modules"] = [r[-1] for r in per_rank]
     return out
@@ -312,8 +316,12 @@ def test_shard_and_gather_round_trip(runs, case):
 
 @needs8
 def test_tensor_parallel_refuses_rwkv6(runs):
-    for msg in runs[0][2]["refusal"]:
-        assert "rwkv6" in msg and "model > 1" in msg
+    """rwkv6 at (model 2) is refused with a sequence-parallel placement,
+    which the sharded step lacks, and taken without one."""
+    for seq_parallel, plain in runs[0][2]["refusal"]:
+        assert "rwkv6" in seq_parallel and \
+            "sequence-parallel" in seq_parallel
+        assert plain == ""
 
 
 @needs8
