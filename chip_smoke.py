@@ -22,7 +22,9 @@ without printing a result:
      the static prefill's own shape at batch 2 included; sc_matmul's
      integer dots also at the edges of their tiles, splits and int32
      range, its artemis path at the edges of its K split and windows and
-     on operands of -128);
+     on operands of -128; both attention kernels also at phase 36's
+     head dims and groups: Dh 256 at G 8 through the rows instance
+     only, Dh 128 at G 5, 6 and 7 through both);
   4. at the full-width qwen3_8b shapes of the serve paths, hold each
      kernel against its plain version once more, then time it beside
      its plain version, its bound and one library call (paged_attention
@@ -226,16 +228,38 @@ without printing a result:
      attention layer of every forward a rank; (d) each family's (model
      2) f32 train step (8 x 64) against one card's (`TRAIN_PIN_TOL`),
      as phase 33a; each family's seconds;
+ 36. the shipped configurations no earlier phase ran, at full width:
+     gemma_2b (18 layers; MQA at Dh 256, vocab 256000), qwen3_14b (40;
+     G 5), deepseek_coder_33b (62; G 7, 62 GiB of weights) at full depth
+     and dbrx_132b through 8 of its 40 layers (reduced: depth; G 6, 16
+     experts, top-4): the dense configs' f32 identities through 2 layers
+     (fused vs gather drains, flash vs gather static runs, token-
+     identical); then an exact fused drain of 8 half-sampled requests
+     (prompts 64-128, 8 new tokens; paged_attention once a layer of every
+     forward, its tile instance at the prefill-chunk forwards where it
+     takes the head dim: never at Dh 256), an exact static run (batch 4,
+     prompt 512, gen 8; flash once a layer of every forward, in the
+     instance `kernel_variant` gives), and int8: a static run of the
+     dense configs (batch 2, prompt 32, gen 2; sc_matmul 7 a layer of
+     every forward; gemma_2b under artemis too), a drain of dbrx_132b
+     (sc_matmul 4 + 3 x 16 a layer: each expert quantized on its own),
+     counts zeroed just before each run and read just after; the page
+     pool and the static batch sized from the memory free after the
+     weights load; tok/s, ms a forward, weights and peak GiB; the phase's
+     seconds against 150;
  16. (last) sc_matmul against its plain version at every shape phases
-     7, 9, 14, 19, 22, 23, 24, 25, 26-29, 30, 33 and 35 gave it; print
-     the kernels line, the card line, then the result line.
+     7, 9, 14, 19, 22, 23, 24, 25, 26-29, 30, 33, 35 and 36 gave it;
+     print the kernels line, the card line, then the result line.
 Each phase's seconds are logged as it ends. Phase 4 also times each
 kernel at the qwen2_moe_a2_7b shapes (4b), flash_attention at
 zamba2_7b's static shapes (4c) and at musicgen_large's and
-internvl2_1b's (4d: D 64, G 1 and G 7), and phase 3 holds sc_matmul to
-its plain version at the expert products' shapes and flash_attention
-at D 112, G 1 and at D 64, G 1 and G 7 (Sq 1280 = 256 + 1024, 1100,
-8 and 1 over 1312 cache slots).
+internvl2_1b's (4d: D 64, G 1 and G 7), both attention kernels at
+gemma_2b's, qwen3_14b's and deepseek_coder_33b's decode and
+prefill-chunk or prefill shapes (4e: each beside the bound its wrapper
+declares to `roofline/count.py` under HW_H100), and phase 3 holds
+sc_matmul to its plain version at the expert products' shapes and
+flash_attention at D 112, G 1 and at D 64, G 1 and G 7 (Sq 1280 = 256 +
+1024, 1100, 8 and 1 over 1312 cache slots).
 
 The ranks of phases 30-32 run this script's `mesh_rank` (phases 33 and
 35's `shard_rank`), which the spawned processes import by name; a
@@ -354,6 +378,10 @@ def cuda_time_ms(fn, n_iter: int, warmup: int = 3) -> float:
 
 
 PA_VARIANTS = ("rows", "tile")       # the kernel's two instances
+# (head dim, group) of the attention of phase 36's configurations that no
+# earlier phase ran: gemma_2b (256, 8), qwen3_14b (128, 5), dbrx_132b
+# (128, 6), deepseek_coder_33b (128, 7)
+NEW_ATTN_GEOMETRIES = ((256, 8), (128, 5), (128, 6), (128, 7))
 
 
 def _pa_case(gen, *, page, hd, group, window, s, q_dtype, kv_dtype,
@@ -394,7 +422,8 @@ def _pa_keeps_a_key(pos, table_len, window):
 
 
 def check_paged_attention() -> dict:
-    """Each case through both instances (`variant`), against the plain
+    """Each case through each instance that takes it (`variant`; the
+    tile one takes Dh in TILE_HEAD_DIMS), against the plain
     version within PA_TOL on every row, those that keep no key
     (`_pa_keeps_a_key`) included. Then the same with the trash page
     poisoned: no valid lane changes, the idle lane stays finite. Returns
@@ -402,6 +431,8 @@ def check_paged_attention() -> dict:
     import torch
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_ref)
+    from repro_torch.kernels.paged_attention.paged_attention import (
+        TILE_HEAD_DIMS)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     worst = dict.fromkeys(PA_VARIANTS, 0.0)
@@ -417,8 +448,16 @@ def check_paged_attention() -> dict:
     # 2000 keys behind a 32-token chunk: the error stays flat with depth
     grid += [dict(page=16, hd=128, group=4, window=window, s=32,
                   starts=[1968, 1000]) for window in (None, 3)]
+    # the groups and head dims of phase 36's configurations: gemma_2b's
+    # Dh 256 at G 8 (the rows instance only), qwen3_14b's G 5,
+    # dbrx_132b's G 6 and deepseek_coder_33b's G 7 at Dh 128
+    grid += [dict(page=8, hd=hd, group=group, window=window, s=s)
+             for hd, group in NEW_ATTN_GEOMETRIES for window in (None, 3)
+             for s in (1, 32)]
     for case in grid:
         errs = {}
+        variants = [v for v in PA_VARIANTS
+                    if v == "rows" or case["hd"] in TILE_HEAD_DIMS]
         for q_dt, kv_dt in dtypes:
             q, kp, vp, bt, pos = _pa_case(gen, q_dtype=q_dt, kv_dtype=kv_dt,
                                           **case)
@@ -428,7 +467,7 @@ def check_paged_attention() -> dict:
             kp2, vp2 = kp.clone(), vp.clone()
             kp2[0] = 1e3
             vp2[0] = 1e3
-            for variant in PA_VARIANTS:
+            for variant in variants:
                 out = paged_attention(q, kp, vp, bt, pos, window=window,
                                       variant=variant)
                 torch.cuda.synchronize()
@@ -460,7 +499,7 @@ def check_paged_attention() -> dict:
             f"{' 2000 keys' if 'starts' in case else ''} | max err " +
             " | ".join(f"{v} " + " ".join(
                 f"{names[qd]}/{names[kd]} {errs[v, qd, kd]:.2e}"
-                for qd, kd in dtypes) for v in PA_VARIANTS))
+                for qd, kd in dtypes) for v in variants))
     for v in PA_VARIANTS:
         log(f"paged_attention ({v}): {n[v]} cases within rtol=atol=2e-4 "
             f"(max abs err {worst[v]:.3e}); trash-poisoned pools change no "
@@ -477,22 +516,25 @@ def check_paged_attention() -> dict:
 
 
 def time_paged_attention(cfg) -> list[dict]:
-    """Decode (S=1) and prefill-chunk (S=32) shapes of the qwen3_8b serve
-    path: 8 lanes, 288 tokens a lane, page 8, f32 pool, bf16 queries.
-    Each call reads another layer's pool (8 layers, 268 MB in all), so
-    the 50 MB L2 holds none of it, as in a forward over 36 layers. Each
-    shape runs the instance the serve path picks (`kernel_variant`), and
-    the other instance is timed beside it: the rows instance is the
-    prefill chunk's kernel before the tile instance."""
+    """Decode (S=1) and prefill-chunk (S=32) shapes of the config's serve
+    path (qwen3_8b's phase 5): 8 lanes, 288 tokens a lane, page 8, f32
+    pool, bf16 queries. Each call reads another layer's pool (at least 8
+    layers, and enough that the rows the calls visit fill twice the 50
+    MB L2: qwen3_8b 8 of 33.6 MB), so the L2 holds none of it, as in a
+    forward over all layers. Each shape runs the instance the serve path
+    picks (`kernel_variant`), and the other instance, where it takes the
+    head dim, is timed beside it: the rows instance is the prefill
+    chunk's kernel before the tile instance."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_ref)
     from repro_torch.kernels.paged_attention.paged_attention import (
-        kernel_variant)
+        TILE_HEAD_DIMS, kernel_variant, work)
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    b, page, n_pages, n_layers, tokens = 8, 8, 512, 8, 288
+    b, page, n_pages, tokens = 8, 8, 512, 288
+    n_layers = max(8, math.ceil(100e6 / (2 * b * tokens * kvh * hd * 4)))
     pmax = tokens // page + 1
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -526,10 +568,13 @@ def time_paged_attention(cfg) -> list[dict]:
                                  f"{err.max().item():.3e}")
         ms = cuda_time_ms(lambda i: paged_attention(
             q, kp[i % n_layers], vp[i % n_layers], bt, pos, scale=scale), 50)
-        other = next(v for v in PA_VARIANTS if v != variant)
-        other_ms = cuda_time_ms(lambda i: paged_attention(
-            q, kp[i % n_layers], vp[i % n_layers], bt, pos, scale=scale,
-            variant=other), 50)
+        ms_by_variant = {variant: ms}
+        other = next((v for v in PA_VARIANTS if v != variant and (
+            v == "rows" or hd in TILE_HEAD_DIMS)), None)
+        if other:
+            ms_by_variant[other] = cuda_time_ms(lambda i: paged_attention(
+                q, kp[i % n_layers], vp[i % n_layers], bt, pos, scale=scale,
+                variant=other), 50)
         plain_ms = cuda_time_ms(lambda i: paged_attention_ref(
             q, kp[i % n_layers], vp[i % n_layers], bt, pos, scale=scale), 10)
         # library yardstick: SDPA over the pre-gathered view (the gather
@@ -568,26 +613,41 @@ def time_paged_attention(cfg) -> list[dict]:
         t_ops = t_tf32 if variant == "tile" else t_f32
         bound_ms = max(t_bytes, t_ops)
         bound_f32_ms = max(t_bytes, t_f32)
+        declared_ms = declared_bound_ms(*work(q, kp[0], bt, pos))
         row = dict(
-            shape=label, B=b, S=s, tokens_per_lane=tokens, variant=variant,
+            shape=label, B=b, S=s, H=h, KV=kvh, Dh=hd,
+            tokens_per_lane=tokens, variant=variant,
             max_abs_err=err.max().item(), ms=ms,
-            ms_by_variant={variant: ms, other: other_ms},
+            ms_by_variant=ms_by_variant,
             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            bound_f32_ms=bound_f32_ms, bytes=n_bytes, flops=flops)
+            bound_f32_ms=bound_f32_ms, declared_bound_ms=declared_ms,
+            bytes=n_bytes, flops=flops)
         if variant == "tile":
             row.update(qk_passes=qk_passes, pv_passes=pv_passes)
         rows.append(row)
-        log(f"  {label:13s} B {b} S {s:2d} ({variant}): max err "
-            f"{err.max().item():.2e} | kernel {ms*1e3:8.2f} us"
-            + f" ({other} instance {other_ms*1e3:8.2f} us)"
+        other_note = (f"{other} instance {ms_by_variant[other]*1e3:8.2f} us"
+                      if other else f"no other instance takes Dh {hd}")
+        log(f"  {label:13s} B {b} S {s:2d} G {h // kvh} Dh {hd} ({variant}): "
+            f"max err {err.max().item():.2e} | kernel {ms*1e3:8.2f} us"
+            + f" ({other_note})"
             + f" | plain {plain_ms*1e3:8.2f} us | sdpa "
             f"{library_ms*1e3:8.2f} us | bound {bound_ms*1e3:6.2f} us "
             f"({row['bound_by']}: {n_bytes/1e6:.1f} MB, {flops/1e9:.3f} "
             f"GFLOP) {bound_ms/ms:.1%} of it | f32 bound "
-            f"{bound_f32_ms*1e3:6.2f} us {bound_f32_ms/ms:.1%} of it")
+            f"{bound_f32_ms*1e3:6.2f} us {bound_f32_ms/ms:.1%} of it | "
+            f"declared bound {declared_ms*1e3:6.2f} us "
+            f"{declared_ms/ms:.1%} of it")
     del kp, vp
     return rows
+
+
+def declared_bound_ms(flops: int, n_bytes: int) -> float:
+    """The least time of a kernel call's work as the wrapper declares it
+    to `roofline/count.py` (its `work`: FLOPs, bytes) under HW_H100: the
+    larger of FLOPs at the bf16 peak and bytes at the memory rate."""
+    from repro_torch.roofline import HW_H100
+    return max(flops / HW_H100.peak_flops, n_bytes / HW_H100.hbm_bw) * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -1018,7 +1078,8 @@ def check_flash_attention() -> tuple[dict, dict]:
     case with f32 K/V rounds them to bf16 (`kv_cast`). Then the static
     prefill's own shape at batch 2: Sq 1024 over an f32 cache of 1056
     slots read as strided views, kv_len 1024, `kv_cast` bf16, the ops
-    wrapper's tiles. Each case through the rows instance, and through
+    wrapper's tiles; phase 36's head dims and groups
+    (NEW_ATTN_GEOMETRIES). Each case through the rows instance, and through
     the tile instance where it takes the case (`tile_takes`); o and lse
     within FA_TOL of the plain version, nvis equal. Returns (max abs
     error, cases) per instance."""
@@ -1148,6 +1209,35 @@ def check_flash_attention() -> tuple[dict, dict]:
                 cases)
     settle(cases, "D 64, G 1 and G 7 (the multimodal static shapes), Sq "
                   "1280 / 1100 / 8 / 1, Smax 1312")
+    # phase 36's geometries (NEW_ATTN_GEOMETRIES: D 256 at G 8 in the
+    # rows instance only, D 128 at G 5, 6, 7 in both), 2 KV heads: the
+    # static prefill of 520 slots and a chunk past half of it, a decode
+    # row and 8 rows at the end of the cache, with and without a window
+    # of 3 and a kv_len that leaves later rows no key; bf16 q over an f32
+    # cache rounded by kv_cast (the static path), bf16 throughout and f32
+    # throughout (the f32 checks), strided views every other case
+    cases = []
+    smax = 520
+    for d, group in NEW_ATTN_GEOMETRIES:
+        for q_dt, kv_dt, kv_cast in ((bf16, f32, bf16), (bf16, bf16, None),
+                                     (f32, f32, None)):
+            strided = n % 2 == 1
+            k = operand(hkv, smax, d, kv_dt, strided)
+            v = operand(hkv, smax, d, kv_dt, strided)
+            for sq, q_offset in ((512, 0), (200, 300), (1, 511), (8, 504)):
+                q = operand(hkv * group, sq, d, q_dt, strided)
+                for window in (None, 3):
+                    for kv_len in (q_offset + sq, q_offset + (sq + 1) // 2):
+                        bq, bk = effective_tiles(sq, smax)
+                        kw = dict(causal=True, window=window, kv_len=kv_len,
+                                  q_offset=q_offset, bq=bq, bk=bk,
+                                  kv_cast=kv_cast)
+                        run(q, k, v, kw, dict(sq=sq, sk=smax, G=group, D=d,
+                                              q=q_dt, kv=kv_dt,
+                                              strided=strided), cases)
+                        n += 1
+    settle(cases, "D 256 at G 8, D 128 at G 5 / 6 / 7 (phase 36's "
+                  "configurations), Sq 512 / 200 / 8 / 1, Smax 520")
     # the static prefill's shape (qwen3_8b's heads) at batch 2
     hq, hkv_s, d, sq, smax = 32, 8, 128, 1024, 1056
     q = torch.randn((2, sq, hq, d), generator=gen, device="cuda").to(
@@ -1221,7 +1311,7 @@ def time_flash_attention(cfg) -> list[dict]:
     from repro_torch.kernels.flash_attention import (flash_attention_all,
                                                      flash_attention_ref)
     from repro_torch.kernels.flash_attention.flash_attention import (
-        kernel_variant, tile_takes)
+        kernel_variant, tile_takes, work)
     b, hq, hkv, d = 8, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     prefix = 256 if cfg.modality == "vlm" else 0
     smax = prefix + 1056
@@ -1295,7 +1385,10 @@ def time_flash_attention(cfg) -> list[dict]:
         bound_ms, bound_by, n_bytes, flops = _fa_bound(
             *args, qk_bf16=True, variant=variant)
         bound_f32_ms = _fa_bound(*args, qk_bf16=True)[0]
-        rows.append(dict(shape=label, B=b, Sq=sq, Smax=smax,
+        declared_ms = declared_bound_ms(*work(
+            q, kv(0)[0], causal=True, kv_len=kv_len, q_offset=q_offset))
+        rows.append(dict(shape=label, B=b, Sq=sq, Smax=smax, Hq=hq, Hkv=hkv,
+                         D=d, declared_bound_ms=declared_ms,
                          q_offset=q_offset, kv_len=kv_len, variant=variant,
                          max_abs_err=errs[variant],
                          max_abs_err_by_variant=errs, ms=ms,
@@ -1308,13 +1401,16 @@ def time_flash_attention(cfg) -> list[dict]:
                       f"us, max err {errs[other]:.2e}" if other
                       else f"no other instance takes D {d}")
         log(f"  {label:7s} Sq {sq:4d} q_offset {q_offset:4d} kv_len "
-            f"{kv_len} ({variant}): max err {errs[variant]:.2e} | kernel "
+            f"{kv_len} G {hq // hkv} D {d} ({variant}): max err "
+            f"{errs[variant]:.2e} | kernel "
             f"{ms*1e3:9.2f} us ({other_note}) | plain "
             f"{plain_ms*1e3:10.2f} us | "
             f"sdpa {library_ms*1e3:9.2f} us (max diff {lib_err:.1e}) | "
             f"bound {bound_ms*1e3:8.2f} us ({bound_by}: {n_bytes/1e6:.1f} "
             f"MB, {flops/1e9:.2f} GFLOP) {bound_ms/ms:.1%} of it | f32 "
-            f"bound {bound_f32_ms*1e3:8.2f} us {bound_f32_ms/ms:.1%} of it")
+            f"bound {bound_f32_ms*1e3:8.2f} us {bound_f32_ms/ms:.1%} of it "
+            f"| declared bound {declared_ms*1e3:8.2f} us "
+            f"{declared_ms/ms:.1%} of it")
     del ck, cv
     gc.collect()
     torch.cuda.empty_cache()
@@ -1328,20 +1424,23 @@ def time_flash_attention(cfg) -> list[dict]:
 
 # the sampled lanes of the mixed drains: half of the requests
 MIXED = dict(sampled_fraction=0.5, temperature=0.8, top_k=50, top_p=0.9)
+PREFILL_CHUNK = 32                   # the engines' prefill chunk
 
 
-def smoke_trace(cfg, **sampling):
+def smoke_trace(cfg, prompt=(128, 256), gen: int = 32, **sampling):
+    """8 requests (the engine's 8 lanes), prompts of `prompt` tokens,
+    `gen` new tokens each."""
     from repro_torch.serve import TrafficConfig, synth_trace
     return synth_trace(TrafficConfig(
-        n_requests=8, arrival_rate=1e9, prompt_len_min=128,
-        prompt_len_max=256, gen_len_min=32, gen_len_max=32,
+        n_requests=8, arrival_rate=1e9, prompt_len_min=prompt[0],
+        prompt_len_max=prompt[1], gen_len_min=gen, gen_len_max=gen,
         vocab_size=cfg.vocab_size, seed=0, **sampling))
 
 
-def engine_config(attn_impl: str):
+def engine_config(attn_impl: str, n_pages: int = 512):
     from repro_torch.serve import EngineConfig
-    return EngineConfig(page_size=8, n_pages=512, max_batch=8,
-                        max_pages_per_seq=37, prefill_chunk=32,
+    return EngineConfig(page_size=8, n_pages=n_pages, max_batch=8,
+                        max_pages_per_seq=37, prefill_chunk=PREFILL_CHUNK,
                         attn_impl=attn_impl)
 
 
@@ -1846,22 +1945,29 @@ def check_sampler(cfg) -> dict:
 
 def check_paged_counts(cfg, run, label) -> dict:
     """paged_attention once per layer of every forward, its tile
-    instance once per layer of every prefill-chunk forward; the other
-    kernels never."""
+    instance once per layer of every prefill-chunk forward where
+    `kernel_variant` sends the chunk there (a head dim the tile instance
+    takes); the other kernels never."""
+    from repro_torch.kernels.paged_attention.paged_attention import (
+        kernel_variant)
     counts = run["counts"]
     launches = counts.get("paged_attention", 0)
     by_variant = {v: counts.get(f"paged_attention.{v}", 0)
                   for v in PA_VARIANTS}
     want = cfg.n_layers * run["n_forwards"]
-    want_tile = cfg.n_layers * run["n_prefill_forwards"]
+    g, hd = cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim
+    n_prefill = run["n_prefill_forwards"]
+    want_tile = cfg.n_layers * n_prefill * (
+        kernel_variant(g, PREFILL_CHUNK, hd) == "tile")
     log(f"  {label}: paged_attention launches {launches} = {cfg.n_layers} "
         f"layers x {run['n_forwards']} forwards? {launches == want}; tile "
-        f"{by_variant['tile']} = {cfg.n_layers} x {run['n_prefill_forwards']}"
-        f" prefill-chunk forwards? {by_variant['tile'] == want_tile}; rows "
+        f"{by_variant['tile']} = {want_tile} ({cfg.n_layers} x {n_prefill} "
+        f"prefill-chunk forwards at G {g}, Dh {hd} where the tile instance "
+        f"takes them)? {by_variant['tile'] == want_tile}; rows "
         f"{by_variant['rows']}; sc_matmul {counts.get('sc_matmul', 0)}, "
         f"flash_attention {counts.get('flash_attention', 0)}")
     if launches != want or by_variant["tile"] != want_tile or \
-            not want_tile or sum(by_variant.values()) != launches:
+            not n_prefill or sum(by_variant.values()) != launches:
         raise AssertionError(f"{label}: paged_attention launches "
                              f"{by_variant}, want {want} of which tile "
                              f"{want_tile}")
@@ -4350,6 +4456,260 @@ def configs_full_layers(arch: str) -> int:
 
 
 # ---------------------------------------------------------------------------
+# phase 36: the shipped configurations the card had not run
+# ---------------------------------------------------------------------------
+
+# (arch, layers): full width and depth, but dbrx_132b, whose 40 layers
+# take about 264 GB in bf16: 8 of them, about 55 GB (reduced: depth)
+NEW_CONFIGS = (("gemma_2b", None), ("qwen3_14b", None),
+               ("deepseek_coder_33b", None), ("dbrx_132b", 8))
+NEW_TRACE = dict(prompt=(64, 128), gen=8)   # `smoke_trace`'s, shortened
+NEW_STATIC = (4, 512, 8)          # the exact static run: batch, prompt, gen
+NEW_QUANT_STATIC = (2, 32, 2)     # the int8 and artemis static runs
+NEW_F32_STATIC = (4, 128, 8)      # the f32 flash-vs-gather static runs
+NEW_POOL_PAGES = 512              # phase 5's page pool, where it fits
+# the share of the memory free after the weights load that the page pool
+# or the static cache may take; the rest holds the activations and the
+# int8 path's f32 copy of a weight
+NEW_FREE_SHARE = 0.5
+NEW_PHASE_S = 150.0
+
+
+def free_bytes() -> int:
+    """Device memory a new tensor can take: free on the card and unused
+    in the caching allocator."""
+    import torch
+    free_now, _ = torch.cuda.mem_get_info()
+    return (free_now + torch.cuda.memory_reserved()
+            - torch.cuda.memory_allocated())
+
+
+def sized_from_free(label: str, want: int, need: int, per_unit: int) -> int:
+    """`want` units of `per_unit` bytes, or as many as NEW_FREE_SHARE of
+    the free memory holds; fails below `need`."""
+    fit = int(NEW_FREE_SHARE * free_bytes() // per_unit)
+    n = min(want, fit)
+    log(f"  {label}: {n} of {per_unit / 2**20:.2f} MiB each (want {want}; "
+        f"{NEW_FREE_SHARE:.0%} of the {free_bytes() / 2**30:.2f} GiB free "
+        f"holds {fit})")
+    if n < need:
+        raise AssertionError(f"{label}: {n} fit, the run needs {need}")
+    return n
+
+
+def flash_want(cfg, prompt_len: int, gen_len: int, q_dtype) -> dict:
+    """flash_attention launches by instance of a static run: one a layer
+    at the prefill and at each decode, in the instance `kernel_variant`
+    gives the path's call (q in `q_dtype` over the f32 cache)."""
+    import torch
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        kernel_variant)
+    hd = cfg.resolved_head_dim
+    want = dict.fromkeys(FA_VARIANTS, 0)
+    for sq, n in ((prompt_len, 1), (1, gen_len)):
+        want[kernel_variant(q_dtype, torch.float32, torch.bfloat16, sq,
+                            hd)] += cfg.n_layers * n
+    return want
+
+
+def check_flash_counts(cfg, run, label, prompt_len, gen_len,
+                       q_dtype) -> dict:
+    """A static run's flash_attention launches by instance against
+    `flash_want`; the other kernels never."""
+    counts = run["counts"]
+    by_variant = {v: counts.get(f"flash_attention.{v}", 0)
+                  for v in FA_VARIANTS}
+    want = flash_want(cfg, prompt_len, gen_len, q_dtype)
+    log(f"  {label}: flash_attention {counts.get('flash_attention', 0)} = "
+        f"{cfg.n_layers} layers x (1 + {gen_len}) forwards, by instance "
+        f"{by_variant} (want {want})? {by_variant == want}; paged_attention "
+        f"{counts.get('paged_attention', 0)}, sc_matmul "
+        f"{counts.get('sc_matmul', 0)}")
+    if by_variant != want or counts.get("flash_attention", 0) != \
+            cfg.n_layers * (1 + gen_len) or counts.get("paged_attention", 0) \
+            or counts.get("sc_matmul", 0):
+        raise AssertionError(f"{label}: launches {counts}, want flash "
+                             f"{want} and nothing else")
+    return by_variant
+
+
+def new_f32_identities(cfg) -> dict:
+    """Through 2 layers of the full width at f32 (phases 6 and 9): the
+    gather and fused engine drains of the greedy trace, and the flash
+    and gather static runs, token-identical."""
+    import torch
+    from repro_torch.models import transformer
+    cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    model2 = transformer.init(cfg2, seed=0, device="cuda")
+    trace = smoke_trace(cfg2, **NEW_TRACE)
+    runs = {impl: drain(cfg2, model2, trace, impl)
+            for impl in ("gather", "fused")}
+    if runs["gather"]["counts"]:
+        raise AssertionError(f"gather drain launched "
+                             f"{runs['gather']['counts']}")
+    check_paged_counts(cfg2, runs["fused"], "f32 fused drain")
+    same_drain = all((runs["gather"]["results"][r]
+                      == runs["fused"]["results"][r]).all()
+                     for r in runs["gather"]["results"])
+    b, prompt, gen = NEW_F32_STATIC
+    st = {impl: static_run(cfg2, model2, batch=b, prompt_len=prompt,
+                           gen_len=gen, attn_impl=impl)
+          for impl in ("flash", "gather")}
+    check_flash_counts(cfg2, st["flash"], "f32 flash static", prompt, gen,
+                       torch.float32)
+    if st["gather"]["counts"]:
+        raise AssertionError(f"gather static run launched "
+                             f"{st['gather']['counts']}")
+    same_static = torch.equal(st["flash"]["generated"],
+                              st["gather"]["generated"])
+    n_tok = sum(len(v) for v in runs["fused"]["results"].values())
+    log(f"  f32, 2 layers of the full width: gather and fused drains "
+        f"token-identical over {n_tok} tokens? {same_drain}; flash and "
+        f"gather static runs (batch {b}, prompt {prompt}, gen {gen}) over "
+        f"{b * gen} tokens? {same_static}")
+    if not (same_drain and same_static):
+        raise AssertionError("an f32 kernel run diverged from gather")
+    del model2, st, runs
+    free()
+    return dict(drain_tokens=n_tok, static_tokens=b * gen, identical=True)
+
+
+def new_config_run(arch: str, n_layers: int | None, path_sc: set) -> dict:
+    """One configuration of phase 36 at full width (`n_layers` of its
+    layers where given): the f32 identities through 2 layers (dense
+    configs); then the seeded bf16 model: an exact fused drain of the
+    half-sampled trace (paged_attention as `check_paged_counts`), an
+    exact static run (flash as `flash_want`), and the quantized runs:
+    dense configs a short int8 static run (gemma_2b also artemis),
+    sc_matmul once a projection of every forward; dbrx_132b a short int8
+    drain, sc_matmul as `moe_layer_products` says, each expert on its
+    own. Every launch count zeroed just before its run and read just
+    after; tok/s, ms a forward, the peak GiB."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.policy import ArithmeticPolicy
+    t0 = time.perf_counter()
+    cfg = configs.get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    moe = cfg.family == "moe"
+    out = dict(n_layers=cfg.n_layers, of_layers=configs_full_layers(arch),
+               group=cfg.n_heads // cfg.n_kv_heads,
+               head_dim=cfg.resolved_head_dim)
+    if not moe:
+        out["f32"] = new_f32_identities(cfg)
+    free()
+    log(f"  {arch}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB held "
+        f"before its weights")
+    torch.cuda.reset_peak_memory_stats()
+    model = init_model(cfg)
+    out["weights_gib"] = torch.cuda.memory_allocated() / 2**30
+
+    kv_row = 2 * cfg.n_kv_heads * cfg.resolved_head_dim * 4 * cfg.n_layers
+    n_pages = sized_from_free("f32 page pool, pages of 8 tokens",
+                              NEW_POOL_PAGES, 8 * 18 + 1, 8 * kv_row)
+    run = drain(cfg, model, smoke_trace(cfg, **NEW_TRACE, **MIXED), "fused",
+                ecfg=engine_config("fused", n_pages))
+    m = run["metrics"]
+    if not m["n_sampled_tokens"]:
+        raise AssertionError(f"{arch}: the mixed drain sampled no token")
+    tok_s = m["n_generated_tokens"] / run["wall_s"]
+    ms_fwd = run["wall_s"] / run["n_forwards"] * 1e3
+    log(f"  exact fused drain: {m['n_done']} requests, "
+        f"{m['n_generated_tokens']} tokens ({m['n_sampled_tokens']} "
+        f"sampled) in {run['wall_s']:.3f} s wall ({tok_s:.2f} tok/s; "
+        f"{run['n_forwards']} forwards, {ms_fwd:.2f} ms each); "
+        f"{m['n_preemptions']} preemptions")
+    out["drain"] = dict(check_paged_counts(cfg, run, f"{arch} drain"),
+                        tok_s=tok_s, wall_s=run["wall_s"], ms_per_forward=ms_fwd,
+                        n_forwards=run["n_forwards"],
+                        n_prefill_forwards=run["n_prefill_forwards"],
+                        n_pages=n_pages)
+
+    b, prompt, gen = NEW_STATIC
+    b = sized_from_free(f"static batch of {prompt} + {gen} tokens", b, 1,
+                        (prompt + gen) * kv_row)
+    st = static_run(cfg, model, batch=b, prompt_len=prompt, gen_len=gen)
+    by_variant = check_flash_counts(cfg, st, f"{arch} static", prompt, gen,
+                                    torch.bfloat16)
+    out["static"] = dict(batch=b, prompt=prompt, gen=gen,
+                         prefill_ms=st["prefill_s"] * 1e3,
+                         decode_tok_s=st["decode_tok_per_s"],
+                         step_ms=st["decode_s"] / gen * 1e3,
+                         launches=sum(by_variant.values()),
+                         launches_by_variant=by_variant)
+    log(f"  exact static, batch {b}, prompt {prompt}, gen {gen}: prefill "
+        f"{st['prefill_s']*1e3:.2f} ms | decode {st['decode_tok_per_s']:.2f} "
+        f"tok/s, {st['decode_s'] / gen * 1e3:.2f} ms per step")
+    del st
+
+    out["quantized"] = {}
+    with sc_path_shapes(path_sc):
+        if moe:
+            per_layer = moe_layer_products(cfg)
+            cap = max(int(cfg.capacity_factor * 8 * cfg.top_k
+                          / cfg.padded_experts), 1)
+            log(f"  int8 drain: sc_matmul {per_layer} a layer of a forward "
+                f"(4 attention projections, 3 for each of "
+                f"{cfg.padded_experts} experts, each quantized on its own: "
+                f"`moe.expert_ffn`), {per_layer * cfg.n_layers} a forward; "
+                f"decode capacity max(int({cfg.capacity_factor} x 8 x "
+                f"{cfg.top_k} / {cfg.padded_experts}), 1) = {cap}")
+            run = drain(cfg, model, smoke_trace(cfg, (32, 64), 8), "gather",
+                        ArithmeticPolicy(mode="int8"),
+                        ecfg=engine_config("gather", n_pages))
+            launches = run["counts"].get("sc_matmul", 0)
+            want = per_layer * cfg.n_layers * run["n_forwards"]
+            tok = run["metrics"]["n_generated_tokens"]
+            log(f"  int8 drain: {tok} tokens in {run['wall_s']:.3f} s wall "
+                f"({tok / run['wall_s']:.2f} tok/s; {run['n_forwards']} "
+                f"forwards) | sc_matmul {launches} = {per_layer} x "
+                f"{cfg.n_layers} x {run['n_forwards']}? {launches == want}; "
+                f"paged_attention {run['counts'].get('paged_attention', 0)}")
+            if launches != want or run["counts"].get("paged_attention", 0) \
+                    or run["counts"].get("flash_attention", 0):
+                raise AssertionError(f"{arch} int8 drain launches "
+                                     f"{run['counts']}, want sc_matmul {want}")
+            out["quantized"]["int8"] = dict(
+                engine=True, tok_s=tok / run["wall_s"], wall_s=run["wall_s"],
+                n_forwards=run["n_forwards"], launches=launches,
+                decode_capacity=cap)
+        else:
+            qb, qp, qg = NEW_QUANT_STATIC
+            per_layer = dense_projections(cfg)
+            for mode in ("int8",) + (("artemis",) if arch == "gemma_2b"
+                                     else ()):
+                run = static_run(cfg, model, batch=qb, prompt_len=qp,
+                                 gen_len=qg, policy_mode=mode)
+                counts = run["counts"]
+                want = per_layer * cfg.n_layers * (1 + qg)
+                log(f"  {mode} static, batch {qb}, prompt {qp}, gen {qg}: "
+                    f"prefill {run['prefill_s']*1e3:.2f} ms, decode "
+                    f"{run['decode_tok_per_s']:.2f} tok/s | sc_matmul "
+                    f"{counts.get('sc_matmul', 0)} = {per_layer} x "
+                    f"{cfg.n_layers} x {1 + qg} forwards? "
+                    f"{counts.get('sc_matmul', 0) == want}")
+                if counts.get("sc_matmul", 0) != want or \
+                        counts.get("flash_attention", 0) or \
+                        counts.get("paged_attention", 0):
+                    raise AssertionError(f"{arch} {mode} static run launches "
+                                         f"{counts}, want sc_matmul {want}")
+                out["quantized"][mode] = dict(
+                    engine=False, prefill_ms=run["prefill_s"] * 1e3,
+                    decode_tok_s=run["decode_tok_per_s"],
+                    launches=counts["sc_matmul"])
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del model
+    free()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  {arch} ({cfg.n_layers} of {out['of_layers']} layers): weights "
+        f"{out['weights_gib']:.2f} GiB, peak {out['peak_gib']:.2f} GiB of "
+        f"the card's {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}"
+        f"; {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 34: the roofline on the card
 # ---------------------------------------------------------------------------
 
@@ -4640,6 +5000,15 @@ def main() -> int:
     for arch, mcfg in mm_cfgs.items():
         for row in time_flash_attention(mcfg):
             mm_fa_rows.append(dict(row, model=arch))
+    phases.mark("4e. attention timing at the full-width gemma_2b (G 8, Dh "
+                "256: the rows instance only), qwen3_14b (G 5) and "
+                "deepseek_coder_33b (G 7) shapes")
+    new_rows = {"paged_attention": [], "flash_attention": []}
+    for arch in ("gemma_2b", "qwen3_14b", "deepseek_coder_33b"):
+        ncfg = configs.get_config(arch)
+        for name, timer in (("paged_attention", time_paged_attention),
+                            ("flash_attention", time_flash_attention)):
+            new_rows[name] += [dict(row, model=arch) for row in timer(ncfg)]
 
     phases.mark("5. full-width qwen3_8b drain: bf16, attn_impl=fused")
     full = full_width_drain(cfg)
@@ -4838,6 +5207,20 @@ def main() -> int:
     p35 = sharded["phase35"]
     log(f"  phase 35 took {p35['total_s']:.1f} s in phase 33's ranks "
         f"(under about 60 s? {p35['total_s'] <= 60.0})")
+    phases.mark("36. the shipped configurations the card had not run, at "
+                "full width: gemma_2b (18 layers), qwen3_14b (40), "
+                "deepseek_coder_33b (62), dbrx_132b (8 of 40, reduced: "
+                "depth); an exact fused drain (half sampled), an exact "
+                "static run, int8 (gemma_2b: artemis too); the dense "
+                "configs' f32 identities through 2 layers")
+    free()
+    t36 = time.perf_counter()
+    new_cfgs = {arch: new_config_run(arch, n, path_sc)
+                for arch, n in NEW_CONFIGS}
+    t36 = time.perf_counter() - t36
+    log(f"  phase 36: {t36:.1f} s (at most {NEW_PHASE_S:.0f} s? "
+        f"{t36 <= NEW_PHASE_S}): " + ", ".join(
+            f"{arch} {r['seconds']:.1f} s" for arch, r in new_cfgs.items()))
     phases.mark("16. sc_matmul at every shape the main path gave it")
     sc_path = check_sc_path_shapes(path_sc)
     phases.mark(None)
@@ -4857,6 +5240,8 @@ def main() -> int:
     pa_paths = {"qwen3_8b engine": full["launches"],
                 "qwen3_8b mixed engine": mixed["launches"],
                 "qwen2_moe_a2_7b engine": moe["launches"],
+                **{f"{arch} engine": r["drain"]["launches"]
+                   for arch, r in new_cfgs.items()},
                 "examples/torch_serve_engine.py":
                     ex["serve_engine"]["launches"]["paged_attention"]}
     sc_paths = {**{f"qwen3_8b {k} engine": q["launches"]
@@ -4878,6 +5263,9 @@ def main() -> int:
                 **{f"{arch} tensor-parallel int8 static (rank {r})": n
                    for arch, t in p35["static"].items()
                    for r, n in enumerate(t["sc_matmul"])},
+                **{f"{arch} {mode} {'engine' if q['engine'] else 'static'}":
+                   q["launches"] for arch, r in new_cfgs.items()
+                   for mode, q in r["quantized"].items()},
                 "examples/torch_quickstart.py artemis_mxu forward":
                     ex["quickstart"]["forward_sc_matmul"]}
     fa_paths = {"qwen3_8b static": static["launches"],
@@ -4888,6 +5276,8 @@ def main() -> int:
                 **{f"{arch} tensor-parallel static (rank {r})": n
                    for arch, t in p35["static"].items()
                    for r, n in enumerate(t["flash_attention"])},
+                **{f"{arch} static": r["static"]["launches"]
+                   for arch, r in new_cfgs.items()},
                 "examples/torch_serve_batched.py":
                     ex["serve_batched"]["launches"]["flash_attention"]}
     kernels = [{
@@ -4899,13 +5289,15 @@ def main() -> int:
         "launches_by_path": pa_paths,
         "launches_by_variant": full["launches_by_variant"],
         "max_abs_err": max(*pa_err.values(), *(
-            r["max_abs_err"] for r in timing + moe_rows["paged_attention"]),
+            r["max_abs_err"] for r in timing + moe_rows["paged_attention"]
+            + new_rows["paged_attention"]),
             ex["held"]["paged_attention"]["max_abs_err"]),
         "max_abs_err_by_variant": pa_err,
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
         "library_ms": decode["library_ms"],
-        "shapes": timing + moe_rows["paged_attention"],
+        "shapes": timing + moe_rows["paged_attention"]
+        + new_rows["paged_attention"],
     }, {
         "name": "sc_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/sc_matmul/csrc/sc_matmul.cu",
@@ -4931,6 +5323,7 @@ def main() -> int:
         "max_abs_err": max(*fa_err.values(),
                            *(e for r in fa_rows + moe_rows["flash_attention"]
                              + zamba_fa_rows + mm_fa_rows
+                             + new_rows["flash_attention"]
                              for e in r["max_abs_err_by_variant"].values()),
                            ex["held"]["flash_attention"]["max_abs_err"]),
         "max_abs_err_by_variant": {v: max(fa_err[v], *(
@@ -4943,10 +5336,11 @@ def main() -> int:
         "cases_within_tol": {
             v: n_fa_cases[v] + len(fa_rows) + len(moe_rows["flash_attention"])
             + sum(v in r["max_abs_err_by_variant"]
-                  for r in zamba_fa_rows + mm_fa_rows)
+                  for r in zamba_fa_rows + mm_fa_rows
+                  + new_rows["flash_attention"])
             for v in FA_VARIANTS},
         "shapes": fa_rows + moe_rows["flash_attention"] + zamba_fa_rows
-        + mm_fa_rows,
+        + mm_fa_rows + new_rows["flash_attention"],
     }]
     log(json.dumps({"kernels": kernels,
                     "drain": {"tok_s": full["tok_s"],
@@ -4960,6 +5354,7 @@ def main() -> int:
                     "multimodal": multimodal,
                     "recurrent_train": recurrent_train,
                     "mesh": mesh, "sharded_train": sharded,
+                    "new_configs": new_cfgs,
                     "roofline": roof, "phase_s": phases.seconds}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -241,6 +241,7 @@ def test_non_cpu_tensors_never_take_the_plain_version():
 # ---------------------------------------------------------------------------
 
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
+    TILE_HEAD_DIMS,
     VARIANTS,
     kernel_variant,
 )
@@ -499,3 +500,51 @@ def test_tile_emulation_matches_the_plain_version_and_pallas(case):
     np.testing.assert_allclose(got[0].numpy(), jo, **EMU_TOL)
     np.testing.assert_allclose(got[1].numpy(), jl, **EMU_TOL)
     np.testing.assert_array_equal(got[2].numpy(), jn)
+
+
+# (D, G) of the configurations the card runs from chip_smoke phase 36 on:
+# gemma_2b's D 256 at G 8 (the rows instance only), qwen3_14b's G 5 and
+# deepseek_coder_33b's G 7 at D 128
+NEW_GEOMETRIES = [(256, 8), (128, 5), (128, 7)]
+# (sq, sk, window, q_offset, kv_len, (bq, bk)): a causal prefill; a
+# prefill whose later rows keep no key (window 3, kv_len 16); a decode row
+# at the end of a 40-slot cache
+NEW_CASES = [(64, 64, None, 0, None, (32, 32)),
+             (32, 64, 3, 0, 16, (16, 16)),
+             (1, 40, None, 39, None, (1, 8))]
+
+
+@pytest.mark.parametrize("case", NEW_CASES,
+                         ids=["prefill", "no_key_rows", "decode"])
+@pytest.mark.parametrize("d,group", NEW_GEOMETRIES)
+def test_new_geometries_match_the_pallas_kernel(d, group, case):
+    """At each new (D, G): the port's wrapper (the plain version, on CPU
+    tensors) within 2e-5 of the Pallas kernel in interpret mode on o and
+    lse, block counts equal, f32 operands; at D 128 (a tile head dim)
+    the tile instance's algorithm, emulated on bf16 q over K/V rounded by
+    kv_cast (the static path), within 2e-4 of the plain version, and
+    `kernel_variant` sends a prefill there and a decode to rows."""
+    sq, sk, window, q_offset, kv_len, (bq, bk) = case
+    arrs = _qkv(d + group * 7 + sq, hq=2 * group, hkv=2, sq=sq, sk=sk, d=d)
+    kw = dict(causal=True, window=window, kv_len=kv_len, q_offset=q_offset,
+              bq=bq, bk=bk)
+    jo, jl, jn = _jax_all(arrs, **kw)
+    reset_launch_counts()
+    to, tl, tn = flash_attention_all(*_torch(arrs), **kw)
+    assert not launch_counts                      # CPU: the plain version
+    np.testing.assert_allclose(to.numpy(), jo, **TOL)
+    np.testing.assert_allclose(tl.numpy(), jl, **TOL)
+    np.testing.assert_array_equal(tn.numpy(), jn)
+    if window:                            # rows 19-31 keep no key
+        assert (tl.numpy() < -1e29).any()
+    want = "tile" if d in TILE_HEAD_DIMS and sq >= 16 else "rows"
+    assert kernel_variant(BF16, torch.float32, BF16, sq, d) == want
+    if d not in TILE_HEAD_DIMS:
+        return
+    q = torch.from_numpy(arrs[0]).to(BF16)
+    k, v = (torch.from_numpy(a) for a in arrs[1:])
+    got = _tile_emulation(q, k, v, kv_cast=BF16, **kw)
+    plain = flash_attention_ref(q, k, v, kv_cast=BF16, **kw)
+    for g, w in zip(got[:2], plain[:2]):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **EMU_TOL)
+    np.testing.assert_array_equal(got[2].numpy(), plain[2].numpy())

@@ -25,6 +25,7 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention_ref,
 )
 from repro_torch.kernels.paged_attention.paged_attention import (  # noqa: E402
+    TILE_HEAD_DIMS,
     VARIANTS,
     kernel_variant,
 )
@@ -327,12 +328,13 @@ def _tile_emulation(q, kp, vp, bt, pos, *, window=None, scale=None,
     return out
 
 
-def _chunk_operands(seed, *, s, window):
-    """A prefill-chunk step at G 4, Dh 128, page 8: lane 0 mid-table,
-    lane 1 at its first chunk, lane 2 idle (all-trash table, positions
-    0), lane 3 a chunk that runs past its table (padding positions; with
-    a window its last rows keep no key)."""
-    b, h, kvh, hd, page, npages = 4, 8, 2, 128, 8, 24
+def _chunk_operands(seed, *, s, window, group=4, hd=128):
+    """A prefill-chunk step at G `group` (4), Dh `hd` (128), page 8: lane
+    0 mid-table, lane 1 at its first chunk, lane 2 idle (all-trash table,
+    positions 0), lane 3 a chunk that runs past its table (padding
+    positions; with a window its last rows keep no key)."""
+    b, kvh, page, npages = 4, 2, 8, 24
+    h = kvh * group
     pmax = -(-(9 + s) // page) + 1
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, s, h, hd), np.float32)
@@ -490,3 +492,51 @@ def test_rows_emulation_matches_reference_on_every_row(s, window):
     np.testing.assert_allclose(before[keeps], plain[keeps], **tol)
     if not keeps.all():
         assert not np.allclose(before[~keeps], plain[~keeps], **tol)
+
+
+# (Dh, G) of the configurations the card runs from chip_smoke phase 36 on:
+# gemma_2b's MQA at Dh 256 (8 query heads a kv head; the rows instance
+# only, 256 is not a tile head dim), qwen3_14b's G 5 and
+# deepseek_coder_33b's G 7 at Dh 128 (groups that are not powers of two,
+# so the rows instance's 16-row blocks straddle positions)
+NEW_GEOMETRIES = [(256, 8), (128, 5), (128, 7)]
+
+
+@pytest.mark.parametrize("window", [None, 3])
+@pytest.mark.parametrize("s", [1, 32])
+@pytest.mark.parametrize("hd,group", NEW_GEOMETRIES)
+def test_new_geometries_match_reference(hd, group, s, window):
+    """At each new (Dh, G), a decode step and a prefill chunk: the
+    port's wrapper (the plain version, on CPU tensors) within 2e-5 of the
+    JAX oracle on every row and of the Pallas kernel (interpret mode) on
+    every row that keeps a key (module docstring of the tile test: the
+    Pallas kernel averages V over the pages it visits where a row keeps
+    none); the rows instance's algorithm, and the tile instance's where
+    it takes Dh, emulated, within 2e-4 (the card's bound on the kernel)
+    of the plain version on every row; and `kernel_variant` sends the
+    step where chip_smoke phase 36 counts it."""
+    q, kp, vp, bt, pos = _chunk_operands(hd * group + s + (window or 0),
+                                         s=s, window=window, group=group,
+                                         hd=hd)
+    jargs = [jnp.asarray(a) for a in (q, kp, vp, bt, pos)]
+    oracle = np.asarray(jax_paged_ref(*jargs, window=window))
+    pallas = np.asarray(jax_paged(*jargs, window=window))
+    got = _port((q, kp, vp, bt, pos), window)
+    keeps = _keeps_a_key(pos, bt.shape[1], kp.shape[1], window)
+    np.testing.assert_allclose(got, oracle, **TOL)
+    np.testing.assert_allclose(got[keeps], pallas[keeps], **TOL)
+    # a chunk of 32 past its table keeps no key in its last rows with a
+    # window; a decode row one past it still keeps its window's keys
+    assert (window is None or s == 1) == keeps.all()
+    tq, tk, tv, tb, tp = (torch.from_numpy(a) for a in (q, kp, vp, bt, pos))
+    tol = dict(rtol=2e-4, atol=2e-4)
+    variant = kernel_variant(group, s, hd)
+    emulations = [_rows_emulation]
+    if hd in TILE_HEAD_DIMS:
+        emulations.append(_tile_emulation)
+        assert variant == ("tile" if s > 1 else "rows")
+    else:
+        assert variant == "rows"
+    for emulate in emulations:
+        np.testing.assert_allclose(
+            emulate(tq, tk, tv, tb, tp, window=window).numpy(), got, **tol)

@@ -124,7 +124,9 @@ def _compare(got, want, valid):
 
 @pytest.mark.parametrize("arch,attn_window", [("qwen3_8b", 0),
                                               ("qwen3_8b", 6),
-                                              ("gemma_2b", 0)])
+                                              ("gemma_2b", 0),
+                                              ("qwen3_14b", 0),
+                                              ("deepseek_coder_33b", 0)])
 def test_gather_steps_match_reference(arch, attn_window):
     cfg, params, model = _setup(arch, attn_window)
     steps, valid = _schedule(cfg)
@@ -132,15 +134,26 @@ def test_gather_steps_match_reference(arch, attn_window):
              _run_jax(cfg, params, steps), valid)
 
 
-@pytest.mark.parametrize("attn_window", [0, 6])
-def test_fused_steps_match_gather(attn_window):
-    cfg, _, model = _setup("qwen3_8b", attn_window)
+def _fused_matches_gather(arch, attn_window):
+    cfg, _, model = _setup(arch, attn_window)
     steps, valid = _schedule(cfg)
     reset_launch_counts()
     fused = _run_port(cfg, model, steps, fused=True)
     # CPU tensors: the fused core ran the kernel's plain version
     assert launch_counts["paged_attention"] == 0
     _compare(fused, _run_port(cfg, model, steps, fused=False), valid)
+
+
+@pytest.mark.parametrize("attn_window", [0, 6])
+def test_fused_steps_match_gather(attn_window):
+    _fused_matches_gather("qwen3_8b", attn_window)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_14b", "deepseek_coder_33b"])
+def test_fused_steps_match_gather_at_other_configs(arch):
+    """qwen3_14b's smoke heads (4 over 2, qk-norm) and
+    deepseek_coder_33b's (8 over 2, Dh 8)."""
+    _fused_matches_gather(arch, 0)
 
 
 def test_write_from_keeps_resident_pages():
