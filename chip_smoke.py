@@ -11,7 +11,8 @@ without printing a result:
   1. the card: name and power limit (nvidia-smi), capability (9, 0);
   2. build every kernel of the serve path from the checkout's sources
      (nvcc, sm_90a), timed as set-up; the registers and spill stores of
-     the tensor-core instances (none may spill);
+     the tensor-core instances and of the rows instances' split path and
+     merge kernels (none may spill);
   3. hold each kernel against its plain PyTorch version on the card
      over a grid of cases, with the tolerance stated per kernel
      (paged_attention through both its instances, rows and tile, on
@@ -24,12 +25,17 @@ without printing a result:
      range, its artemis path at the edges of its K split and windows and
      on operands of -128; both attention kernels also at phase 36's
      head dims and groups: Dh 256 at G 8 through the rows instance
-     only, Dh 128 at G 5, 6 and 7 through both);
+     only, Dh 128 at G 5, 6 and 7 through both; the rows instance's
+     split path, which takes every decode step, at SPLIT_GEOMETRIES
+     over 2000-key tables and caches, forced to 1 and 2 parts and at
+     the plan's count, with idle lanes and rows that keep no key);
   4. at the full-width qwen3_8b shapes of the serve paths, hold each
      kernel against its plain version once more, then time it beside
      its plain version, its bound and one library call (paged_attention
      at a prefill chunk and flash_attention at the static prefill: also
-     the other instance and the f32 bound;
+     the other instance and the f32 bound; at a decode step the split
+     path on the device alone (a CUDA graph) beside the library call's
+     and the other instance's, and the walk of many rows it replaced;
      sc_matmul int8: the ratio to torch._int_mm; artemis_mxu: the ratio
      to int8; artemis: the device time of each of its kernels);
   5. drain the paged-KV engine at the full qwen3_8b width (36 layers,
@@ -510,6 +516,88 @@ def check_paged_attention() -> dict:
     return worst
 
 
+# (head dim, group) of the decode steps the rows instance's split path
+# takes: qwen2_moe_a2_7b and zamba2_7b's G 1 (zamba2 at D 112), qwen3_8b's
+# G 4, qwen3_14b's G 5, deepseek_coder_33b's and internvl2_1b's G 7 (the
+# latter at D 64), gemma_2b's G 8 at Dh 256
+SPLIT_GEOMETRIES = ((128, 1), (128, 4), (128, 5), (128, 7), (256, 8),
+                    (112, 1), (64, 7))
+# forced part counts beside the plan's own (None)
+SPLIT_COUNTS = (1, 2, None)
+
+
+def _pa_split_case(gen, *, hd, group, window, q_dtype, kv_dtype):
+    """A decode step over long tables: lane 0 at position 1999 of a table
+    of 2000 keys (page 16), lane 1 at 37, lane 2 idle (all-trash table,
+    position 0), lane 3 past its table by the window (it keeps no key
+    with one, every key of its table without). With B 4 and KV 2 the
+    plan cuts each lane's keys into many parts, most of lane 1's and 2's
+    empty."""
+    import torch
+    kvh, b, page = 2, 4, 16
+    pmax = 2000 // page
+    n_pages = 2 * pmax + 2
+    h = kvh * group
+    q = torch.randn((b, 1, h, hd), generator=gen, device="cuda")
+    kp = torch.randn((n_pages, page, kvh, hd), generator=gen, device="cuda")
+    vp = torch.randn((n_pages, page, kvh, hd), generator=gen, device="cuda")
+    bt = torch.zeros((b, pmax), dtype=torch.int32, device="cuda")
+    for lane, used in ((0, pmax), (1, 3), (3, pmax)):
+        bt[lane, :used] = torch.randint(1, n_pages, (used,), generator=gen,
+                                        device="cuda", dtype=torch.int32)
+    pos = torch.tensor([[1999], [37], [0], [pmax * page - 1 + (window or 1)]],
+                       dtype=torch.int32, device="cuda")
+    return q.to(q_dtype), kp.to(kv_dtype), vp.to(kv_dtype), bt, pos
+
+
+def check_paged_split() -> dict:
+    """The rows instance's split path (`splits`) against the plain
+    version within PA_TOL on every row, at each of SPLIT_GEOMETRIES, f32
+    and bf16 pools, window None and 3, over 2000-key tables with an idle
+    lane and a lane whose row keeps no key (`_pa_split_case`), forced to
+    1 and 2 parts and at the plan's count; comparisons stay on the device
+    until the end. Returns the max abs error and the number of calls."""
+    import torch
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_ref)
+    from repro_torch.kernels.paged_attention.paged_attention import (
+        split_plan)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs, bads, plans = [], [], set()
+    for hd, group in SPLIT_GEOMETRIES:
+        for q_dt, kv_dt in ((f32, f32), (bf16, f32), (bf16, bf16)):
+            for window in (None, 3):
+                q, kp, vp, bt, pos = _pa_split_case(
+                    gen, hd=hd, group=group, window=window, q_dtype=q_dt,
+                    kv_dtype=kv_dt)
+                ref = paged_attention_ref(q, kp, vp, bt, pos, window=window)
+                plans.add(split_plan(4, 2, group, hd, bt.shape[1] * 16))
+                for splits in SPLIT_COUNTS:
+                    out = paged_attention(q, kp, vp, bt, pos, window=window,
+                                          variant="rows", splits=splits)
+                    err = (out - ref).abs()
+                    errs.append(err.max())
+                    bads.append((err > PA_TOL["atol"] + PA_TOL["rtol"]
+                                 * ref.abs()).any() | ~torch.isfinite(
+                                     out).all())
+    torch.cuda.synchronize()
+    bads = torch.stack(bads).cpu()
+    if bool(bads.any()):
+        i = int(bads.nonzero()[0, 0])
+        raise AssertionError(f"paged_attention's split path disagrees with "
+                             f"its plain version: call {i} of "
+                             f"SPLIT_GEOMETRIES x dtypes x windows x "
+                             f"{SPLIT_COUNTS}")
+    worst = float(torch.stack(errs).max())
+    log(f"paged_attention (rows, split path): {len(errs)} calls at (Dh, G) "
+        f"{SPLIT_GEOMETRIES}, splits {SPLIT_COUNTS} (the plan's: "
+        f"{sorted(plans)}), 2000-key tables, an idle lane and a row that "
+        f"keeps no key, within rtol=atol=2e-4 (max abs err {worst:.3e})")
+    return dict(max_abs_err=worst, calls=len(errs))
+
+
 # ---------------------------------------------------------------------------
 # phase 4: paged_attention timing at the full-width shapes
 # ---------------------------------------------------------------------------
@@ -524,14 +612,19 @@ def time_paged_attention(cfg) -> list[dict]:
     forward over all layers. Each shape runs the instance the serve path
     picks (`kernel_variant`), and the other instance, where it takes the
     head dim, is timed beside it: the rows instance is the prefill
-    chunk's kernel before the tile instance."""
+    chunk's kernel before the tile instance. At the decode step, which
+    the rows instance's split path takes, the split path is also timed
+    on the device alone (a CUDA graph of 20 calls: a call's time is its
+    wrapper's host time where that is longer), beside the library
+    call's and the other instance's, and the rows instance's walk of
+    many rows (`splits=0`, its path before the split) beside it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_ref)
     from repro_torch.kernels.paged_attention.paged_attention import (
-        TILE_HEAD_DIMS, kernel_variant, work)
+        TILE_HEAD_DIMS, kernel_variant, split_plan, work)
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     b, page, n_pages, tokens = 8, 8, 512, 288
     n_layers = max(8, math.ceil(100e6 / (2 * b * tokens * kvh * hd * 4)))
@@ -541,6 +634,9 @@ def time_paged_attention(cfg) -> list[dict]:
     pool = (n_layers, n_pages, page, kvh, hd)
     kp = torch.randn(pool, generator=gen, device="cuda")
     vp = torch.randn(pool, generator=gen, device="cuda")
+    # each layer's pools as views made once: the timed calls index a list,
+    # as the library call's do
+    kps, vps = list(kp), list(vp)
     perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
     bt = torch.zeros((b, pmax), dtype=torch.int32, device="cuda")
     bt[:, :tokens // page] = perm[:b * tokens // page].reshape(
@@ -567,16 +663,42 @@ def time_paged_attention(cfg) -> list[dict]:
                                  f"version at the {label} shape: max err "
                                  f"{err.max().item():.3e}")
         ms = cuda_time_ms(lambda i: paged_attention(
-            q, kp[i % n_layers], vp[i % n_layers], bt, pos, scale=scale), 50)
+            q, kps[i % n_layers], vps[i % n_layers], bt, pos, scale=scale), 50)
         ms_by_variant = {variant: ms}
+        split = {}
+        n_splits = split_plan(b, kvh, h // kvh * s, hd, pmax * page)
+        if variant == "rows" and n_splits:
+            # the split path on the device alone, and the rows instance's
+            # walk of many rows, which took decode steps before it
+            walk = paged_attention(q, kp[0], vp[0], bt, pos, scale=scale,
+                                   splits=0)
+            walk_err = (walk - ref).abs()
+            if bool((walk_err > PA_TOL["atol"]
+                     + PA_TOL["rtol"] * ref.abs()).any()):
+                raise AssertionError(f"paged_attention's walk disagrees with "
+                                     f"its plain version at the {label} "
+                                     f"shape")
+            split = dict(
+                splits=n_splits,
+                device_ms=_graph_ms(lambda i: paged_attention(
+                    q, kps[i % n_layers], vps[i % n_layers], bt, pos,
+                    scale=scale)),
+                walk_ms=cuda_time_ms(lambda i: paged_attention(
+                    q, kps[i % n_layers], vps[i % n_layers], bt, pos,
+                    scale=scale, splits=0), 50),
+                walk_max_abs_err=walk_err.max().item())
         other = next((v for v in PA_VARIANTS if v != variant and (
             v == "rows" or hd in TILE_HEAD_DIMS)), None)
         if other:
             ms_by_variant[other] = cuda_time_ms(lambda i: paged_attention(
-                q, kp[i % n_layers], vp[i % n_layers], bt, pos, scale=scale,
+                q, kps[i % n_layers], vps[i % n_layers], bt, pos, scale=scale,
                 variant=other), 50)
+            if split:
+                split["other_device_ms"] = _graph_ms(lambda i: paged_attention(
+                    q, kps[i % n_layers], vps[i % n_layers], bt, pos,
+                    scale=scale, variant=other))
         plain_ms = cuda_time_ms(lambda i: paged_attention_ref(
-            q, kp[i % n_layers], vp[i % n_layers], bt, pos, scale=scale), 10)
+            q, kps[i % n_layers], vps[i % n_layers], bt, pos, scale=scale), 10)
         # library yardstick: SDPA over the pre-gathered view (the gather
         # is not timed; the port never calls this)
         smax = pmax * page
@@ -587,9 +709,14 @@ def time_paged_attention(cfg) -> list[dict]:
         qf = q.float().transpose(1, 2).contiguous()
         t = torch.arange(smax, device="cuda")
         mask = (t[None, None, :] <= pos[:, :, None])[:, None]
-        library_ms = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
-            qf, kall[i % n_layers], vall[i % n_layers], attn_mask=mask,
-            scale=scale, enable_gqa=True), 50)
+        def sdpa(i):
+            return F.scaled_dot_product_attention(
+                qf, kall[i % n_layers], vall[i % n_layers], attn_mask=mask,
+                scale=scale, enable_gqa=True)
+
+        library_ms = cuda_time_ms(sdpa, 50)
+        if split:
+            split["library_device_ms"] = _graph_ms(sdpa)
         del kall, vall
         # least work these inputs need: each visited K/V row read once
         # (keys 0..max position of the lane), q/tables/positions read
@@ -622,15 +749,22 @@ def time_paged_attention(cfg) -> list[dict]:
             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             bound_f32_ms=bound_f32_ms, declared_bound_ms=declared_ms,
-            bytes=n_bytes, flops=flops)
+            bytes=n_bytes, flops=flops, **split)
         if variant == "tile":
             row.update(qk_passes=qk_passes, pv_passes=pv_passes)
         rows.append(row)
         other_note = (f"{other} instance {ms_by_variant[other]*1e3:8.2f} us"
                       if other else f"no other instance takes Dh {hd}")
+        split_note = (f" | split path, {split['splits']} parts: device "
+                      f"{split['device_ms']*1e3:7.2f} us (sdpa "
+                      f"{split['library_device_ms']*1e3:7.2f}"
+                      + (f", {other} {split['other_device_ms']*1e3:7.2f}"
+                         if other else "")
+                      + f"); the walk of many rows "
+                      f"{split['walk_ms']*1e3:8.2f} us" if split else "")
         log(f"  {label:13s} B {b} S {s:2d} G {h // kvh} Dh {hd} ({variant}): "
             f"max err {err.max().item():.2e} | kernel {ms*1e3:8.2f} us"
-            + f" ({other_note})"
+            + f" ({other_note}){split_note}"
             + f" | plain {plain_ms*1e3:8.2f} us | sdpa "
             f"{library_ms*1e3:8.2f} us | bound {bound_ms*1e3:6.2f} us "
             f"({row['bound_by']}: {n_bytes/1e6:.1f} MB, {flops/1e9:.3f} "
@@ -638,7 +772,7 @@ def time_paged_attention(cfg) -> list[dict]:
             f"{bound_f32_ms*1e3:6.2f} us {bound_f32_ms/ms:.1%} of it | "
             f"declared bound {declared_ms*1e3:6.2f} us "
             f"{declared_ms/ms:.1%} of it")
-    del kp, vp
+    del kp, vp, kps, vps
     return rows
 
 
@@ -1258,6 +1392,69 @@ def check_flash_attention() -> tuple[dict, dict]:
     return worst, counts
 
 
+def check_flash_split() -> dict:
+    """The rows instance's split path (`splits`) against the plain
+    version at each of SPLIT_GEOMETRIES (B 2, 2 KV heads), forced to 1
+    and 2 parts and at the plan's count, o and lse within FA_TOL and nvis
+    equal, on an f32 cache of 2056 slots read as strided views and
+    rounded by kv_cast (the static path), bf16 throughout and f32
+    throughout: a decode row at the end of 2048 keys (the static path's
+    tiles, 8 x 128), with a window of 3; a row whose visited tile keeps
+    no key (kv_len below its window); one that visits no tile (kv_len
+    0); a short cache in tiles of 8; and as many rows as the path takes
+    (G * Sq up to 16, 8 at D 256) ending at kv_len, with a window of 5."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_all,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        split_plan)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    f32, bf16 = torch.float32, torch.bfloat16
+    b, hkv, smax = 2, 2, 2056
+    cases, plans = [], set()
+    for d, group in SPLIT_GEOMETRIES:
+        sq_many = max(1, (8 if d > 128 else 16) // group)
+        # (sq, q_offset, kv_len, window, (bq, bk))
+        scenarios = ((1, 2047, 2048, None, (8, 128)),
+                     (1, 2047, 2048, 3, (8, 128)),
+                     (1, 1999, 1990, 3, (8, 128)),
+                     (1, 500, 0, None, (8, 128)),
+                     (1, 40, 41, None, (8, 8)),
+                     (sq_many, 2048 - sq_many, 2048, 5, (8, 128)))
+        for q_dt, kv_dt, kv_cast in ((bf16, f32, bf16), (bf16, bf16, None),
+                                     (f32, f32, None)):
+            k, v = (torch.randn((b, smax, hkv, d), generator=gen,
+                                device="cuda").to(kv_dt).transpose(1, 2)
+                    for _ in range(2))
+            for sq, q_offset, kv_len, window, (bq, bk) in scenarios:
+                q = torch.randn((b, sq, hkv * group, d), generator=gen,
+                                device="cuda").to(q_dt).transpose(1, 2)
+                kw = dict(causal=True, window=window, kv_len=kv_len,
+                          q_offset=q_offset, bq=bq, bk=bk, kv_cast=kv_cast)
+                ref = flash_attention_ref(q, k, v, **kw)
+                plans.add(split_plan(b, hkv, group * sq, d, kv_len))
+                for splits in SPLIT_COUNTS:
+                    err, bad = _fa_errors(flash_attention_all(
+                        q, k, v, variant="rows", splits=splits, **kw), ref)
+                    cases.append((dict(kw, D=d, G=group, sq=sq, q=q_dt,
+                                       kv=kv_dt, splits=splits), err, bad))
+    torch.cuda.synchronize()
+    errs = torch.stack([e for _, e, _ in cases]).cpu()
+    bads = torch.stack([x for _, _, x in cases]).cpu()
+    if bool(bads.any()):
+        i = int(bads.nonzero()[0, 0])
+        raise AssertionError(f"flash_attention's split path disagrees with "
+                             f"its plain version: {cases[i][0]}: max err "
+                             f"{errs[i].item():.3e} (or nvis)")
+    worst = float(errs.max())
+    log(f"flash_attention (rows, split path): {len(cases)} calls at (D, G) "
+        f"{SPLIT_GEOMETRIES}, splits {SPLIT_COUNTS} (the plan's: "
+        f"{sorted(plans)}), 2048 keys, rows that keep or visit no key, "
+        f"within rtol=atol=2e-4, nvis equal (max abs err {worst:.3e})")
+    return dict(max_abs_err=worst, calls=len(cases))
+
+
 def _fa_bound(b, hq, hkv, sq, d, kv_rows, pairs, q_bytes, kv_bytes,
               qk_bf16, variant="rows"):
     """(bound ms, bound_by, bytes, flops): q and the kv_rows K/V rows read
@@ -1304,14 +1501,17 @@ def time_flash_attention(cfg) -> list[dict]:
     the path picks (`kernel_variant`: rows at decode, tile at the
     prefill), held against the plain version, and the other instance is
     held and timed beside it; the prefill's f32 bound is the rows
-    instance's, kept beside the tile instance's."""
+    instance's, kept beside the tile instance's. At the decode, the rows
+    instance's split path is also timed on the device alone (a CUDA
+    graph) beside the library call's and the other instance's, and its
+    walk of many rows (`splits=0`) is held and timed beside it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.flash_attention import (flash_attention_all,
                                                      flash_attention_ref)
     from repro_torch.kernels.flash_attention.flash_attention import (
-        kernel_variant, tile_takes, work)
+        kernel_variant, split_plan, tile_takes, work)
     b, hq, hkv, d = 8, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     prefix = 256 if cfg.modality == "vlm" else 0
     smax = prefix + 1056
@@ -1323,6 +1523,10 @@ def time_flash_attention(cfg) -> list[dict]:
         torch.bfloat16).float()
     cv = torch.randn(shape, generator=gen, device="cuda").to(
         torch.bfloat16).float()
+    # each layer's cache as (B, KV, Smax, D) views made once: the timed
+    # calls index a list
+    kvs = [(ck[i].transpose(1, 2), cv[i].transpose(1, 2))
+           for i in range(n_layers)]
     scale = d ** -0.5
     rows = []
     for label, sq, q_offset, kv_len in (
@@ -1332,8 +1536,7 @@ def time_flash_attention(cfg) -> list[dict]:
             torch.bfloat16).transpose(1, 2)
 
         def kv(i):
-            return ck[i % n_layers].transpose(1, 2), \
-                cv[i % n_layers].transpose(1, 2)
+            return kvs[i % n_layers]
 
         kw = dict(causal=True, kv_len=kv_len, q_offset=q_offset,
                   scale=scale, kv_cast=torch.bfloat16)
@@ -1364,9 +1567,31 @@ def time_flash_attention(cfg) -> list[dict]:
             errs[v_] = err.item()
         ms = _adaptive_ms(lambda i: flash_attention_all(q, *kv(i), **kw))
         ms_by_variant = {variant: ms}
+        split = {}
+        n_splits = split_plan(b, hkv, hq // hkv * sq, d, kv_len)
+        if variant == "rows" and n_splits:
+            # the split path on the device alone, and the rows instance's
+            # walk of many rows, which took decode steps before it
+            err, bad = _fa_errors(flash_attention_all(q, *kv(0), splits=0,
+                                                      **kw), ref)
+            if bool(bad):
+                raise AssertionError(f"flash_attention's walk disagrees with "
+                                     f"its plain version at the {label} "
+                                     f"shape")
+            split = dict(
+                splits=n_splits,
+                device_ms=_graph_ms(lambda i: flash_attention_all(
+                    q, *kv(i), **kw)),
+                walk_ms=_adaptive_ms(lambda i: flash_attention_all(
+                    q, *kv(i), splits=0, **kw)),
+                walk_max_abs_err=err.item())
         if other:
             ms_by_variant[other] = _adaptive_ms(lambda i: flash_attention_all(
                 q, *kv(i), variant=other, **kw))
+            if split:
+                split["other_device_ms"] = _graph_ms(
+                    lambda i: flash_attention_all(q, *kv(i), variant=other,
+                                                  **kw))
         plain_ms = _adaptive_ms(lambda i: flash_attention_ref(q, *kv(i),
                                                               **kw),
                                 budget_s=1.0, most=10)
@@ -1380,6 +1605,8 @@ def time_flash_attention(cfg) -> list[dict]:
 
         lib_err = (sdpa(0) - out[0]).abs().max().item()
         library_ms = _adaptive_ms(sdpa)
+        if split:
+            split["library_device_ms"] = _graph_ms(sdpa)
         pairs = sum(min(kv_len, r + q_offset + 1) for r in range(sq))
         args = (b, hq, hkv, sq, d, kv_len, pairs, 2, 4)
         bound_ms, bound_by, n_bytes, flops = _fa_bound(
@@ -1396,14 +1623,21 @@ def time_flash_attention(cfg) -> list[dict]:
                          plain_ms=plain_ms, library_ms=library_ms,
                          library_max_abs_diff=lib_err, bound_ms=bound_ms,
                          bound_by=bound_by, bound_f32_ms=bound_f32_ms,
-                         bytes=n_bytes, flops=flops))
+                         bytes=n_bytes, flops=flops, **split))
         other_note = (f"{other} instance {ms_by_variant[other]*1e3:9.2f} "
                       f"us, max err {errs[other]:.2e}" if other
                       else f"no other instance takes D {d}")
+        split_note = (f" | split path, {split['splits']} parts: device "
+                      f"{split['device_ms']*1e3:7.2f} us (sdpa "
+                      f"{split['library_device_ms']*1e3:7.2f}"
+                      + (f", {other} {split['other_device_ms']*1e3:7.2f}"
+                         if other else "")
+                      + f"); the walk of many rows "
+                      f"{split['walk_ms']*1e3:8.2f} us" if split else "")
         log(f"  {label:7s} Sq {sq:4d} q_offset {q_offset:4d} kv_len "
             f"{kv_len} G {hq // hkv} D {d} ({variant}): max err "
             f"{errs[variant]:.2e} | kernel "
-            f"{ms*1e3:9.2f} us ({other_note}) | plain "
+            f"{ms*1e3:9.2f} us ({other_note}){split_note} | plain "
             f"{plain_ms*1e3:10.2f} us | "
             f"sdpa {library_ms*1e3:9.2f} us (max diff {lib_err:.1e}) | "
             f"bound {bound_ms*1e3:8.2f} us ({bound_by}: {n_bytes/1e6:.1f} "
@@ -1411,7 +1645,7 @@ def time_flash_attention(cfg) -> list[dict]:
             f"bound {bound_f32_ms*1e3:8.2f} us {bound_f32_ms/ms:.1%} of it "
             f"| declared bound {declared_ms*1e3:8.2f} us "
             f"{declared_ms/ms:.1%} of it")
-    del ck, cv
+    del ck, cv, kvs
     gc.collect()
     torch.cuda.empty_cache()
     return rows
@@ -2620,7 +2854,9 @@ GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::matmul",
             "aten::baddbmm")
 SC_KERNEL_NAMES = ("dot_kernel", "artemis_kernel", "artemis_scan_kernel",
                    "mxu_epilogue")
-FA_KERNEL_NAMES = ("flash_attention_kernel", "flash_attention_tile_kernel")
+FA_KERNEL_NAMES = ("flash_attention_kernel", "flash_attention_tile_kernel",
+                   "flash_attention_split_kernel",
+                   "flash_attention_merge_kernel")
 
 
 @contextlib.contextmanager
@@ -4959,7 +5195,8 @@ def main() -> int:
         for name, regs, spill in ptxas_instances(report):
             if any(k in name for k in ("mma_dot_kernel", "artemis_kernel",
                                        "paged_attention_tile",
-                                       "flash_attention_tile")):
+                                       "flash_attention_tile",
+                                       "attention_split", "attention_merge")):
                 log(f"    {name}: {regs} registers, {spill} bytes spill "
                     f"stores")
                 if spill:
@@ -4967,8 +5204,10 @@ def main() -> int:
 
     phases.mark("3. kernels against their plain versions")
     pa_err = check_paged_attention()
+    pa_split = check_paged_split()
     n_sc_cases = check_sc_matmul()
     fa_err, n_fa_cases = check_flash_attention()
+    fa_split = check_flash_split()
 
     cfg = configs.get_config("qwen3_8b")
     moe_cfg = configs.get_config("qwen2_moe_a2_7b")
@@ -5288,11 +5527,12 @@ def main() -> int:
         "launches": sum(pa_paths.values()),
         "launches_by_path": pa_paths,
         "launches_by_variant": full["launches_by_variant"],
-        "max_abs_err": max(*pa_err.values(), *(
+        "max_abs_err": max(*pa_err.values(), pa_split["max_abs_err"], *(
             r["max_abs_err"] for r in timing + moe_rows["paged_attention"]
             + new_rows["paged_attention"]),
             ex["held"]["paged_attention"]["max_abs_err"]),
         "max_abs_err_by_variant": pa_err,
+        "split_path": pa_split,
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
         "library_ms": decode["library_ms"],
@@ -5320,7 +5560,7 @@ def main() -> int:
         "launches": sum(fa_paths.values()),
         "launches_by_path": fa_paths,
         "launches_by_variant": static["launches_by_variant"],
-        "max_abs_err": max(*fa_err.values(),
+        "max_abs_err": max(*fa_err.values(), fa_split["max_abs_err"],
                            *(e for r in fa_rows + moe_rows["flash_attention"]
                              + zamba_fa_rows + mm_fa_rows
                              + new_rows["flash_attention"]
@@ -5329,6 +5569,7 @@ def main() -> int:
         "max_abs_err_by_variant": {v: max(fa_err[v], *(
             r["max_abs_err_by_variant"][v] for r in fa_rows))
             for v in FA_VARIANTS},
+        "split_path": fa_split,
         "ms": fa_rows[0]["ms"], "plain_ms": fa_rows[0]["plain_ms"],
         "bound_ms": fa_rows[0]["bound_ms"],
         "bound_by": fa_rows[0]["bound_by"],

@@ -38,8 +38,11 @@ import torch
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
+# --split-compile 0: the compiler's passes over a source's kernel instances
+# run on every core (the attention sources hold some 40-60 instances each)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile", "0")
 
 launch_counts: collections.Counter = collections.Counter()
 _LIBS: dict[str, ctypes.CDLL] = {}

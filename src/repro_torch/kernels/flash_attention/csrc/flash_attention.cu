@@ -27,8 +27,9 @@
 //     o and lse are f32.
 //
 // Two instances; the caller picks one per call (the C entry's `variant`):
-//   * "rows" (flash_attention_kernel), f32 on the CUDA cores, for any
-//     operand types: decode steps and f32 operands;
+//   * "rows", f32 on the CUDA cores, for any operand types: decode steps
+//     (its split path, split::flash_attention_split_kernel further down)
+//     and f32 operands (its walk of many rows, flash_attention_kernel);
 //   * "tile" (tile::flash_attention_tile_kernel) for bf16 q and K/V that
 //     are bf16 or rounded to it, D 16, 32, 64 or 128: prefills, on the
 //     bf16 tensor cores (see its own comment further down).
@@ -37,9 +38,11 @@
 // operations (4 * D per kept (query, key) pair: about 69 GFLOP for 8 x
 // 32 heads x 1024 causal rows, D 128, against 67 TFLOP/s on the CUDA
 // cores); at a decode step, the bytes of the cache (every K/V row up to
-// kv_len read once, f32).
+// kv_len read once, f32), which its split path reads once for a whole
+// query group.
 //
-// The rows instance, simple first (CUDA cores, f32; no split-K yet):
+// The rows instance's walk of many rows (more than 16 query rows per
+// (batch, kv head)), simple first (CUDA cores, f32):
 //   * one block of 4 warps per (batch, query head, tile of BQ = 4 * R
 //     query rows); element strides for q, k, v and o, so transposed
 //     views of (B, S, H, D) tensors and of a dense cache run without
@@ -867,6 +870,471 @@ cudaError_t dispatch_tile(const Args& a, int B, cudaStream_t stream) {
 
 }  // namespace tile
 
+
+// ---------------------------------------------------------------------------
+// The rows instance's split path: decode steps, few rows per kv head
+// ---------------------------------------------------------------------------
+//
+// Same function as the rows instance (the header above), for calls of
+// R = G * Sq <= 16 query rows per (batch, kv head) (R <= 8 at D > 128):
+// every decode step of the static path. What bounds it: the cache's
+// bytes, each K/V row up to kv_len read once (f32: about R / 2 FLOP a
+// byte). The walk of many rows has a block per query head, so it reads
+// each K/V row G times; this path reads it once for all G. Design
+// (flash-decoding, a split over keys):
+//   * grid (n_splits, Hkv, B): a block holds all R rows of one (batch, kv
+//     head), row = position * G + head-in-group. Its keys are the union
+//     of its rows' needed keys, as the tile instance counts them (a row
+//     that keeps a visited key needs the keys it keeps, one that keeps
+//     none all it visits); it walks the i-th of n_splits equal parts of
+//     them, rounded up to 32 keys. A key scores as in the walk: -1e30
+//     where a visited tile's mask drops it, -inf outside the row's
+//     visited tiles, so a part never turns an unvisited key into a
+//     visited one; keys the block skips are, for every row, masked ones
+//     beside a kept key (weight exactly 0) or unvisited;
+//   * warps split keys, not rows: warp w takes chunks w, w + 4, ... of 8
+//     keys and keeps (m, l, o) of every row in registers; lane j + 8 u
+//     scores key j over the quarter u of D, the quarters add by 2
+//     shuffles; P.V splits D over the lanes (column lane + 32 c);
+//   * each warp's chunks land in a ring of 3 stages by cp.async (4
+//     elements a copy: 16 bytes of f32, 8 of bf16; element strides, so
+//     the static cache is read in place; zeros past the part and past
+//     Sk), two chunks in flight while one is scored; K/V are rounded to
+//     bf16 in registers where `kv_round` asks;
+//   * the warps merge in shared memory, in order. With one split the
+//     block writes o, lse and nvis; else its partial (m, l, unnormalised
+//     o), and flash_attention_merge_kernel, one warp an output row, adds
+//     the splits in order 0..n-1 (the same bits every run): M = max m_i,
+//     L = sum l_i e^(m_i - M), o = sum o_i e^(m_i - M) / max(L, 1e-30),
+//     lse = M + log(max(L, 1e-30)); nvis is the row's visited tiles. A
+//     part of masked keys only gives (-1e30, its key count) and weighs 0
+//     beside a kept key, 1 beside other such parts; a part of unvisited
+//     keys only, or an empty one, gives (-1e30, 0) and adds nothing.
+
+namespace split {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kKeys = 8;      // keys a warp stage; lane = key + 8 * quarter
+constexpr int kStages = 3;    // depth of each warp's ring
+constexpr int kMaxRows = 16;
+constexpr int kRound = 32;    // a part's length is a multiple of this
+
+// K row stride (elements): D padded to an odd number of 4-element groups
+__host__ __device__ __forceinline__ int k_stride(int D) {
+  return (D / 4) % 2 == 0 ? D + 4 : D + 8;
+}
+
+template <typename KVT>
+size_t smem_bytes(int rm, int D) {
+  return sizeof(KVT) * kWarps * kStages * kKeys * (k_stride(D) + D) +
+         sizeof(float) * ((size_t)rm * D + (size_t)kWarps * rm * kKeys);
+}
+
+// 4 elements global -> shared (16 bytes of f32 bypassing L1, 8 of bf16),
+// zeros when !in
+template <typename KVT>
+__device__ __forceinline__ void cp_async4(KVT* dst, const KVT* src, bool in) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if (sizeof(KVT) == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(in ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                 "l"(src), "r"(in ? 8 : 0)
+                 : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// RM: rows a block keeps state for (R <= RM); DV: output columns a lane
+// owns (D <= 32 * DV). `part` holds the partials when gridDim.x > 1.
+template <typename KVT, int RM, int DV>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_split_kernel(const Args a, float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char split_smem[];
+  const int D = a.D, KS = k_stride(D);
+  const int stage = kKeys * (KS + D);  // elements: K rows, then V rows
+  KVT* ring = reinterpret_cast<KVT*>(split_smem);  // [warp][stage]
+  float* q_s = reinterpret_cast<float*>(ring + kWarps * kStages * stage);
+  float* p_s = q_s + RM * D;            // [warp][RM][kKeys]
+  __shared__ tile::RowKeys rk_s[RM];
+
+  const int n_split = gridDim.x, split = blockIdx.x;
+  const int hkv = blockIdx.y, b = blockIdx.z;
+  const int G = a.Hq / a.Hkv, R = G * a.Sq;
+  const int rows_total = gridDim.z * a.Hkv * R;
+  const int row0 = (b * a.Hkv + hkv) * R;  // the block's first partial row
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int key = lane % kKeys, quarter = lane / kKeys;
+
+  // rows past R take the last row's query position (their state is never
+  // written)
+  if (threadIdx.x < RM)
+    rk_s[threadIdx.x] = tile::row_keys(a, min((int)threadIdx.x, R - 1) / G);
+  __syncthreads();
+
+  // the block's keys [w0, w1), then this block's part of them
+  int w0 = 1 << 30, w1 = 0;
+  for (int r = 0; r < R; r += G) {  // one row a query position
+    const tile::RowKeys& k = rk_s[r];
+    if (k.e_lo < k.e_hi) {
+      w0 = min(w0, k.e_lo);
+      w1 = max(w1, k.e_hi);
+    }
+  }
+  w0 = min(w0, w1);  // no row needs a key: an empty walk
+  const int len = w1 > w0 ? ((w1 - w0 + n_split - 1) / n_split + kRound -
+                             1) / kRound * kRound
+                          : 0;
+  const int p0 = w0 + split * len;
+  const int p1 = min(p0 + len, w1);
+  float* ml = part + (size_t)n_split * rows_total * D;  // [split][row][2]
+  if (n_split > 1 && p0 >= p1) {  // an empty part: keeps nothing
+    if (threadIdx.x < R) {
+      float* dst = ml + ((size_t)split * rows_total + row0 + threadIdx.x) * 2;
+      dst[0] = kNegInf;
+      dst[1] = 0.f;
+    }
+    return;
+  }
+
+  // this warp's chunks of the part, through its own ring
+  const int n_chunks = p1 > p0 ? (p1 - p0 + kKeys - 1) / kKeys : 0;
+  const int n_mine =
+      n_chunks > warp ? (n_chunks - warp + kWarps - 1) / kWarps : 0;
+  KVT* my_ring = ring + warp * kStages * stage;
+  const KVT* K = static_cast<const KVT*>(a.k);
+  const KVT* V = static_cast<const KVT*>(a.v);
+  const long long k_base = b * a.k_sb + hkv * a.k_sh;
+  const long long v_base = b * a.v_sb + hkv * a.v_sh;
+  const int G4 = D / 4;
+  auto key_of = [&](int c) { return p0 + (warp + kWarps * c) * kKeys + key; };
+  auto issue = [&](int c) {
+    const int t = key_of(c);
+    const bool in = t < p1 && t < a.Sk;
+    const KVT* ksrc = K + (in ? k_base + t * a.k_ss : 0);
+    const KVT* vsrc = V + (in ? v_base + t * a.v_ss : 0);
+    KVT* kd = my_ring + (c % kStages) * stage + key * KS;
+    KVT* vd = my_ring + (c % kStages) * stage + kKeys * KS + key * D;
+    for (int g = quarter; g < G4; g += 4) {
+      cp_async4(kd + 4 * g, ksrc + 4 * g, in);
+      cp_async4(vd + 4 * g, vsrc + 4 * g, in);
+    }
+  };
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < n_mine) issue(c);
+    tile::cp_async_commit();
+  }
+
+  // q in f32, zero past R, read while the first chunks land
+  for (int i = threadIdx.x; i < RM * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    float x = 0.f;
+    if (r < R) {
+      const long long off = b * a.q_sb + (hkv * G + r % G) * a.q_sh +
+                            (r / G) * a.q_ss + d;
+      x = a.q_bf16 ? __bfloat162float(
+                         static_cast<const __nv_bfloat16*>(a.q)[off])
+                   : static_cast<const float*>(a.q)[off];
+    }
+    q_s[i] = x;
+  }
+  __syncthreads();
+
+  float m[RM], l[RM], o[RM][DV];  // l: this lane's key's share
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DV; ++c) o[r][c] = 0.f;
+  }
+  float* pw = p_s + warp * RM * kKeys;
+
+  for (int j = 0; j < n_mine; ++j) {
+    if (j + kStages - 1 < n_mine) issue(j + kStages - 1);
+    tile::cp_async_commit();  // an empty group keeps the count uniform
+    cp_async_wait<kStages - 1>();
+    __syncwarp();  // every lane's copies of chunk j landed
+
+    const KVT* ks = my_ring + (j % kStages) * stage;
+    const KVT* vs = ks + kKeys * KS;
+    const int t = key_of(j);
+    float acc[RM];
+#pragma unroll
+    for (int r = 0; r < RM; ++r) acc[r] = 0.f;
+    for (int g = quarter; g < G4; g += 4) {
+      float4 kk = load4(ks + key * KS + 4 * g);
+      if (a.kv_round)
+        kk = make_float4(round_bf16(kk.x), round_bf16(kk.y),
+                         round_bf16(kk.z), round_bf16(kk.w));
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        const float4 qq =
+            *reinterpret_cast<const float4*>(q_s + r * D + 4 * g);
+        acc[r] = fmaf(qq.x, kk.x, acc[r]);
+        acc[r] = fmaf(qq.y, kk.y, acc[r]);
+        acc[r] = fmaf(qq.z, kk.z, acc[r]);
+        acc[r] = fmaf(qq.w, kk.w, acc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 8);
+      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 16);
+      const tile::RowKeys& k = rk_s[r];
+      // keys past the part, or outside the row's visited tiles, count
+      // for nothing
+      const bool visited = t < p1 && t >= k.v_lo && t < k.v_hi;
+      const bool keep = t >= k.k_lo && t < k.k_hi;
+      const float sc =
+          visited ? (keep ? acc[r] * a.scale : kNegInf) : -INFINITY;
+      float mx = sc;
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = expf(m[r] - m_new);
+      const float pr = expf(sc - m_new);
+      l[r] = l[r] * alpha + pr;
+      m[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < DV; ++c) o[r][c] *= alpha;
+      if (quarter == 0) pw[r * kKeys + key] = pr;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j4 = 0; j4 < kKeys / 4; ++j4) {
+      float vv[4][DV];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int c = 0; c < DV; ++c) {
+          const int d = lane + 32 * c;
+          float x = d < D ? to_f32(vs[(4 * j4 + jj) * D + d]) : 0.f;
+          if (a.kv_round) x = round_bf16(x);
+          vv[jj][c] = x;
+        }
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        const float4 pp =
+            *reinterpret_cast<const float4*>(pw + r * kKeys + 4 * j4);
+        const float pj[4] = {pp.x, pp.y, pp.z, pp.w};
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int c = 0; c < DV; ++c)
+            o[r][c] = fmaf(pj[jj], vv[jj][c], o[r][c]);
+      }
+    }
+    __syncwarp();  // the slot and pw are free for the next chunk
+  }
+  tile::cp_async_wait_all();
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 4);
+  }
+
+  // the warps' states into warp 0, in order, through the free rings:
+  // [warp - 1][RM][D + 2]
+  const int MS = D + 2;
+  float* mrg = reinterpret_cast<float*>(split_smem);
+  __syncthreads();
+  if (warp > 0) {
+    float* dst = mrg + (warp - 1) * RM * MS;
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      if (r >= R) break;
+#pragma unroll
+      for (int c = 0; c < DV; ++c) {
+        const int d = lane + 32 * c;
+        if (d < D) dst[r * MS + d] = o[r][c];
+      }
+      if (lane == 0) {
+        dst[r * MS + D] = m[r];
+        dst[r * MS + D + 1] = l[r];
+      }
+    }
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  for (int w = 1; w < kWarps; ++w) {
+    const float* src = mrg + (w - 1) * RM * MS;
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      if (r >= R) break;
+      const float m2 = src[r * MS + D];
+      const float mm = fmaxf(m[r], m2);
+      const float a0 = expf(m[r] - mm), a1 = expf(m2 - mm);
+      l[r] = l[r] * a0 + src[r * MS + D + 1] * a1;
+      m[r] = mm;
+#pragma unroll
+      for (int c = 0; c < DV; ++c) {
+        const int d = lane + 32 * c;
+        if (d < D) o[r][c] = o[r][c] * a0 + a1 * src[r * MS + d];
+      }
+    }
+  }
+
+  // one split: o, lse and nvis; else the partial (m, l, unnormalised o)
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    if (r >= R) break;
+    const int s = r / G, h = hkv * G + r % G;
+    float* dst;
+    float li = 1.f;
+    if (n_split == 1) {
+      li = fmaxf(l[r], 1e-30f);
+      dst = a.o + b * a.o_sb + h * a.o_sh + s * a.o_ss;
+      if (lane == 0) {
+        const long long idx = ((long long)b * a.Hq + h) * a.Sq + s;
+        a.lse[idx] = m[r] + logf(li);
+        a.nvis[idx] = (float)((rk_s[r].v_hi - rk_s[r].v_lo) / a.bk);
+      }
+    } else {
+      const size_t idx = (size_t)split * rows_total + row0 + r;
+      dst = part + idx * D;
+      if (lane == 0) {
+        ml[idx * 2] = m[r];
+        ml[idx * 2 + 1] = l[r];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < DV; ++c) {
+      const int d = lane + 32 * c;
+      if (d < D) dst[d] = o[r][c] / li;
+    }
+  }
+}
+
+// the n_split partials of each output row, one warp a row: rows_total =
+// B * Hkv * R rows in (batch, kv head, row) order
+template <int DV>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_merge_kernel(const Args a, const float* __restrict__ part,
+                             int n_split, int rows_total) {
+  const int row = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows_total) return;
+  const int D = a.D, G = a.Hq / a.Hkv, R = G * a.Sq;
+  const int b = row / (a.Hkv * R), hkv = row / R % a.Hkv, r = row % R;
+  const int s = r / G, h = hkv * G + r % G;
+  const float* ml = part + (size_t)n_split * rows_total * D;
+  float M = kNegInf;
+  for (int i = 0; i < n_split; ++i)
+    M = fmaxf(M, ml[((size_t)i * rows_total + row) * 2]);
+  float L = 0.f, o[DV];
+#pragma unroll
+  for (int c = 0; c < DV; ++c) o[c] = 0.f;
+  for (int i = 0; i < n_split; ++i) {
+    const size_t idx = (size_t)i * rows_total + row;
+    const float li = ml[idx * 2 + 1];
+    if (li == 0.f) continue;  // nothing kept or visited: o never written
+    const float w = expf(ml[idx * 2] - M);
+    L += li * w;
+#pragma unroll
+    for (int c = 0; c < DV; ++c) {
+      const int d = lane + 32 * c;
+      if (d < D) o[c] = fmaf(w, part[idx * D + d], o[c]);
+    }
+  }
+  L = fmaxf(L, 1e-30f);
+  float* dst = a.o + b * a.o_sb + h * a.o_sh + s * a.o_ss;
+#pragma unroll
+  for (int c = 0; c < DV; ++c) {
+    const int d = lane + 32 * c;
+    if (d < D) dst[d] = o[c] / L;
+  }
+  if (lane == 0) {
+    const tile::RowKeys k = tile::row_keys(a, s);
+    const long long idx = ((long long)b * a.Hq + h) * a.Sq + s;
+    a.lse[idx] = M + logf(L);
+    a.nvis[idx] = (float)((k.v_hi - k.v_lo) / a.bk);
+  }
+}
+
+// Shared memory above the default 48 KB is an opt-in per kernel and
+// device; `allowed[device]` keeps the largest made, so that a decode step
+// pays the driver call once.
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* allowed) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && allowed[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = bytes;
+  return err;
+}
+
+template <typename KVT, int RM, int DV>
+cudaError_t launch(const Args& a, int B, float* part, int n_split,
+                   cudaStream_t stream) {
+  auto kernel = flash_attention_split_kernel<KVT, RM, DV>;
+  static size_t allowed[kMaxDevices];  // this instance's opt-in, per device
+  const size_t smem = smem_bytes<KVT>(RM, a.D);
+  cudaError_t err = allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(n_split, a.Hkv, B), kThreads, smem, stream>>>(a, part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  const int rows_total = B * a.Hq * a.Sq;
+  flash_attention_merge_kernel<DV>
+      <<<(rows_total + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+          a, part, n_split, rows_total);
+  return cudaGetLastError();
+}
+
+// RM from the rows R (1, 4, 8 or 16), DV from D (2, 4 or 8; R <= 8 at DV
+// 8, which the entry checks)
+template <typename KVT>
+cudaError_t dispatch(const Args& a, int B, float* part, int n_split,
+                     cudaStream_t stream) {
+  const int R = a.Hq / a.Hkv * a.Sq;
+  const int dv = a.D <= 64 ? 2 : a.D <= 128 ? 4 : 8;
+#define FA_SPLIT(RM, DV) return launch<KVT, RM, DV>(a, B, part, n_split, stream)
+#define FA_SPLIT_DV(RM)        \
+  if (dv == 2) FA_SPLIT(RM, 2); \
+  if (dv == 4) FA_SPLIT(RM, 4); \
+  FA_SPLIT(RM, 8)
+  if (R == 1) { FA_SPLIT_DV(1); }
+  if (R <= 4) { FA_SPLIT_DV(4); }
+  if (R <= 8) { FA_SPLIT_DV(8); }
+  if (dv == 2) FA_SPLIT(16, 2);
+  FA_SPLIT(16, 4);
+#undef FA_SPLIT_DV
+#undef FA_SPLIT
+}
+
+}  // namespace split
+
 }  // namespace
 
 // C entry point, loaded with ctypes. q: (B, Hq, Sq, D), k and v:
@@ -876,9 +1344,12 @@ cudaError_t dispatch_tile(const Args& a, int B, cudaStream_t stream) {
 // (B, Hq, Sq) f32. q_bf16 / kv_bf16 select the input types, kv_round
 // rounds f32 K/V to bf16. window <= 0 means none; 0 <= kv_len <= Sk.
 // variant: 0 the rows instance, 1 the tile instance (bf16 q, K/V bf16 or
-// rounded to it, D 16, 32, 64 or 128). Launches on `stream` and returns
-// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for
-// arguments it does not take.
+// rounded to it, D 16, 32, 64 or 128). n_splits (rows instance only): 0
+// its walk of many rows; n >= 1 its split path over n parts of the keys
+// (Hq / Hkv * Sq <= 16, and <= 8 at D > 128), with `part` a float
+// workspace of n * B * Hq * Sq * (D + 2) when n > 1. Launches on `stream`
+// and returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue
+// for arguments it does not take.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, float* o, float* lse,
     float* nvis, int B, int Hq, int Hkv, int Sq, int Sk, int D,
@@ -887,16 +1358,27 @@ extern "C" int flash_attention_launch(
     long long v_ss, long long o_sb, long long o_sh, long long o_ss,
     int causal, int window, int kv_len, int q_offset, int bq, int bk,
     float scale, int q_bf16, int kv_bf16, int kv_round, int variant,
-    void* stream) {
+    int n_splits, float* part, void* stream) {
   if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || Sk < 1 || D < 4 ||
       D % 4 != 0 || D > kMaxHeadDim || bq < 1 || bk < 1 || kv_len < 0 ||
-      kv_len > Sk || (variant != 0 && variant != 1))
+      kv_len > Sk || (variant != 0 && variant != 1) || n_splits < 0 ||
+      (variant == 1 && n_splits != 0))
     return (int)cudaErrorInvalidValue;
   Args a{q,    k,    v,    o,    lse,  nvis,   Hq,     Hkv,    Sq,
          Sk,   D,    q_sb, q_sh, q_ss, k_sb,   k_sh,   k_ss,   v_sb,
          v_sh, v_ss, o_sb, o_sh, o_ss, causal, window, kv_len, q_offset,
          bq,   bk,   (Sk + bk - 1) / bk, scale, q_bf16, kv_bf16, kv_round};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_splits > 0) {
+    const int R = Hq / Hkv * Sq;
+    if (R > split::kMaxRows || (R > 8 && D > 128) ||
+        (n_splits > 1 && part == nullptr))
+      return (int)cudaErrorInvalidValue;
+    cudaError_t err =
+        kv_bf16 ? split::dispatch<__nv_bfloat16>(a, B, part, n_splits, st)
+                : split::dispatch<float>(a, B, part, n_splits, st);
+    return (int)err;
+  }
   if (variant == 1) {
     if (!q_bf16 || !(kv_bf16 || kv_round)) return (int)cudaErrorInvalidValue;
     cudaError_t err = kv_bf16 ? tile::dispatch_tile<__nv_bfloat16>(a, B, st)

@@ -28,6 +28,16 @@ The kernel has two instances (`kernel_variant` picks one per call):
 that are bf16 or rounded to it (`kv_cast`) with at least 16 query rows
 (the static path's prefill), and "rows", f32 on the CUDA cores, for
 everything else (its decode steps, f32 operands).
+
+A decode step is bound by the cache's bytes: each K/V row up to kv_len
+is read once, for about G / 2 FLOP a byte of an f32 cache. The rows
+instance takes such calls (at most SPLIT_MAX_ROWS = 16 query rows per
+(batch, kv head), `split_takes`) on its split path: one block per
+(part, kv head, batch) holds all G * Sq rows of its kv head, so each
+K/V row is read once for the whole query group (the walk of many rows
+reads it once per query head), and walks one of `split_plan`'s n equal
+parts of the keys with pipelined copies; a second kernel adds the
+parts. Larger rows-instance calls keep its walk of many rows.
 """
 from __future__ import annotations
 
@@ -48,6 +58,12 @@ VARIANTS = ("rows", "tile")          # the C entry's variant 0 and 1
 # one of these head dims
 TILE_MIN_ROWS = 16
 TILE_HEAD_DIMS = (16, 32, 64, 128)
+# the rows instance's split path: at most this many query rows per
+# (batch, kv head) (8 above D 128, its registers' limit), parts of at
+# least this many keys, enough of them to give every SM of an H100 a block
+SPLIT_MAX_ROWS = 16
+SPLIT_MIN_KEYS = 32
+CARD_SMS = 132
 
 
 def tile_takes(q_dtype, kv_dtype, kv_cast, head_dim: int) -> bool:
@@ -71,6 +87,27 @@ def kernel_variant(q_dtype, kv_dtype, kv_cast, sq: int,
     return "rows"
 
 
+def split_takes(rows: int, head_dim: int) -> bool:
+    """Whether the rows instance's split path takes a call of `rows` =
+    G * Sq query rows per (batch, kv head) at `head_dim`: every decode
+    step of the static path."""
+    return rows <= SPLIT_MAX_ROWS and (rows <= 8 or head_dim <= 128)
+
+
+def split_plan(batch: int, kv_heads: int, rows: int, head_dim: int,
+               max_keys: int) -> int:
+    """The number of parts the split path cuts the keys into, from shapes
+    and host ints alone (`max_keys`: the call's kv_len, the keys it can
+    visit): enough that batch * kv_heads * n blocks give every SM a
+    block, each part at least SPLIT_MIN_KEYS keys long; 1 where the grid
+    already fills the card. 0: the call is not the split path's
+    (`split_takes`), the rows instance walks it as many rows."""
+    if not split_takes(rows, head_dim):
+        return 0
+    fill = -(-CARD_SMS // (batch * kv_heads))
+    return max(1, min(fill, max_keys // SPLIT_MIN_KEYS))
+
+
 def _entry():
     lib = build.load(SOURCE)
     fn = lib.flash_attention_launch
@@ -78,13 +115,13 @@ def _entry():
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 6
-                       + [ctypes.c_float] + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p] * 2)
     return fn
 
 
 def _validate(q, k, v, *, causal, window, kv_len, bq, bk, kv_cast,
-              variant):
+              variant, splits):
     """The reference's checks (Hq % Hkv, window requires causal, window
     >= 1), the shapes and the kernel instance, before anything is read."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -116,6 +153,15 @@ def _validate(q, k, v, *, causal, window, kv_len, bq, bk, kv_cast,
                          f"rounded to it (kv_cast) and D in "
                          f"{TILE_HEAD_DIMS}, got q {q.dtype}, k {k.dtype}, "
                          f"kv_cast {kv_cast}, D {d}")
+    if splits is not None:
+        if (variant or kernel_variant(q.dtype, k.dtype, kv_cast, sq,
+                                      d)) != "rows":
+            raise ValueError("splits names a path of the rows instance")
+        if not isinstance(splits, int) or splits < 0 or (
+                splits and not split_takes(hq // hkv * sq, d)):
+            raise ValueError(f"splits must be 0 (the walk of many rows) or, "
+                             f"where the split path takes the call "
+                             f"(split_takes), >= 1; got {splits!r}")
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -127,7 +173,7 @@ def _aligned(t: torch.Tensor) -> bool:
 
 
 def _launch(q, k, v, *, causal, window, kv_len, q_offset, scale, bq, bk,
-            kv_cast, variant):
+            kv_cast, variant, splits):
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     if q.dtype not in _FLOAT_TYPES or k.dtype not in _FLOAT_TYPES \
@@ -149,6 +195,14 @@ def _launch(q, k, v, *, causal, window, kv_len, q_offset, scale, bq, bk,
     o, lse, nvis = _outputs(q)
     round_kv = int(kv_cast == torch.bfloat16 and k.dtype == torch.float32)
     variant = variant or kernel_variant(q.dtype, k.dtype, kv_cast, sq, d)
+    n_splits = 0
+    if variant == "rows":
+        n_splits = (split_plan(b, hkv, hq // hkv * sq, d, kv_len)
+                    if splits is None else splits)
+    # the split path's partials: (m, l, o) of every row and part
+    part = (torch.empty(n_splits * b * hq * sq * (d + 2),
+                        dtype=torch.float32, device=q.device)
+            if n_splits > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -156,7 +210,8 @@ def _launch(q, k, v, *, causal, window, kv_len, q_offset, scale, bq, bk,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         int(causal), window or 0, kv_len, q_offset, bq, bk, float(scale),
         int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-        round_kv, VARIANTS.index(variant), stream)
+        round_kv, VARIANTS.index(variant), n_splits,
+        part.data_ptr() if part is not None else None, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel ({variant}) launch "
                            f"failed: CUDA error {err}")
@@ -169,7 +224,8 @@ def flash_attention_all(q, k, v, *, causal: bool = True,
                         window: int | None = None, kv_len: int | None = None,
                         q_offset: int = 0, scale: float | None = None,
                         bq: int = 128, bk: int = 128, kv_cast=None,
-                        variant: str | None = None):
+                        variant: str | None = None,
+                        splits: int | None = None):
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D), Hq % Hkv == 0.
 
     Query row r sits at key position r + q_offset. It keeps key c when
@@ -179,8 +235,11 @@ def flash_attention_all(q, k, v, *, causal: bool = True,
     block skip; padded keys are masked. `kv_cast` (bf16) rounds f32 K/V
     to bf16 before use. See `ref.flash_attention_ref` for the edge
     values. `variant`, "rows" or "tile", names the kernel instance; None
-    (the static path) takes `kernel_variant`'s choice. It is checked on
-    every device; the plain version computes the same function for both.
+    (the static path) takes `kernel_variant`'s choice. `splits` names
+    the rows instance's path: None (the static path) takes `split_plan`'s
+    count, n >= 1 forces n parts of the split path, 0 its walk of many
+    rows. Both are checked on every device; the plain version computes
+    the same function for every instance and path.
 
     Returns (o (B, Hq, Sq, D) f32, lse (B, Hq, Sq) f32, nvis (B, Hq, Sq)
     f32: the K tiles each row's query tile executed); o is a view of a
@@ -189,7 +248,7 @@ def flash_attention_all(q, k, v, *, causal: bool = True,
     build.refuse_autograd(NAME, "the gather core (attn_impl='gather')", q,
                           k, v)
     _validate(q, k, v, causal=causal, window=window, kv_len=kv_len, bq=bq,
-              bk=bk, kv_cast=kv_cast, variant=variant)
+              bk=bk, kv_cast=kv_cast, variant=variant, splits=splits)
     sk = k.shape[2]
     kv_len = sk if kv_len is None else min(int(kv_len), sk)
     if scale is None:
@@ -213,7 +272,7 @@ def flash_attention_all(q, k, v, *, causal: bool = True,
             raise ValueError(f"flash_attention: all operands must be on "
                              f"one device, got "
                              f"{[str(t.device) for t in tensors]}")
-        return _launch(q, k, v, variant=variant, **kw)
+        return _launch(q, k, v, variant=variant, splits=splits, **kw)
 
 
 def _outputs(q) -> tuple:

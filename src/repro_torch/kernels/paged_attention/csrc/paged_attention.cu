@@ -16,19 +16,22 @@
 //     the output is f32.
 //
 // Two instances; the caller picks one per call (the C entry's `variant`):
-//   * "rows" (paged_attention_kernel) for few query rows per (lane, kv
-//     head), the engine's decode steps;
+//   * "rows" for few query rows per (lane, kv head): the engine's decode
+//     steps go to its split path (paged_attention_split_kernel, below),
+//     larger calls to its walk of many rows (paged_attention_kernel);
 //   * "tile" (paged_attention_tile_kernel) for many, the engine's prefill
 //     chunks: tensor-core tiles of 64 query rows (see its own comment
 //     further down).
 //
 // What bounds it on an H100: HBM bytes. A decode step reads every
 // visited K/V row once per layer (2 * tokens * KV * Dh * 4 B for f32
-// pools) for about 2 FLOP per byte, far below the card's ~20 FLOP/B
+// pools) for about G / 2 FLOP per byte, far below the card's ~20 FLOP/B
 // f32 balance point. A prefill chunk of 32 tokens does 32 x G times the
 // work on the same bytes, which is why it gets the tensor cores.
 //
-// The rows instance, simple first:
+// The rows instance's walk of many rows (calls of more than 16 rows per
+// (lane, kv head), or a pool the split path's 4-element copies cannot
+// read):
 //   * one block per (batch row b, kv head, tile of 16 query rows); the
 //     G = H / KV query heads that share a kv head sit in the same tile
 //     (row = position * G + head-in-group), so each K/V row a tile
@@ -43,8 +46,6 @@
 //     16-byte loads; each warp owns up to 4 query rows and keeps their
 //     running m, l and o[Dh] in registers: lane j scores key j, then the
 //     lanes split Dh for the P.V update.
-// wgmma, TMA, pipelined loads and split-K over long tables are later
-// work for it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -834,6 +835,471 @@ cudaError_t dispatch_tile(int Dh, const void* q, const void* k_pages,
 #undef PA_TILE
 }
 
+
+// ---------------------------------------------------------------------------
+// The rows instance's split path: decode steps, few rows per (lane, kv head)
+// ---------------------------------------------------------------------------
+//
+// Same semantics as the rows instance (the header above), for calls of
+// R = G * S <= 16 query rows per (lane, kv head) (R <= 8 at Dh > 128):
+// every decode step. What bounds it: the pool's bytes, each K/V row the
+// lane's rows can see read once for all R rows (about R / 2 FLOP a byte
+// of an f32 pool). Design (flash-decoding, a split over keys):
+//   * grid (n_splits, KV, B): a block holds all R rows of one (lane, kv
+//     head), row = position * G + head-in-group, so each K/V row is read
+//     from the pool once for all G heads. It walks the i-th of n_splits
+//     equal parts, rounded up to 32 keys, of its lane's key range (the
+//     walk above, from its own positions on the device), so the split
+//     count is a function of shapes alone (the wrapper's `split_plan`)
+//     and a part past a short lane's range exits at once;
+//   * warps split keys, not rows: warp w takes chunks w, w + 4, ... of 8
+//     keys and keeps (m, l, o) of every row in registers (o: R x Dh / 32
+//     floats a lane). Lane j + 8 u scores key j over the quarter u of Dh
+//     (4-element groups u, u + 4, ...; K rows padded so that those reads
+//     hit distinct banks), the quarters add by 2 shuffles; P.V splits Dh
+//     over the lanes (column lane + 32 c), P read back from shared memory
+//     four keys at a time;
+//   * each warp's chunks land in a ring of 3 stages by cp.async (16 bytes
+//     of an f32 pool, 8 of bf16; zero-filled past the part), so two
+//     chunks are in flight while one is scored; a lane resolves its key's
+//     page id a chunk before the copies that use it;
+//   * the warps merge their (m, l, o) through shared memory, in order.
+//     With one split the block writes the output; else it writes its
+//     partial (m, l, unnormalised o) and paged_attention_merge_kernel,
+//     one warp an output row, adds the splits in order 0..n-1 (no
+//     atomics: the same bits every run): M = max m_i, L = sum l_i
+//     e^(m_i - M), o = sum o_i e^(m_i - M) / max(L, 1e-30). A part that
+//     holds only masked keys of a row gives (-1e30, its key count): beside
+//     a kept key's m its weight is e^(-1e30 - M) = 0, beside other such
+//     parts 1, so a row that keeps no key still averages V over the whole
+//     table, as the sequential walk does; an empty part gives (-1e30, 0)
+//     and adds nothing;
+//   * f32 on the CUDA cores: the arithmetic is far below the bytes.
+
+namespace split {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kKeys = 8;      // keys a warp stage; lane = key + 8 * quarter
+constexpr int kStages = 3;    // depth of each warp's ring
+constexpr int kMaxRows = 16;
+constexpr int kRound = 32;    // a part's length is a multiple of this
+
+// K row stride (elements): Dh padded to an odd number of 4-element groups
+__host__ __device__ __forceinline__ int k_stride(int Dh) {
+  return (Dh / 4) % 2 == 0 ? Dh + 4 : Dh + 8;
+}
+
+template <typename KVT>
+size_t smem_bytes(int rm, int Dh) {
+  return sizeof(KVT) * kWarps * kStages * kKeys * (k_stride(Dh) + Dh) +
+         sizeof(float) * ((size_t)rm * Dh + (size_t)kWarps * rm * kKeys);
+}
+
+// 4 elements global -> shared (16 bytes of f32 bypassing L1, 8 of bf16),
+// zeros when !in
+template <typename KVT>
+__device__ __forceinline__ void cp_async4(KVT* dst, const KVT* src, bool in) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if (sizeof(KVT) == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(in ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                 "l"(src), "r"(in ? 8 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// RM: rows a block keeps state for (R <= RM); DV: output columns a lane
+// owns (Dh <= 32 * DV)
+template <typename KVT, int RM, int DV>
+__global__ void __launch_bounds__(kThreads, 1)
+paged_attention_split_kernel(const void* __restrict__ q, int q_bf16,
+                             const KVT* __restrict__ k_pages,
+                             const KVT* __restrict__ v_pages,
+                             const int* __restrict__ block_tables,
+                             const int* __restrict__ positions,
+                             float* __restrict__ out, float* __restrict__ part,
+                             int S, int H, int KV, int Dh, int n_pages,
+                             int page, int pmax, int window, float scale) {
+  extern __shared__ __align__(16) unsigned char split_smem[];
+  const int KS = k_stride(Dh);
+  const int stage = kKeys * (KS + Dh);  // elements: K rows, then V rows
+  KVT* ring = reinterpret_cast<KVT*>(split_smem);  // [warp][stage]
+  float* q_s = reinterpret_cast<float*>(ring + kWarps * kStages * stage);
+  float* p_s = q_s + RM * Dh;           // [warp][RM][kKeys]
+  __shared__ int pos_s[RM];
+
+  const int n_split = gridDim.x, split = blockIdx.x;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KV, R = G * S;
+  const int rows_total = gridDim.z * KV * R;
+  const int row0 = (b * KV + kvh) * R;  // the block's first partial row
+  const int* bt = block_tables + (size_t)b * pmax;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int key = lane % kKeys, quarter = lane / kKeys;
+
+  // rows past R take the last row's position (their state is never
+  // written)
+  if (threadIdx.x < RM)
+    pos_s[threadIdx.x] = positions[(size_t)b * S + min((int)threadIdx.x, R - 1) / G];
+  __syncthreads();
+
+  // the walk [t_begin, t_end] of the rows instance, then this block's part
+  const int q_lo = pos_s[0], q_hi = pos_s[R - 1];
+  const int table_end = pmax * page - 1;
+  const bool any_blind = window > 0 && q_hi - window + 1 > table_end;
+  const int t_begin =
+      window > 0 && !any_blind ? max(0, q_lo - window + 1) : 0;
+  const int t_end = min(q_hi, table_end);
+  const int len = ((t_end - t_begin + n_split) / n_split + kRound - 1) /
+                  kRound * kRound;
+  const int p0 = t_begin + split * len;
+  const int p1 = min(p0 + len, t_end + 1);
+  float* ml = part + (size_t)n_split * rows_total * Dh;  // [split][row][2]
+  if (n_split > 1 && p0 >= p1) {  // an empty part: keeps nothing
+    if (threadIdx.x < R) {
+      float* dst = ml + ((size_t)split * rows_total + row0 + threadIdx.x) * 2;
+      dst[0] = kNegInf;
+      dst[1] = 0.f;
+    }
+    return;
+  }
+
+  // this warp's chunks of the part, through its own ring
+  const int n_chunks = (p1 - p0 + kKeys - 1) / kKeys;
+  const int n_mine =
+      n_chunks > warp ? (n_chunks - warp + kWarps - 1) / kWarps : 0;
+  KVT* my_ring = ring + warp * kStages * stage;
+  const long long row_elems = (long long)KV * Dh;
+  const long long head_off = (long long)kvh * Dh;
+  const int G4 = Dh / 4;
+  auto key_of = [&](int c) { return p0 + (warp + kWarps * c) * kKeys + key; };
+  auto entry_of = [&](int c) {  // the block-table entry of this lane's key
+    const int t = key_of(c);
+    return t < p1 ? bt[t / page] : 0;
+  };
+  auto issue = [&](int c, int entry) {
+    const int t = key_of(c);
+    const bool in = t < p1;
+    const long long base =
+        in ? tile::pool_offset(entry, t, page, n_pages, row_elems, head_off)
+           : 0;
+    KVT* kd = my_ring + (c % kStages) * stage + key * KS;
+    KVT* vd = my_ring + (c % kStages) * stage + kKeys * KS + key * Dh;
+    for (int g = quarter; g < G4; g += 4) {
+      cp_async4(kd + 4 * g, k_pages + base + 4 * g, in);
+      cp_async4(vd + 4 * g, v_pages + base + 4 * g, in);
+    }
+  };
+  int entry = n_mine > 0 ? entry_of(0) : 0;
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < n_mine) {
+      issue(c, entry);
+      entry = c + 1 < n_mine ? entry_of(c + 1) : 0;
+    }
+    tile::cp_async_commit();
+  }
+
+  // q in f32, zero past R, read while the first chunks land
+  for (int i = threadIdx.x; i < RM * Dh; i += kThreads) {
+    const int r = i / Dh, d = i % Dh;
+    float x = 0.f;
+    if (r < R) {
+      const size_t off =
+          (((size_t)b * S + r / G) * H + kvh * G + r % G) * Dh + d;
+      x = q_bf16 ? __bfloat162float(
+                       static_cast<const __nv_bfloat16*>(q)[off])
+                 : static_cast<const float*>(q)[off];
+    }
+    q_s[i] = x;
+  }
+  __syncthreads();
+
+  float m[RM], l[RM], o[RM][DV];  // l: this lane's key's share
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DV; ++c) o[r][c] = 0.f;
+  }
+  float* pw = p_s + warp * RM * kKeys;
+
+  for (int j = 0; j < n_mine; ++j) {
+    const int ahead = j + kStages - 1;
+    if (ahead < n_mine) {
+      issue(ahead, entry);
+      // loaded now, used by the next chunk's copies
+      entry = ahead + 1 < n_mine ? entry_of(ahead + 1) : 0;
+    }
+    tile::cp_async_commit();  // an empty group keeps the count uniform
+    tile::cp_async_wait<kStages - 1>();
+    __syncwarp();  // every lane's copies of chunk j landed
+
+    const KVT* ks = my_ring + (j % kStages) * stage;
+    const KVT* vs = ks + kKeys * KS;
+    const int t = key_of(j);
+    float acc[RM];
+#pragma unroll
+    for (int r = 0; r < RM; ++r) acc[r] = 0.f;
+    for (int g = quarter; g < G4; g += 4) {
+      const float4 kk = load4(ks + key * KS + 4 * g);
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        const float4 qq =
+            *reinterpret_cast<const float4*>(q_s + r * Dh + 4 * g);
+        acc[r] = fmaf(qq.x, kk.x, acc[r]);
+        acc[r] = fmaf(qq.y, kk.y, acc[r]);
+        acc[r] = fmaf(qq.z, kk.z, acc[r]);
+        acc[r] = fmaf(qq.w, kk.w, acc[r]);
+      }
+    }
+    const bool present = t < p1;  // keys past the part count for no row
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 8);
+      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 16);
+      const int p = pos_s[r];
+      bool keep = present && t <= p;
+      if (window > 0) keep = keep && t > p - window;
+      const float sc = keep ? acc[r] * scale : kNegInf;
+      float mx = sc;
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = expf(m[r] - m_new);
+      const float pr = present ? expf(sc - m_new) : 0.f;
+      l[r] = l[r] * alpha + pr;
+      m[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < DV; ++c) o[r][c] *= alpha;
+      if (quarter == 0) pw[r * kKeys + key] = pr;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j4 = 0; j4 < kKeys / 4; ++j4) {
+      float vv[4][DV];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int c = 0; c < DV; ++c) {
+          const int d = lane + 32 * c;
+          vv[jj][c] = d < Dh ? to_f32(vs[(4 * j4 + jj) * Dh + d]) : 0.f;
+        }
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        const float4 pp =
+            *reinterpret_cast<const float4*>(pw + r * kKeys + 4 * j4);
+        const float pj[4] = {pp.x, pp.y, pp.z, pp.w};
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int c = 0; c < DV; ++c)
+            o[r][c] = fmaf(pj[jj], vv[jj][c], o[r][c]);
+      }
+    }
+    __syncwarp();  // the slot and pw are free for the next chunk
+  }
+  tile::cp_async_wait<0>();
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 4);
+  }
+
+  // the warps' states into warp 0, in order, through the free rings:
+  // [warp - 1][RM][Dh + 2]
+  const int MS = Dh + 2;
+  float* mrg = reinterpret_cast<float*>(split_smem);
+  __syncthreads();
+  if (warp > 0) {
+    float* dst = mrg + (warp - 1) * RM * MS;
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      if (r >= R) break;
+#pragma unroll
+      for (int c = 0; c < DV; ++c) {
+        const int d = lane + 32 * c;
+        if (d < Dh) dst[r * MS + d] = o[r][c];
+      }
+      if (lane == 0) {
+        dst[r * MS + Dh] = m[r];
+        dst[r * MS + Dh + 1] = l[r];
+      }
+    }
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  for (int w = 1; w < kWarps; ++w) {
+    const float* src = mrg + (w - 1) * RM * MS;
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      if (r >= R) break;
+      const float m2 = src[r * MS + Dh];
+      const float mm = fmaxf(m[r], m2);
+      const float a0 = expf(m[r] - mm), a1 = expf(m2 - mm);
+      l[r] = l[r] * a0 + src[r * MS + Dh + 1] * a1;
+      m[r] = mm;
+#pragma unroll
+      for (int c = 0; c < DV; ++c) {
+        const int d = lane + 32 * c;
+        if (d < Dh) o[r][c] = o[r][c] * a0 + a1 * src[r * MS + d];
+      }
+    }
+  }
+
+  // one split: the output; else the partial (m, l, unnormalised o)
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    if (r >= R) break;
+    float* dst;
+    float li = 1.f;
+    if (n_split == 1) {
+      li = fmaxf(l[r], 1e-30f);
+      dst = out + (((size_t)b * S + r / G) * H + kvh * G + r % G) * Dh;
+    } else {
+      const size_t idx = (size_t)split * rows_total + row0 + r;
+      dst = part + idx * Dh;
+      if (lane == 0) {
+        ml[idx * 2] = m[r];
+        ml[idx * 2 + 1] = l[r];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < DV; ++c) {
+      const int d = lane + 32 * c;
+      if (d < Dh) dst[d] = o[r][c] / li;
+    }
+  }
+}
+
+// the n_split partials of each output row, one warp a row: rows_total =
+// B * KV * R rows in (b, kv head, row) order
+template <int DV>
+__global__ void __launch_bounds__(kThreads)
+paged_attention_merge_kernel(const float* __restrict__ part,
+                             float* __restrict__ out, int n_split,
+                             int rows_total, int S, int H, int KV, int Dh) {
+  const int row = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows_total) return;
+  const int G = H / KV, R = G * S;
+  const int b = row / (KV * R), kvh = row / R % KV, r = row % R;
+  const float* ml = part + (size_t)n_split * rows_total * Dh;
+  float M = kNegInf;
+  for (int i = 0; i < n_split; ++i)
+    M = fmaxf(M, ml[((size_t)i * rows_total + row) * 2]);
+  float L = 0.f, o[DV];
+#pragma unroll
+  for (int c = 0; c < DV; ++c) o[c] = 0.f;
+  for (int i = 0; i < n_split; ++i) {
+    const size_t idx = (size_t)i * rows_total + row;
+    const float li = ml[idx * 2 + 1];
+    if (li == 0.f) continue;  // an empty part: nothing kept, o never written
+    const float w = expf(ml[idx * 2] - M);
+    L += li * w;
+#pragma unroll
+    for (int c = 0; c < DV; ++c) {
+      const int d = lane + 32 * c;
+      if (d < Dh) o[c] = fmaf(w, part[idx * Dh + d], o[c]);
+    }
+  }
+  L = fmaxf(L, 1e-30f);
+  float* dst = out + (((size_t)b * S + r / G) * H + kvh * G + r % G) * Dh;
+#pragma unroll
+  for (int c = 0; c < DV; ++c) {
+    const int d = lane + 32 * c;
+    if (d < Dh) dst[d] = o[c] / L;
+  }
+}
+
+// Shared memory above the default 48 KB is an opt-in per kernel and
+// device; `allowed[device]` keeps the largest made, so that a decode step
+// pays the driver call once.
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* allowed) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && allowed[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = bytes;
+  return err;
+}
+
+template <typename KVT, int RM, int DV>
+cudaError_t launch(const void* q, int q_bf16, const void* k_pages,
+                   const void* v_pages, const int* block_tables,
+                   const int* positions, float* out, float* part, int n_split,
+                   int B, int S, int H, int KV, int Dh, int n_pages, int page,
+                   int pmax, int window, float scale, cudaStream_t stream) {
+  auto kernel = paged_attention_split_kernel<KVT, RM, DV>;
+  static size_t allowed[kMaxDevices];  // this instance's opt-in, per device
+  const size_t smem = smem_bytes<KVT>(RM, Dh);
+  cudaError_t err = allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(n_split, KV, B), kThreads, smem, stream>>>(
+      q, q_bf16, static_cast<const KVT*>(k_pages),
+      static_cast<const KVT*>(v_pages), block_tables, positions, out, part,
+      S, H, KV, Dh, n_pages, page, pmax, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  const int rows_total = B * KV * (H / KV) * S;
+  paged_attention_merge_kernel<DV>
+      <<<(rows_total + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+          part, out, n_split, rows_total, S, H, KV, Dh);
+  return cudaGetLastError();
+}
+
+// RM from the rows R (1, 4, 8 or 16), DV from Dh (2, 4 or 8; R <= 8 at
+// DV 8, which the entry checks)
+template <typename KVT>
+cudaError_t dispatch(int R, const void* q, int q_bf16, const void* k_pages,
+                     const void* v_pages, const int* block_tables,
+                     const int* positions, float* out, float* part,
+                     int n_split, int B, int S, int H, int KV, int Dh,
+                     int n_pages, int page, int pmax, int window, float scale,
+                     cudaStream_t stream) {
+  const int dv = Dh <= 64 ? 2 : Dh <= 128 ? 4 : 8;
+#define PA_SPLIT(RM, DV)                                                   \
+  return launch<KVT, RM, DV>(q, q_bf16, k_pages, v_pages, block_tables,    \
+                             positions, out, part, n_split, B, S, H, KV,  \
+                             Dh, n_pages, page, pmax, window, scale,      \
+                             stream)
+#define PA_SPLIT_DV(RM)        \
+  if (dv == 2) PA_SPLIT(RM, 2); \
+  if (dv == 4) PA_SPLIT(RM, 4); \
+  PA_SPLIT(RM, 8)
+  if (R == 1) { PA_SPLIT_DV(1); }
+  if (R <= 4) { PA_SPLIT_DV(4); }
+  if (R <= 8) { PA_SPLIT_DV(8); }
+  if (dv == 2) PA_SPLIT(16, 2);
+  PA_SPLIT(16, 4);
+#undef PA_SPLIT_DV
+#undef PA_SPLIT
+}
+
+}  // namespace split
+
 }  // namespace
 
 // C entry point, loaded with ctypes. q: (B, S, H, Dh) f32 or bf16
@@ -841,19 +1307,41 @@ cudaError_t dispatch_tile(int Dh, const void* q, const void* k_pages,
 // (kv_bf16); block_tables: (B, pmax) i32; positions: (B, S) i32; out:
 // (B, S, H, Dh) f32. All contiguous. window <= 0 means none. variant:
 // 0 the rows instance, 1 the tile instance (Dh 16, 32, 64 or 128; q and
-// the pools 16-byte aligned). Launches on `stream` and returns
+// the pools 16-byte aligned). n_splits (rows instance only): 0 its walk
+// of many rows; n >= 1 its split path over n parts of each lane's keys
+// (G * S <= 16, and <= 8 at Dh > 128; Dh a multiple of 4; the pools
+// aligned to 4 elements), with `part` a float workspace of n * B * H * S
+// * (Dh + 2) when n > 1. Launches on `stream` and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for
 // arguments it does not take.
 extern "C" int paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const int* block_tables, const int* positions, float* out, int B, int S,
     int H, int KV, int Dh, int n_pages, int page, int pmax, int window,
-    float scale, int q_bf16, int kv_bf16, int variant, void* stream) {
+    float scale, int q_bf16, int kv_bf16, int variant, int n_splits,
+    float* part, void* stream) {
   if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || Dh < 1 ||
       Dh > kMaxHeadDim || page < 1 || pmax < 1 || n_pages < 1 ||
-      (variant != 0 && variant != 1))
+      (variant != 0 && variant != 1) || n_splits < 0 ||
+      (variant == 1 && n_splits != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_splits > 0) {
+    const int R = H / KV * S;
+    const uintptr_t align = kv_bf16 ? 8 : 16;
+    if (R > split::kMaxRows || (R > 8 && Dh > 128) || Dh % 4 != 0 ||
+        reinterpret_cast<uintptr_t>(k_pages) % align != 0 ||
+        reinterpret_cast<uintptr_t>(v_pages) % align != 0 ||
+        (n_splits > 1 && part == nullptr))
+      return (int)cudaErrorInvalidValue;
+#define PA_ARGS                                                             \
+  R, q, q_bf16, k_pages, v_pages, block_tables, positions, out, part,       \
+      n_splits, B, S, H, KV, Dh, n_pages, page, pmax, window, scale, st
+    cudaError_t err = kv_bf16 ? split::dispatch<__nv_bfloat16>(PA_ARGS)
+                              : split::dispatch<float>(PA_ARGS);
+#undef PA_ARGS
+    return (int)err;
+  }
   if (variant == 1) {
     if (reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
         reinterpret_cast<uintptr_t>(k_pages) % 16 != 0 ||

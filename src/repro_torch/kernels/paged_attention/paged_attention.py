@@ -15,6 +15,18 @@ The kernel has two instances (`kernel_variant` picks one per call):
 "rows" for few query rows per (lane, kv head), the engine's decode
 steps, and "tile", tensor-core tiles of 64 query rows, for the
 engine's prefill chunks.
+
+A decode step is bound by the pool's bytes: each K/V row a lane's
+query can see is read once, for about G / 2 FLOP a byte of an f32 pool.
+The rows instance takes such calls (at most SPLIT_MAX_ROWS = 16 query
+rows per (lane, kv head), `split_takes`) on its split path: one block
+per (part, kv head, lane) holds all G * S rows of its kv head, so each
+K/V row is read once for the whole query group, and walks one of
+`split_plan`'s n equal parts of its lane's key range (read from the
+positions on the device) with pipelined copies; a second kernel adds
+the parts. The plan reads shapes only, never the device's positions,
+so a decode step takes no host sync. Larger rows-instance calls keep
+its walk of many rows.
 """
 from __future__ import annotations
 
@@ -35,6 +47,12 @@ VARIANTS = ("rows", "tile")          # the C entry's variant 0 and 1
 # (lane, kv head), G * S, at one of these head dims
 TILE_MIN_ROWS = 16
 TILE_HEAD_DIMS = (16, 32, 64, 128)
+# the rows instance's split path: at most this many query rows per
+# (lane, kv head) (8 above Dh 128, its registers' limit), parts of at
+# least this many keys, enough of them to give every SM of an H100 a block
+SPLIT_MAX_ROWS = 16
+SPLIT_MIN_KEYS = 32
+CARD_SMS = 132
 
 
 def kernel_variant(group: int, s: int, head_dim: int) -> str:
@@ -48,18 +66,41 @@ def kernel_variant(group: int, s: int, head_dim: int) -> str:
     return "rows"
 
 
+def split_takes(rows: int, head_dim: int) -> bool:
+    """Whether the rows instance's split path takes a call of `rows` =
+    G * S query rows per (lane, kv head) at `head_dim`: every decode
+    step of the shipped configurations."""
+    return (rows <= SPLIT_MAX_ROWS and head_dim % 4 == 0
+            and (rows <= 8 or head_dim <= 128))
+
+
+def split_plan(batch: int, kv_heads: int, rows: int, head_dim: int,
+               max_keys: int) -> int:
+    """The number of parts the split path cuts each lane's keys into, from
+    shapes and host ints alone (`max_keys`: the keys a lane's table can
+    hold, Pmax * page): enough that batch * kv_heads * n blocks give
+    every SM a block, each part at least SPLIT_MIN_KEYS keys long; 1 where
+    the grid already fills the card. 0: the call is not the split path's
+    (`split_takes`), the rows instance walks it as many rows."""
+    if not split_takes(rows, head_dim):
+        return 0
+    fill = -(-CARD_SMS // (batch * kv_heads))
+    return max(1, min(fill, max_keys // SPLIT_MIN_KEYS))
+
+
 def _entry():
     lib = build.load(SOURCE)
     fn = lib.paged_attention_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                       + [ctypes.c_float] + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p] * 2)
     return fn
 
 
-def _check(q, k_pages, v_pages, block_tables, positions, window, variant):
+def _check(q, k_pages, v_pages, block_tables, positions, window, variant,
+           splits):
     b, s, h, hd = q.shape
     if k_pages.dim() != 4:
         raise ValueError(f"k_pages must be (P, page, KV, Dh), got "
@@ -84,12 +125,21 @@ def _check(q, k_pages, v_pages, block_tables, positions, window, variant):
     if variant == "tile" and hd not in TILE_HEAD_DIMS:
         raise ValueError(f"the tile instance takes Dh in {TILE_HEAD_DIMS}, "
                          f"got {hd}")
+    if splits is not None:
+        if (variant or kernel_variant(h // kvh, s, hd)) != "rows":
+            raise ValueError("splits names a path of the rows instance")
+        if not isinstance(splits, int) or splits < 0 or (
+                splits and not split_takes(h // kvh * s, hd)):
+            raise ValueError(f"splits must be 0 (the walk of many rows) or, "
+                             f"where the split path takes the call "
+                             f"(split_takes), >= 1; got {splits!r}")
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, positions, *,
                     window: int | None = None,
                     scale: float | None = None,
-                    variant: str | None = None) -> torch.Tensor:
+                    variant: str | None = None,
+                    splits: int | None = None) -> torch.Tensor:
     """Fused paged attention over one layer's page pool.
 
     q:            (B, S, H, Dh) queries (S = chunk, or 1 for decode)
@@ -103,6 +153,10 @@ def paged_attention(q, k_pages, v_pages, block_tables, positions, *,
                   serve path) takes `kernel_variant`'s choice. The chip
                   smoke names one to hold each against the plain
                   version on the same inputs.
+    splits:       the rows instance's path: None (the serve path) takes
+                  `split_plan`'s count, n >= 1 forces n parts of the split
+                  path, 0 its walk of many rows; the chip smoke names
+                  them to hold each against the plain version.
 
     Returns the context tensor (B, S, H, Dh) f32: a query at position
     p attends to kv positions t <= p (and t > p - window when set) of
@@ -110,7 +164,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, positions, *,
     """
     build.refuse_autograd(NAME, "the gather core (attn_impl='gather')", q,
                           k_pages, v_pages)
-    _check(q, k_pages, v_pages, block_tables, positions, window, variant)
+    _check(q, k_pages, v_pages, block_tables, positions, window, variant,
+           splits)
     b, s, h, hd = q.shape
     if scale is None:
         scale = 1.0 / (hd**0.5)
@@ -124,7 +179,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, positions, *,
                 q, k_pages, v_pages, block_tables, positions, window=window,
                 scale=scale))
         return _launch(q, k_pages, v_pages, block_tables, positions,
-                       window=window, scale=scale, variant=variant)
+                       window=window, scale=scale, variant=variant,
+                       splits=splits)
 
 
 def _output(q) -> torch.Tensor:
@@ -163,7 +219,7 @@ def work(q, k_pages, block_tables, positions, *,
 
 
 def _launch(q, k_pages, v_pages, block_tables, positions, *, window, scale,
-            variant):
+            variant, splits):
     b, s, h, hd = q.shape
     tensors = (q, k_pages, v_pages, block_tables, positions)
     if not all(t.device.type == "cuda" and t.device == q.device
@@ -191,7 +247,20 @@ def _launch(q, k_pages, v_pages, block_tables, positions, *, window, scale,
         q = q.clone()                # the tile instance reads 16 bytes
     bt = block_tables.to(torch.int32).contiguous()
     pos = positions.to(torch.int32).contiguous()
+    n_splits = 0
+    if variant == "rows":
+        n_splits = (split_plan(b, k_pages.shape[2], g * s, hd,
+                               bt.shape[1] * k_pages.shape[1])
+                    if splits is None else splits)
+        # the split path copies 4 elements at a time
+        if n_splits and any(t.data_ptr() % (4 * t.element_size())
+                            for t in (k_pages, v_pages)):
+            raise ValueError("the split path needs pools aligned to 4 "
+                             "elements")
     out = _output(q)
+    # the split path's partials: (m, l, o) of every row and part
+    part = (torch.empty(n_splits * b * s * h * (hd + 2), dtype=torch.float32,
+                        device=q.device) if n_splits > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _entry()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -199,7 +268,8 @@ def _launch(q, k_pages, v_pages, block_tables, positions, *, window, scale,
         b, s, h, k_pages.shape[2], hd, k_pages.shape[0], k_pages.shape[1],
         bt.shape[1], window or 0, float(scale),
         int(q.dtype == torch.bfloat16), int(k_pages.dtype == torch.bfloat16),
-        VARIANTS.index(variant), stream)
+        VARIANTS.index(variant), n_splits,
+        part.data_ptr() if part is not None else None, stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel ({variant}) launch "
                            f"failed: CUDA error {err}")

@@ -548,3 +548,236 @@ def test_new_geometries_match_the_pallas_kernel(d, group, case):
     for g, w in zip(got[:2], plain[:2]):
         np.testing.assert_allclose(g.numpy(), w.numpy(), **EMU_TOL)
     np.testing.assert_array_equal(got[2].numpy(), plain[2].numpy())
+
+
+# ---------------------------------------------------------------------------
+# The rows instance's split path (decode steps): its algorithm emulated,
+# and its plan
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
+    CARD_SMS,
+    split_plan,
+    split_takes,
+)
+
+SPLIT_KEYS, SPLIT_WARPS, SPLIT_ROUND = 8, 4, 32
+
+
+def _merge_states(states):
+    """(m, l, o) partials added in order as the kernel adds them (its
+    warps, then its parts): M = max m_i, L = sum l_i e^(m_i - M), o =
+    sum o_i e^(m_i - M) over the partials with l_i > 0."""
+    m = torch.stack([s[0] for s in states]).amax(0)
+    lsum, o = torch.zeros_like(m), torch.zeros_like(states[0][2])
+    for mi, li, oi in states:
+        w = torch.exp(mi - m)
+        lsum = lsum + li * w
+        o = o + torch.where((li > 0)[:, None], oi * w[:, None],
+                            torch.tensor(0.0))
+    return m, lsum, o
+
+
+def _split_emulation(q, k, v, *, causal=True, window=None, kv_len=None,
+                     q_offset=0, scale=None, bq=128, bk=128, kv_cast=None,
+                     n_splits=None):
+    """The split path's algorithm in torch (f32). Per (batch, kv head) a
+    block of all R = G * Sq rows (row = position * G + head-in-group)
+    walks the union of its rows' needed keys (a row that keeps a visited
+    key needs the keys it keeps, one that keeps none all it visits), cut
+    into n_splits parts (`split_plan`'s when None) of equal length
+    rounded up to 32 keys; in a part, warp w takes chunks w, w + 4, ...
+    of 8 keys with its own online softmax (a visited key the mask drops
+    -1e30, an unvisited one or one past the part -inf); the warps' states
+    merge in order, then the parts' (`_merge_states`). Returns (o, lse,
+    nvis) as the plain version does."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    g = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    kv_len = sk if kv_len is None else min(kv_len, sk)
+    nk = -(-sk // bk)
+    if kv_cast is not None:
+        k, v = k.to(kv_cast), v.to(kv_cast)
+    qf = q.float()
+    pad = nk * bk + SPLIT_KEYS * SPLIT_WARPS - sk   # keys past Sk: zeros
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
+
+    def row_keys(s):
+        qs = s // bq * bq + q_offset
+        hi = min(nk - 1, (kv_len - 1) // bk)
+        lo = 0
+        if causal:
+            hi = min(hi, (qs + bq - 1) // bk)
+            if window is not None:
+                lo = max(0, (qs - window - bk + 1) // bk + 1)
+        v_lo, v_hi = (lo * bk, (hi + 1) * bk) if lo <= hi else (0, 0)
+        k_lo, k_hi = -2**30, kv_len
+        if causal:
+            k_hi = min(k_hi, s + q_offset + 1)
+            if window is not None:
+                k_lo = s + q_offset - window + 1
+        e_lo, e_hi = max(v_lo, k_lo), min(v_hi, k_hi)
+        if e_lo >= e_hi:
+            e_lo, e_hi = v_lo, v_hi
+        return v_lo, v_hi, k_lo, k_hi, e_lo, e_hi
+
+    keys = [row_keys(r // g) for r in range(g * sq)]
+    needed = [kr for kr in keys if kr[4] < kr[5]]
+    w0 = min((kr[4] for kr in needed), default=0)
+    w1 = max((kr[5] for kr in needed), default=0)
+    if n_splits is None:
+        n_splits = split_plan(b, hkv, g * sq, d, kv_len)
+    assert n_splits >= 1
+    n = -(-(w1 - w0) // n_splits) if w1 > w0 else 0
+    n = -(-n // SPLIT_ROUND) * SPLIT_ROUND
+    parts = [(w0 + i * n, min(w0 + (i + 1) * n, w1)) for i in range(n_splits)]
+    v_lo, v_hi, k_lo, k_hi = (torch.tensor([kr[i] for kr in keys])[:, None]
+                              for i in range(4))
+    rows = torch.arange(g * sq)
+    o = torch.zeros((b, hq, sq, d))
+    lse = torch.zeros((b, hq, sq))
+    nvis = torch.zeros((b, hq, sq))
+    for bi in range(b):
+        for kh in range(hkv):
+            qr = qf[bi, kh * g + rows % g, rows // g]          # (R, D)
+            states = []
+            for p0, p1 in parts:
+                warps = []
+                for w in range(SPLIT_WARPS if p0 < p1 else 1):
+                    m = torch.full((g * sq,), -1e30)
+                    lsum, acc = torch.zeros(g * sq), torch.zeros((g * sq, d))
+                    for c0 in range(p0 + w * SPLIT_KEYS, p1,
+                                    SPLIT_WARPS * SPLIT_KEYS):
+                        c = torch.arange(c0, c0 + SPLIT_KEYS)[None]
+                        kk = kf[bi, kh, c0:c0 + SPLIT_KEYS]
+                        vv = vf[bi, kh, c0:c0 + SPLIT_KEYS]
+                        x = (qr @ kk.T) * scale
+                        x = torch.where((c >= k_lo) & (c < k_hi), x,
+                                        torch.tensor(-1e30))
+                        x = torch.where((c < p1) & (c >= v_lo) & (c < v_hi),
+                                        x, torch.tensor(-torch.inf))
+                        m_new = torch.maximum(m, x.amax(1))
+                        alpha = torch.exp(m - m_new)
+                        p = torch.exp(x - m_new[:, None])
+                        lsum = lsum * alpha + p.sum(1)
+                        acc = acc * alpha[:, None] + p @ vv
+                        m = m_new
+                    warps.append((m, lsum, acc))
+                states.append(_merge_states(warps))
+            m, lsum, acc = _merge_states(states)
+            lsum = lsum.clamp(min=1e-30)
+            o[bi, kh * g + rows % g, rows // g] = acc / lsum[:, None]
+            lse[bi, kh * g + rows % g, rows // g] = m + torch.log(lsum)
+            nvis[bi, kh * g + rows % g, rows // g] = (
+                (v_hi - v_lo) // bk)[:, 0].float()
+    return o, lse, nvis
+
+
+# (sq, sk, d, G, window, q_offset, kv_len, (bq, bk)); q_offset a multiple
+# of bq, so the Pallas kernel (no query offset) runs the same function
+SPLIT_CASES = [
+    (1, 200, 16, 4, None, 192, 193, (8, 16)),    # a decode step at the end
+    (1, 200, 16, 1, 40, 192, None, (8, 16)),     # its window starts inside
+    #                                              a part
+    (1, 200, 16, 4, 3, 152, 140, (8, 64)),       # its visited tile keeps
+    #                                              no key
+    (1, 64, 16, 4, None, 40, 0, (8, 16)),        # it visits no tile
+    (4, 200, 32, 4, 5, 196, None, (4, 16)),      # 16 rows: parts that hold
+    #                                              no key of the first rows
+    (8, 120, 64, 2, None, 96, 100, (8, 32)),     # rows past kv_len
+    (1, 130, 16, 1, None, 128, None, (8, 64)),   # Sk not a tile multiple
+]
+
+
+@pytest.mark.parametrize("n_splits", [1, 2, 3, None])
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=[f"case{i}" for i in range(len(SPLIT_CASES))])
+def test_split_emulation_matches_the_plain_version_and_pallas(case,
+                                                               n_splits):
+    """The split path's algorithm, emulated (f32 operands, B 2, 2 KV
+    heads), within 2e-4 (the card's bound on the kernel) of the plain
+    version and of the Pallas kernel in interpret mode on o and lse,
+    block counts equal, at forced part counts and at the plan's."""
+    sq, sk, d, group, window, q_offset, kv_len, (bq, bk) = case
+    arrs = _qkv(sq * 5 + sk + d + group, b=2, hq=2 * group, hkv=2, sq=sq,
+                sk=sk, d=d)
+    kw = dict(causal=True, window=window, kv_len=kv_len, q_offset=q_offset,
+              bq=bq, bk=bk)
+    got = _split_emulation(*_torch(arrs), n_splits=n_splits, **kw)
+    want = flash_attention_ref(*_torch(arrs), **kw)
+    for g_, w_ in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(g_.numpy(), w_.numpy(), **EMU_TOL)
+    np.testing.assert_array_equal(got[2].numpy(), want[2].numpy())
+    jo, jl, jn = _jax_all(arrs, **kw)
+    np.testing.assert_allclose(got[0].numpy(), jo, **EMU_TOL)
+    np.testing.assert_allclose(got[1].numpy(), jl, **EMU_TOL)
+    np.testing.assert_array_equal(got[2].numpy(), jn)
+
+
+def test_split_emulation_rounds_a_cast_cache():
+    """bf16 q over an f32 cache rounded by kv_cast (the static decode):
+    the emulation within 2e-4 of the plain version over 2 parts."""
+    arrs = _qkv(11, b=2, hq=8, hkv=2, sq=1, sk=300, d=32)
+    q = torch.from_numpy(arrs[0]).to(BF16)
+    k, v = (torch.from_numpy(a) for a in arrs[1:])
+    kw = dict(kv_len=290, q_offset=289, bq=8, bk=128, kv_cast=BF16)
+    got = _split_emulation(q, k, v, n_splits=2, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    for g_, w_ in zip(got, want):
+        np.testing.assert_allclose(g_.numpy(), w_.numpy(), **EMU_TOL)
+
+
+# (B, KV, G, Sq, D, kv_len, the plan's count) at every shape chip_smoke
+# phases 4 and 4b-4e time: the static decode of qwen3_8b (G 4),
+# qwen2_moe_a2_7b (G 1, 16 KV heads), zamba2_7b and musicgen_large (32
+# KV heads, D 112 and 64: the grid fills the card), internvl2_1b (G 7, D
+# 64, its 256-token prefix), gemma_2b (MQA, D 256), qwen3_14b (G 5),
+# deepseek_coder_33b (G 7); their prefills are not the split path's (0)
+FLASH_PLAN_CASES = [
+    (8, 8, 4, 1, 128, 1041, 3), (8, 16, 1, 1, 128, 1041, 2),
+    (8, 32, 1, 1, 112, 1041, 1), (8, 32, 1, 1, 64, 1041, 1),
+    (8, 2, 7, 1, 64, 1297, 9), (8, 1, 8, 1, 256, 1041, 17),
+    (8, 8, 5, 1, 128, 1041, 3), (8, 8, 7, 1, 128, 1041, 3),
+    (8, 8, 4, 1024, 128, 1024, 0), (8, 32, 1, 1024, 112, 1024, 0),
+    (8, 2, 7, 1280, 64, 1280, 0), (8, 1, 8, 1024, 256, 1024, 0)]
+
+
+@pytest.mark.parametrize("b,kvh,group,sq,d,kv_len,want", FLASH_PLAN_CASES)
+def test_split_plan_at_the_timed_shapes(b, kvh, group, sq, d, kv_len, want):
+    """The plan from shapes and host ints alone (the same count from the
+    shape of meta tensors, the dry run's): the grid fills the card's SMs
+    at least once where it can, each part at least 32 keys long; 1 where
+    the grid already fills the card."""
+    q = torch.empty((b, kvh * group, sq, d), device="meta")
+    n = split_plan(q.shape[0], kvh, q.shape[1] // kvh * q.shape[2],
+                   q.shape[3], kv_len)
+    assert n == want and type(n) is int
+    assert (want > 0) == split_takes(group * sq, d)
+    if want:
+        assert b * kvh * want >= CARD_SMS or want == kv_len // 32
+        assert b * kvh * (want - 1) < CARD_SMS
+
+
+def test_the_splits_argument_is_validated_before_dispatch():
+    """`splits` is checked on every device: 0 (the walk of many rows)
+    anywhere the rows instance runs, n >= 1 only where the split path
+    takes the call, never beside the tile instance; on the CPU every path
+    gives the plain version, and on meta tensors the outputs' shapes."""
+    q, k, v = _torch(_qkv(9, sq=1, sk=40, d=16))
+    want = flash_attention_ref(q, k, v, q_offset=39)
+    for splits in (None, 0, 1, 3):
+        got = flash_attention_all(q, k, v, q_offset=39, splits=splits)
+        for g_, w_ in zip(got, want):
+            np.testing.assert_array_equal(g_.numpy(), w_.numpy())
+    for splits, kw in ((-1, {}), (1.5, {}), (1, dict(variant="tile"))):
+        with pytest.raises(ValueError, match="splits"):
+            flash_attention_all(q.to(BF16), k.to(BF16), v.to(BF16),
+                                splits=splits, **kw)
+    q17, k17, v17 = _torch(_qkv(9, sq=17, sk=40, d=16, hq=2, hkv=2))
+    with pytest.raises(ValueError, match="splits"):
+        flash_attention_all(q17, k17, v17, splits=1)
+    assert flash_attention_all(q17, k17, v17, splits=0)[0].shape == q17.shape
+    meta = [t.to("meta") for t in (q, k, v)]
+    assert flash_attention_all(*meta, splits=2)[0].shape == q.shape

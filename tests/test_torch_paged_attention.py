@@ -540,3 +540,239 @@ def test_new_geometries_match_reference(hd, group, s, window):
     for emulate in emulations:
         np.testing.assert_allclose(
             emulate(tq, tk, tv, tb, tp, window=window).numpy(), got, **tol)
+
+
+# ---------------------------------------------------------------------------
+# The rows instance's split path (decode steps): its algorithm emulated,
+# and its plan
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.paged_attention.paged_attention import (  # noqa: E402
+    CARD_SMS,
+    SPLIT_MAX_ROWS,
+    split_plan,
+    split_takes,
+)
+
+SPLIT_KEYS, SPLIT_WARPS, SPLIT_ROUND = 8, 4, 32
+
+
+def _online(m, lsum, o, sc, present, vv):
+    """One chunk of the kernel's online softmax: sc (rows, keys) scores
+    with masked keys at -1e30, keys not `present` counting for nothing."""
+    m_new = torch.maximum(m, sc.amax(1))
+    alpha = torch.exp(m - m_new)
+    p = torch.where(present, torch.exp(sc - m_new[:, None]),
+                    torch.tensor(0.0))
+    return m_new, lsum * alpha + p.sum(1), o * alpha[:, None] + p @ vv
+
+
+def _merge(states):
+    """(m, l, o) partials added in order as the kernel adds them (its
+    warps, then its parts): M = max m_i, L = sum l_i e^(m_i - M), o =
+    sum o_i e^(m_i - M) over the partials with l_i > 0."""
+    m = torch.stack([s[0] for s in states]).amax(0)
+    lsum, o = torch.zeros_like(m), torch.zeros_like(states[0][2])
+    for mi, li, oi in states:
+        w = torch.exp(mi - m)
+        lsum = lsum + li * w
+        o = o + torch.where((li > 0)[:, None], oi * w[:, None],
+                            torch.tensor(0.0))
+    return m, lsum, o
+
+
+def _parts(lo, hi, n_splits):
+    """The n equal parts of keys [lo, hi), each rounded up to 32 keys; the
+    later ones may be empty."""
+    n = -(-(hi - lo) // n_splits) if hi > lo else 0
+    n = -(-n // SPLIT_ROUND) * SPLIT_ROUND
+    return [(lo + i * n, min(lo + (i + 1) * n, hi)) for i in range(n_splits)]
+
+
+def _split_emulation(q, kp, vp, bt, pos, *, window=None, n_splits=None):
+    """The split path's algorithm in torch (f32). Per (lane, kv head) a
+    block of all R = G * S rows (row = position * G + head-in-group)
+    walks the rows instance's range [first row's p - window + 1, last
+    row's p] clipped to the table (the whole table when a row keeps no
+    key), cut into n_splits parts (`split_plan`'s when None) of equal
+    length rounded up to 32 keys; in a part, warp w takes chunks w, w +
+    4, ... of 8 keys with its own online softmax (masked keys -1e30, keys
+    past the part nothing); the warps' states merge in order, then the
+    parts' (`_merge`). Returns the (B, S, H, Dh) output."""
+    b, s, h, hd = q.shape
+    n_pages, page, kvh, _ = kp.shape
+    g = h // kvh
+    scale = hd ** -0.5
+    table_end = bt.shape[1] * page - 1
+    if n_splits is None:
+        n_splits = split_plan(b, kvh, g * s, hd, bt.shape[1] * page)
+    assert n_splits >= 1
+    out = torch.zeros((b, s, h, hd))
+    for bi in range(b):
+        for kh in range(kvh):
+            qr = q[bi, :, kh * g:(kh + 1) * g].reshape(s * g, hd).float()
+            pr = pos[bi].long().repeat_interleave(g)
+            q_lo, q_hi = int(pr[0]), int(pr[-1])
+            blind = bool(window) and q_hi - window + 1 > table_end
+            t_begin = max(0, q_lo - window + 1) if window and not blind else 0
+            t_end = min(q_hi, table_end)
+            parts = []
+            for p0, p1 in _parts(t_begin, t_end + 1, n_splits):
+                warps = []
+                for w in range(SPLIT_WARPS):
+                    st = (torch.full((s * g,), -1e30), torch.zeros(s * g),
+                          torch.zeros((s * g, hd)))
+                    for c0 in range(p0 + w * SPLIT_KEYS, p1,
+                                    SPLIT_WARPS * SPLIT_KEYS):
+                        t = torch.arange(c0, c0 + SPLIT_KEYS)
+                        present = t < p1
+                        tc = t.clamp(max=p1 - 1)
+                        pid = bt[bi, tc // page].long().clamp(0, n_pages - 1)
+                        kk = kp[pid, tc % page, kh].float() * present[:, None]
+                        vv = vp[pid, tc % page, kh].float() * present[:, None]
+                        keep = present & (t[None] <= pr[:, None])
+                        if window:
+                            keep &= t[None] > pr[:, None] - window
+                        sc = torch.where(keep, (qr @ kk.T) * scale,
+                                         torch.tensor(-1e30))
+                        st = _online(*st, sc, present, vv)
+                    warps.append(st)
+                parts.append(_merge(warps) if p0 < p1 else
+                             (torch.full((s * g,), -1e30), torch.zeros(s * g),
+                              torch.zeros((s * g, hd))))
+            _, lsum, o = _merge(parts)
+            res = o / lsum.clamp(min=1e-30)[:, None]
+            for row in range(s * g):
+                out[bi, row // g, kh * g + row % g] = res[row]
+    return out
+
+
+def _decode_operands(seed, *, s, window, group, hd):
+    """A decode step (or S <= 16 / G rows) over page-4 tables: lane 0 at
+    position 150 of a 160-key table, lane 1 at 37 of 40, lane 2 idle
+    (all-trash table, positions 0), lane 3 past its table by the window
+    (with one, its rows keep no key)."""
+    b, kvh, page, npages = 4, 2, 4, 96
+    pmax = 40
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, s, kvh * group, hd), np.float32)
+    kp = rng.standard_normal((npages, page, kvh, hd), np.float32)
+    vp = rng.standard_normal((npages, page, kvh, hd), np.float32)
+    bt = np.zeros((b, pmax), np.int32)
+    for lane, used in ((0, pmax), (1, 10), (3, pmax)):
+        bt[lane, :used] = rng.integers(1, npages, used)
+    last = [150, 37, 0, pmax * page - 1 + (window or 1)]
+    pos = (np.asarray(last, np.int32)[:, None] - s + 1
+           + np.arange(s, dtype=np.int32)[None])
+    pos[2] = 0
+    return q, kp, vp, bt, pos
+
+
+# (Dh, G, S): decode steps at G 1, 4 and 8 (Dh 16 and 64, small for the
+# CPU), and G * S = 8 rows over 4 positions
+SPLIT_SHAPES = [(16, 1, 1), (16, 4, 1), (64, 8, 1), (32, 2, 4)]
+
+
+@pytest.mark.parametrize("n_splits", [1, 2, 3, None])
+@pytest.mark.parametrize("window", [None, 5, 40])
+@pytest.mark.parametrize("hd,group,s", SPLIT_SHAPES)
+def test_split_emulation_matches_reference(hd, group, s, window, n_splits):
+    """The split path's algorithm, emulated, within 2e-4 (the card's bound
+    on the kernel) of the plain version and of the JAX oracle on every
+    row, at forced part counts and at the plan's: windows that start
+    inside a part (40 over lane 0's 160 keys cut in 2 or 3), parts that
+    hold no kept key (window 5: lane 0's keys sit in one part), rows that
+    keep no key (lane 3 past its table by the window, averaging V over
+    its whole table), an idle lane."""
+    q, kp, vp, bt, pos = _decode_operands(hd + 7 * group + s + (window or 0),
+                                          s=s, window=window, group=group,
+                                          hd=hd)
+    tq, tk, tv, tb, tp = (torch.from_numpy(a) for a in (q, kp, vp, bt, pos))
+    got = _split_emulation(tq, tk, tv, tb, tp, window=window,
+                           n_splits=n_splits).numpy()
+    plain = paged_attention_ref(tq, tk, tv, tb, tp, window=window).numpy()
+    oracle = np.asarray(jax_paged_ref(*[jnp.asarray(a) for a in
+                                        (q, kp, vp, bt, pos)], window=window))
+    tol = dict(rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got, plain, **tol)
+    np.testing.assert_allclose(got, oracle, **tol)
+    keeps = _keeps_a_key(pos, bt.shape[1], kp.shape[1], window)
+    assert (window is None) == keeps.all()
+
+
+def test_split_merge_weighs_masked_and_empty_parts():
+    """The merge rule on the partials the kernel can write for one row: a
+    part of masked keys only (m = -1e30, l = its key count, o = the sum of
+    its V rows) weighs 0 beside a part that keeps a key and 1 beside
+    another such part; an empty part (m = -1e30, l = 0, o never written:
+    here NaN) adds nothing."""
+    v = torch.tensor([[1.0, 2.0], [3.0, 4.0], [5.0, 6.0]])
+    masked = (torch.tensor([-1e30]), torch.tensor([2.0]), v[:2].sum(0)[None])
+    kept = (torch.tensor([0.5]), torch.tensor([1.0]), v[2:])
+    empty = (torch.tensor([-1e30]), torch.tensor([0.0]),
+             torch.full((1, 2), float("nan")))
+    m, lsum, o = _merge([masked, kept, empty])
+    assert torch.equal(o / lsum[:, None], v[2:])
+    m, lsum, o = _merge([masked, empty, masked])
+    assert torch.equal(o / lsum[:, None], v[:2].mean(0)[None])
+
+
+# (B, KV, G, S, Dh, the keys a lane's table holds, the plan's count) at
+# every shape chip_smoke phases 4 and 4b-4e time: the decode steps of
+# qwen3_8b (G 4), qwen2_moe_a2_7b (G 1, 16 KV heads), gemma_2b (MQA, Dh
+# 256), qwen3_14b (G 5) and deepseek_coder_33b (G 7), 8 lanes of 288 keys
+# in tables of 37 pages of 8; their prefill chunks (S 32) are not the
+# split path's (0)
+PLAN_CASES = [(8, 8, 4, 1, 128, 296, 3), (8, 16, 1, 1, 128, 296, 2),
+              (8, 1, 8, 1, 256, 296, 9), (8, 8, 5, 1, 128, 296, 3),
+              (8, 8, 7, 1, 128, 296, 3),
+              (8, 8, 4, 32, 128, 296, 0), (8, 16, 1, 32, 128, 296, 0),
+              (8, 1, 8, 32, 256, 296, 0), (8, 8, 7, 32, 128, 296, 0)]
+
+
+@pytest.mark.parametrize("b,kvh,group,s,hd,max_keys,want", PLAN_CASES)
+def test_split_plan_at_the_timed_shapes(b, kvh, group, s, hd, max_keys,
+                                        want):
+    """The plan from shapes and host ints alone: the same count from the
+    shape of meta tensors (the dry run's), which hold no positions; the
+    grid fills the card's SMs at least once where it can, each part at
+    least 32 keys long."""
+    q = torch.empty((b, s, kvh * group, hd), device="meta")
+    bt = torch.empty((b, max_keys // 8), dtype=torch.int32, device="meta")
+    n = split_plan(q.shape[0], kvh, q.shape[2] // kvh * q.shape[1],
+                   q.shape[3], bt.shape[1] * 8)
+    assert n == want and type(n) is int
+    assert (want > 0) == split_takes(group * s, hd)
+    if want:
+        assert b * kvh * want >= CARD_SMS or want == max_keys // 32
+        assert b * kvh * (want - 1) < CARD_SMS
+
+
+@pytest.mark.parametrize("b,kvh", [(8, 32), (132, 1), (64, 4)])
+def test_split_plan_is_one_where_the_grid_fills_the_card(b, kvh):
+    assert split_plan(b, kvh, 4, 128, 4096) == 1
+
+
+def test_split_takes_and_the_splits_argument():
+    """The split path takes up to 16 rows per (lane, kv head), 8 above Dh
+    128, Dh a multiple of 4; `splits` is checked on every device: 0 (the
+    walk of many rows) anywhere the rows instance runs, n >= 1 only where
+    the split path takes the call, never beside the tile instance; on
+    the CPU every path gives the plain version."""
+    assert split_takes(SPLIT_MAX_ROWS, 128) and not split_takes(17, 128)
+    assert split_takes(8, 256) and not split_takes(9, 256)
+    assert not split_takes(4, 126)
+    q, kp, vp, bt, pos = (torch.from_numpy(a) for a in _decode_operands(
+        3, s=1, window=None, group=4, hd=16))
+    want = paged_attention_ref(q, kp, vp, bt, pos)
+    for splits in (None, 0, 1, 2, 7):
+        got = paged_attention(q, kp, vp, bt, pos, splits=splits)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    for splits, kw in ((-1, {}), (1.5, {}), (2, dict(variant="tile"))):
+        with pytest.raises(ValueError, match="splits"):
+            paged_attention(q, kp, vp, bt, pos, splits=splits, **kw)
+    chunk = torch.zeros((4, 8, 8, 16))          # G * S = 16: the tile's
+    with pytest.raises(ValueError, match="splits"):
+        paged_attention(chunk, kp, vp, bt, pos.repeat(1, 8), splits=1)
+    meta = [t.to("meta") for t in (q, kp, vp, bt, pos)]
+    assert paged_attention(*meta, splits=3).shape == q.shape
