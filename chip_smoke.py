@@ -24,8 +24,10 @@ without printing a result:
      integer dots also at the edges of their tiles, splits and int32
      range, its artemis path at the edges of its K split and windows and
      on operands of -128; both attention kernels also at phase 36's
-     head dims and groups: Dh 256 at G 8 through the rows instance
-     only, Dh 128 at G 5, 6 and 7 through both; the rows instance's
+     head dims and groups: Dh 256 at G 8 and Dh 128 at G 5, 6 and 7
+     through both instances (paged's tile instance at the parts its
+     plan gives, `tile_plan`, and at one part where that is more than
+     one); the rows instance's
      split path, which takes every decode step, at SPLIT_GEOMETRIES
      over 2000-key tables and caches, forced to 1 and 2 parts and at
      the plan's count, with idle lanes and rows that keep no key);
@@ -52,7 +54,8 @@ without printing a result:
      zeroed just before each drain and read just after: sc_matmul once
      per dense projection (7 per layer) of every forward, and
      paged_attention never; then profile one prefill-chunk forward and
-     one decode forward per policy (device time by group);
+     one decode forward under int8 and artemis (device time by group;
+     artemis_mxu's forwards are int8's but for its sc_matmul);
   8. drive the static path (`launch.serve --mode static`'s serve()) at
      the full qwen3_8b width: bf16, f32 cache, batch 8, prompt 1024,
      gen 32, exact policy, counts zeroed just before and read just
@@ -108,7 +111,8 @@ without printing a result:
      invocation and a 1-layer tail) with `attn_window` 64 and prompts
      of 32-48, so that the ring wraps during decode;
  21. its static path at batch 8, prompt 1024, gen 32: flash_attention
-     13 x 33 times, all in its rows instance (D 112); at f32 through 7
+     13 x 33 times (tile 13 at the prefill, rows 13 x 32 at the decodes,
+     as `kernel_variant` gives them at D 112); at f32 through 7
      layers, the flash and gather cores token-identical;
  22. the device time by group of one zamba2 decode step beside its byte
      bound, and its int8 lane check;
@@ -213,7 +217,7 @@ without printing a result:
      sc_matmul 7 x 2 x 2 a rank an int8 step; (b) qwen2_moe_a2_7b at
      (data 2) through 2 layers at f32, its ranks agreeing; (c)
      full-width qwen3_8b through 2 layers, f32 master weights and bf16
-     compute, batch 8 x 128, at (data 2): 3 exact and 2 int8 steps, ms a
+     compute, batch 8 x 128, at (data 2): 2 exact and 2 int8 steps, ms a
      step, tok/s, each rank's peak GiB, sc_matmul 7 x 2 x 2 a rank an
      int8 step and none an exact one (counts zeroed just before each
      step); (d) `compressed_psum` in each mode on the card against the
@@ -242,8 +246,8 @@ without printing a result:
      (fused vs gather drains, flash vs gather static runs, token-
      identical); then an exact fused drain of 8 half-sampled requests
      (prompts 64-128, 8 new tokens; paged_attention once a layer of every
-     forward, its tile instance at the prefill-chunk forwards where it
-     takes the head dim: never at Dh 256), an exact static run (batch 4,
+     forward, its tile instance at the prefill-chunk forwards), an
+     exact static run (batch 4,
      prompt 512, gen 8; flash once a layer of every forward, in the
      instance `kernel_variant` gives), and int8: a static run of the
      dense configs (batch 2, prompt 32, gen 2; sc_matmul 7 a layer of
@@ -261,8 +265,9 @@ kernel at the qwen2_moe_a2_7b shapes (4b), flash_attention at
 zamba2_7b's static shapes (4c) and at musicgen_large's and
 internvl2_1b's (4d: D 64, G 1 and G 7), both attention kernels at
 gemma_2b's, qwen3_14b's and deepseek_coder_33b's decode and
-prefill-chunk or prefill shapes (4e: each beside the bound its wrapper
-declares to `roofline/count.py` under HW_H100), and phase 3 holds
+prefill-chunk or prefill shapes (4e: the prefill shapes in the tile
+instance beside the rows walk and SDPA; each beside the bound its
+wrapper declares to `roofline/count.py` under HW_H100), and phase 3 holds
 sc_matmul to its plain version at the expert products' shapes and
 flash_attention at D 112, G 1 and at D 64, G 1 and G 7 (Sq 1280 = 256 +
 1024, 1100, 8 and 1 over 1312 cache slots).
@@ -432,18 +437,21 @@ def check_paged_attention() -> dict:
     tile one takes Dh in TILE_HEAD_DIMS), against the plain
     version within PA_TOL on every row, those that keep no key
     (`_pa_keeps_a_key`) included. Then the same with the trash page
-    poisoned: no valid lane changes, the idle lane stays finite. Returns
-    the max abs error per instance."""
+    poisoned: no valid lane changes, the idle lane stays finite. The
+    tile instance runs at the parts its plan gives (`tile_plan`: these
+    small grids split each block's walk) and, where that is more than
+    one, at one part too. Returns the max abs error per instance."""
     import torch
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_ref)
     from repro_torch.kernels.paged_attention.paged_attention import (
-        TILE_HEAD_DIMS)
+        TILE_HEAD_DIMS, tile_plan)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     worst = dict.fromkeys(PA_VARIANTS, 0.0)
     n = dict.fromkeys(PA_VARIANTS, 0)
     n_blind = 0
+    plans = set()
     dtypes = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
               (torch.bfloat16, torch.bfloat16)]
     names = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -455,7 +463,7 @@ def check_paged_attention() -> dict:
     grid += [dict(page=16, hd=128, group=4, window=window, s=32,
                   starts=[1968, 1000]) for window in (None, 3)]
     # the groups and head dims of phase 36's configurations: gemma_2b's
-    # Dh 256 at G 8 (the rows instance only), qwen3_14b's G 5,
+    # Dh 256 at G 8, qwen3_14b's G 5,
     # dbrx_132b's G 6 and deepseek_coder_33b's G 7 at Dh 128
     grid += [dict(page=8, hd=hd, group=group, window=window, s=s)
              for hd, group in NEW_ATTN_GEOMETRIES for window in (None, 3)
@@ -473,17 +481,32 @@ def check_paged_attention() -> dict:
             kp2, vp2 = kp.clone(), vp.clone()
             kp2[0] = 1e3
             vp2[0] = 1e3
-            for variant in variants:
+            parts = tile_plan(q.shape[0], kp.shape[2],
+                              q.shape[2] // kp.shape[2] * q.shape[1],
+                              bt.shape[1] * kp.shape[1])
+            runs = [(v, None) for v in variants]
+            if "tile" in variants and parts > 1:
+                plans.add(parts)
+                runs.append(("tile", 1))          # one block walks it all
+            for variant, tile_parts in runs:
                 out = paged_attention(q, kp, vp, bt, pos, window=window,
-                                      variant=variant)
+                                      variant=variant, tile_parts=tile_parts)
                 torch.cuda.synchronize()
                 err = (out - ref).abs()
                 bad = err > PA_TOL["atol"] + PA_TOL["rtol"] * ref.abs()
                 if not bool(torch.isfinite(out).all()) or bool(bad.any()):
                     raise AssertionError(
-                        f"paged_attention ({variant}) disagrees with its "
-                        f"plain version: {case} q {q_dt} kv {kv_dt}: max "
-                        f"err {err.max().item():.3e}")
+                        f"paged_attention ({variant}, tile_parts "
+                        f"{tile_parts}) disagrees with its plain version: "
+                        f"{case} q {q_dt} kv {kv_dt}: max err "
+                        f"{err.max().item():.3e}")
+                errs[variant, q_dt, kv_dt] = max(
+                    errs.get((variant, q_dt, kv_dt), 0.0), err.max().item())
+                worst[variant] = max(worst[variant], errs[variant, q_dt,
+                                                          kv_dt])
+                n[variant] += 1
+                if tile_parts:
+                    continue
                 # trash poisoning: valid lanes (0, 1 and 3) see none of
                 # it, the idle lane stays finite
                 out2 = paged_attention(q, kp2, vp2, bt, pos, window=window,
@@ -495,10 +518,6 @@ def check_paged_attention() -> dict:
                     raise AssertionError(
                         f"trash page leaked into valid lanes ({variant}): "
                         f"{case}")
-                errs[variant, q_dt, kv_dt] = err.max().item()
-                worst[variant] = max(worst[variant], errs[variant, q_dt,
-                                                          kv_dt])
-                n[variant] += 1
             n_blind += int((~keeps).sum().item()) * q.shape[2]
         log(f"  page {case['page']:2d} Dh {case['hd']:3d} G {case['group']} "
             f"window {str(case['window']):4s} S {case['s']:2d}"
@@ -510,6 +529,8 @@ def check_paged_attention() -> dict:
         log(f"paged_attention ({v}): {n[v]} cases within rtol=atol=2e-4 "
             f"(max abs err {worst[v]:.3e}); trash-poisoned pools change no "
             f"valid lane")
+    log(f"  the tile instance's plan split the walk into {sorted(plans)} "
+        f"parts over the cases; each of those also held at one part")
     log(f"  rows that keep no key (past the table, window 3): {n_blind} "
         f"query-head rows over the cases, held for both instances (the "
         f"plain version's mean of V over the table)")
@@ -624,7 +645,7 @@ def time_paged_attention(cfg) -> list[dict]:
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_ref)
     from repro_torch.kernels.paged_attention.paged_attention import (
-        TILE_HEAD_DIMS, kernel_variant, split_plan, work)
+        TILE_HEAD_DIMS, kernel_variant, split_plan, tile_plan, work)
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     b, page, n_pages, tokens = 8, 8, 512, 288
     n_layers = max(8, math.ceil(100e6 / (2 * b * tokens * kvh * hd * 4)))
@@ -751,7 +772,14 @@ def time_paged_attention(cfg) -> list[dict]:
             bound_f32_ms=bound_f32_ms, declared_bound_ms=declared_ms,
             bytes=n_bytes, flops=flops, **split)
         if variant == "tile":
-            row.update(qk_passes=qk_passes, pv_passes=pv_passes)
+            # a chunk's call is its wrapper's host time where that is
+            # longer: the kernel's own time from a CUDA graph beside it
+            row.update(qk_passes=qk_passes, pv_passes=pv_passes,
+                       tile_parts=tile_plan(b, kvh, h // kvh * s,
+                                            pmax * page),
+                       device_ms=_graph_ms(lambda i: paged_attention(
+                           q, kps[i % n_layers], vps[i % n_layers], bt, pos,
+                           scale=scale)))
         rows.append(row)
         other_note = (f"{other} instance {ms_by_variant[other]*1e3:8.2f} us"
                       if other else f"no other instance takes Dh {hd}")
@@ -762,7 +790,11 @@ def time_paged_attention(cfg) -> list[dict]:
                          if other else "")
                       + f"); the walk of many rows "
                       f"{split['walk_ms']*1e3:8.2f} us" if split else "")
-        log(f"  {label:13s} B {b} S {s:2d} G {h // kvh} Dh {hd} ({variant}): "
+        parts_note = (f", {row['tile_parts']} parts, device "
+                      f"{row['device_ms']*1e3:.2f} us"
+                      if variant == "tile" else "")
+        log(f"  {label:13s} B {b} S {s:2d} G {h // kvh} Dh {hd} ({variant}"
+            f"{parts_note}): "
             f"max err {err.max().item():.2e} | kernel {ms*1e3:8.2f} us"
             + f" ({other_note}){split_note}"
             + f" | plain {plain_ms*1e3:8.2f} us | sdpa "
@@ -1294,9 +1326,9 @@ def check_flash_attention() -> tuple[dict, dict]:
                                                   strided=strided), cases)
                             n += 1
         settle(cases, f"Sq {sq:3d}")
-    # zamba2's shared attention: D 112 (not a tile head dim: the rows
-    # instance only), G 1, its windows; bf16 q over an f32 ring rounded
-    # by kv_cast (the static path) and f32 throughout
+    # zamba2's shared attention: D 112, G 1, its windows; bf16 q over an
+    # f32 ring rounded by kv_cast (the static path: both instances) and f32
+    # throughout (the rows instance)
     cases = []
     for sq in (1, 8, 33, 128):
         for sk in sorted({sq, sq + 40, 300}):
@@ -1343,8 +1375,8 @@ def check_flash_attention() -> tuple[dict, dict]:
                 cases)
     settle(cases, "D 64, G 1 and G 7 (the multimodal static shapes), Sq "
                   "1280 / 1100 / 8 / 1, Smax 1312")
-    # phase 36's geometries (NEW_ATTN_GEOMETRIES: D 256 at G 8 in the
-    # rows instance only, D 128 at G 5, 6, 7 in both), 2 KV heads: the
+    # phase 36's geometries (NEW_ATTN_GEOMETRIES: D 256 at G 8, D 128 at
+    # G 5, 6, 7; both instances where they take the call), 2 KV heads: the
     # static prefill of 520 slots and a chunk past half of it, a decode
     # row and 8 rows at the end of the cache, with and without a window
     # of 3 and a kv_len that leaves later rows no key; bf16 q over an f32
@@ -1825,10 +1857,17 @@ def artemis_drain_estimate(cfg, trace, sc_rows, n_forwards) -> float:
                            + n_prefill * layer[256]) * 1e-3
 
 
+# the policies whose forwards phase 7 profiles (about 10 s a profile):
+# artemis_mxu's are int8's but for its sc_matmul (19.54 against 7.97 ms
+# of a prefill-chunk forward's 255-272 on an H100), so a third profile
+# checked nothing new
+PROFILED_MODES = ("int8", "artemis")
+
+
 def quantized_drains(cfg, sc_rows, n_forwards_exact) -> dict:
     """One full-width bf16 drain per quantized policy, gather core;
-    then the profile of one prefill-chunk and one decode forward per
-    policy on the same weights."""
+    then the profile of one prefill-chunk and one decode forward under
+    each of PROFILED_MODES on the same weights."""
     import torch
     from repro_torch.core.policy import ArithmeticPolicy
     from repro_torch.models import transformer
@@ -1876,7 +1915,7 @@ def quantized_drains(cfg, sc_rows, n_forwards_exact) -> dict:
                           n_forwards=run["n_forwards"], launches=launches,
                           n_tokens=m["n_generated_tokens"],
                           peak_gib=peak, trace=trace_name)
-    for mode in SC_MODES:
+    for mode in PROFILED_MODES:
         runs[mode]["profile"] = profile_forwards(cfg, model, mode)
     del model
     gc.collect()
@@ -2591,10 +2630,13 @@ def slot_pin(cfg, trace, max_seq_len: int = SLOT_SEQ_LEN) -> dict:
     return dict(n_requests=len(trace), n_tokens=n_tok)
 
 
-def recurrent_static(cfg, model, want_flash: int) -> dict:
+def recurrent_static(cfg, model, n_attn: int) -> dict:
     """`--mode static` at batch 8, prompt 1024, gen 32: flash_attention
-    `want_flash` times, all in its rows instance (zamba2's D 112 is no
-    tile head dim; rwkv6 has no attention), the other kernels never."""
+    once for each of the `n_attn` attention invocations of every forward
+    (zamba2's shared block; rwkv6 has none), in the instance
+    `kernel_variant` gives the path's calls (`flash_want`: zamba2's
+    prefill at D 112 in the tile instance, its decodes in the rows
+    instance), the other kernels never."""
     import torch
     static_run(cfg, model, batch=8, prompt_len=64, gen_len=2)   # warm-up
     torch.cuda.reset_peak_memory_stats()
@@ -2602,8 +2644,12 @@ def recurrent_static(cfg, model, want_flash: int) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     counts = run["counts"]
     step_ms = run["decode_s"] / 32 * 1e3
-    want = {"flash_attention": want_flash,
-            "flash_attention.rows": want_flash} if want_flash else {}
+    want = {}
+    if n_attn:
+        by_variant = flash_want(cfg, 1024, 32, torch.bfloat16, n_attn)
+        want = {"flash_attention": n_attn * 33,
+                **{f"flash_attention.{v}": n for v, n in by_variant.items()
+                   if n}}
     got = {k: v for k, v in counts.items() if v}
     log(f"  prefill {run['prefill_s']*1e3:.2f} ms (8 x 1024 tokens) | decode "
         f"{run['decode_tok_per_s']:.2f} tok/s, {step_ms:.2f} ms per step | "
@@ -3994,7 +4040,9 @@ SHARD_PIN_OPT = dict(lr=1e-3, total_steps=10, warmup_steps=2)
 # depth whose peaks would sum below SHARD_MEM_GIB)
 SHARD_RUN_LAYERS = 2
 SHARD_MEM_GIB = 75.0
-SHARD_RUN_STEPS = (("exact", 3), ("int8", 2))
+# (its steps' ms are the host-staged transfers', so a third exact step
+# repeated a timing and checked nothing new)
+SHARD_RUN_STEPS = (("exact", 2), ("int8", 2))
 # the gradient leaves that phase 33d hands to compressed_psum
 SHARD_COMPRESS_LEAVES = ("layers.0.attn.wq", "layers.0.ffn.w_down",
                          "layers.1.ln2.scale", "final_norm.scale")
@@ -4733,18 +4781,21 @@ def sized_from_free(label: str, want: int, need: int, per_unit: int) -> int:
     return n
 
 
-def flash_want(cfg, prompt_len: int, gen_len: int, q_dtype) -> dict:
-    """flash_attention launches by instance of a static run: one a layer
-    at the prefill and at each decode, in the instance `kernel_variant`
-    gives the path's call (q in `q_dtype` over the f32 cache)."""
+def flash_want(cfg, prompt_len: int, gen_len: int, q_dtype,
+               n_attn: int | None = None) -> dict:
+    """flash_attention launches by instance of a static run: one an
+    attention layer (`n_attn`, default every layer) at the prefill and at
+    each decode, in the instance `kernel_variant` gives the path's call
+    (q in `q_dtype` over the f32 cache)."""
     import torch
     from repro_torch.kernels.flash_attention.flash_attention import (
         kernel_variant)
     hd = cfg.resolved_head_dim
+    n_attn = cfg.n_layers if n_attn is None else n_attn
     want = dict.fromkeys(FA_VARIANTS, 0)
     for sq, n in ((prompt_len, 1), (1, gen_len)):
         want[kernel_variant(q_dtype, torch.float32, torch.bfloat16, sq,
-                            hd)] += cfg.n_layers * n
+                            hd)] += n_attn * n
     return want
 
 
@@ -5226,7 +5277,7 @@ def main() -> int:
             row["model"] = "qwen2_moe_a2_7b"
     zamba_cfg = configs.get_config("zamba2_7b")
     phases.mark("4c. flash_attention timing at the full-width zamba2_7b "
-                "static shapes (G = 1, Hq = Hkv = 32, D 112: rows)")
+                "static shapes (G = 1, Hq = Hkv = 32, D 112)")
     zamba_fa_rows = time_flash_attention(zamba_cfg)
     for row in zamba_fa_rows:
         row["model"] = "zamba2_7b"
@@ -5240,7 +5291,7 @@ def main() -> int:
         for row in time_flash_attention(mcfg):
             mm_fa_rows.append(dict(row, model=arch))
     phases.mark("4e. attention timing at the full-width gemma_2b (G 8, Dh "
-                "256: the rows instance only), qwen3_14b (G 5) and "
+                "256), qwen3_14b (G 5) and "
                 "deepseek_coder_33b (G 7) shapes")
     new_rows = {"paged_attention": [], "flash_attention": []}
     for arch in ("gemma_2b", "qwen3_14b", "deepseek_coder_33b"):
@@ -5342,10 +5393,10 @@ def main() -> int:
                               compute_dtype="float32")
     zamba.update(pin=slot_pin(zb7, zamba2_pin_trace(zb7)))
     phases.mark("21. full-width zamba2_7b static path: batch 8, prompt "
-                "1024, gen 32, exact (flash rows); f32 flash vs gather "
+                "1024, gen 32, exact (flash); f32 flash vs gather "
                 "through 7 layers")
     n_inv = zamba_cfg.n_layers // zamba_cfg.shared_attn_period
-    zamba.update(static=recurrent_static(zamba_cfg, zb_model, n_inv * 33),
+    zamba.update(static=recurrent_static(zamba_cfg, zb_model, n_inv),
                  static_f32=zamba2_static_check(dataclasses.replace(
                      zamba_cfg, n_layers=7, compute_dtype="float32")))
     phases.mark("22. profile of one zamba2_7b decode step; its int8 lane "
@@ -5435,7 +5486,7 @@ def main() -> int:
                 "(gloo): full-width qwen3_8b through 2 layers at f32 at "
                 "(data 2) and (model 2) against one card's step, exact and "
                 "int8; qwen2_moe_a2_7b at (data 2); a bf16 run at (data 2), "
-                "3 exact and 2 int8 steps; compressed_psum on the card "
+                "2 exact and 2 int8 steps; compressed_psum on the card "
                 "against the CPU; then, in the same ranks, phase 35's jobs")
     sharded = sharded_train(path_sc)
     phases.mark("35. tensor parallelism for every family (ran in phase 33's "

@@ -31,8 +31,8 @@
 //     (its split path, split::flash_attention_split_kernel further down)
 //     and f32 operands (its walk of many rows, flash_attention_kernel);
 //   * "tile" (tile::flash_attention_tile_kernel) for bf16 q and K/V that
-//     are bf16 or rounded to it, D 16, 32, 64 or 128: prefills, on the
-//     bf16 tensor cores (see its own comment further down).
+//     are bf16 or rounded to it, D 16, 32, 64, 112, 128 or 256: prefills,
+//     on the bf16 tensor cores (see its own comment further down).
 //
 // What bounds the rows instance on an H100: at a prefill, f32
 // operations (4 * D per kept (query, key) pair: about 69 GFLOP for 8 x
@@ -415,7 +415,8 @@ cudaError_t dispatch_rows(const Args& a, int B, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 //
 // Same function as the rows instance (the header above), for bf16 q and
-// K/V that are bf16 or rounded to it (`kv_round`), D 16, 32, 64 or 128.
+// K/V that are bf16 or rounded to it (`kv_round`), D 16, 32, 64, 112,
+// 128 or 256.
 // What bounds it at the static prefill (B 8, Hq 32, Hkv 8, D 128, 1024
 // causal rows over an f32 cache): the bf16 tensor cores, Q.K in one pass
 // and P.V in two, about 104 us on an H100; the bytes (q, the f32 K/V
@@ -428,8 +429,13 @@ cudaError_t dispatch_rows(const Args& a, int B, cudaStream_t stream) {
 //     grid's slowest index, run in reverse, so the longest causal rows
 //     of every head start first;
 //   * Q.K in one bf16 pass: q is bf16 and K is bf16-valued, so each
-//     product is exact and the sums are f32. Q's A fragments stay in
-//     registers for the whole walk, read once from global memory;
+//     product is exact and the sums are f32. Up to D 128 Q's A fragments
+//     stay in registers for the whole walk, read once from global memory.
+//     At D 256 they would take 64 registers a thread beside o's 128, past
+//     the 255 a thread can have, so Q lands once in shared memory (128
+//     rows padded like the buffers, by cp.async with the first chunk) and
+//     each 16-deep step reads its fragment by ldmatrix; the chunks are
+//     then 32 keys, so that Q, the staging area and the buffers fit;
 //   * P.V in two bf16 passes: p = hi + lo, hi = bf16(p), lo = bf16(p -
 //     hi), both rounded to nearest even, so |p - hi - lo| <= 2^-17 p;
 //     V is bf16-valued, so each product is exact. The Q.K accumulator
@@ -438,9 +444,10 @@ cudaError_t dispatch_rows(const Args& a, int B, cudaStream_t stream) {
 //     in base 2 (the scale folded with log2 e, -1e30 scaled alike): a
 //     thread holds 2 rows of its warp's tile, the row max takes 2
 //     shuffles in the quad, the row sum stays per thread until the end;
-//   * K and V move in chunks of 64 keys. cp.async lands the next chunk's
-//     raw rows (f32 or bf16, zeros past Sk) in a staging area while the
-//     warps compute the current chunk from bf16 buffers; then the block
+//   * K and V move in chunks of 64 keys (32 at D 256). cp.async lands
+//     the next chunk's raw rows (f32 or bf16, zeros past Sk) in a staging
+//     area while the warps compute the current chunk from bf16 buffers;
+//     then the block
 //     converts the staging area into the buffers (round to nearest
 //     even, the reference's `ck.astype(bf16)`), read by ldmatrix (K) and
 //     ldmatrix.trans (V). Buffer rows are padded by 16 bytes so that the
@@ -457,14 +464,15 @@ cudaError_t dispatch_rows(const Args& a, int B, cudaStream_t stream) {
 //     block needs is not loaded; a warp none of whose rows needs it
 //     skips it.
 // Shared memory at D 128: 98 KB with an f32 cache; one block an SM (216
-// registers a thread).
+// registers a thread). At D 112 the same layout (buffer rows of 240 B
+// keep the ldmatrix phases on distinct banks): 88 KB. At D 256: 163 KB
+// with an f32 cache (Q 66 KB, staging 64 KB, buffers 33 KB).
 
 namespace tile {
 
 constexpr int kTileWarps = 8;
 constexpr int kTileThreads = kTileWarps * 32;
 constexpr int kRows = kTileWarps * 16;  // query rows per block
-constexpr int kChunk = 64;              // keys per chunk
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInf2 = kNegInf * kLog2e;  // -1e30 in base 2
@@ -472,10 +480,14 @@ constexpr int kNoKey = -(1 << 30);
 
 template <typename KVT, int D>
 struct Layout {
-  static constexpr int BS = D + 8;  // bf16 a buffer row
+  static constexpr bool kQShared = D > 128;     // Q in shared memory
+  static constexpr int kChunk = kQShared ? 32 : 64;  // keys per chunk
+  static constexpr int BS = D + 8;  // bf16 a buffer (and Q) row
   static constexpr size_t stage_bytes = sizeof(KVT) * kChunk * D;  // a tensor
   static constexpr size_t buf_bytes = sizeof(__nv_bfloat16) * kChunk * BS;
-  static constexpr size_t smem = 2 * stage_bytes + 2 * buf_bytes;
+  static constexpr size_t q_bytes =
+      kQShared ? sizeof(__nv_bfloat16) * kRows * BS : 0;
+  static constexpr size_t smem = 2 * stage_bytes + 2 * buf_bytes + q_bytes;
 };
 
 // 4 elements global -> shared (16 bytes of f32 bypassing L1, 8 of bf16);
@@ -541,15 +553,14 @@ __device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi,
       __floats2bfloat162_rn(x - __low2float(h), y - __high2float(h)));
 }
 
-// The keys that row `row` needs, [e_lo, e_hi), and those it visits
-// ([v_lo, v_hi): the keys of its Pallas tiles [lo, hi]) and keeps
-// ([k_lo, k_hi)); rows past Sq visit and need nothing
+// The keys that row `row` visits ([v_lo, v_hi): the keys of its Pallas
+// tiles [lo, hi]) and keeps ([k_lo, k_hi)); rows past Sq visit nothing
 struct RowKeys {
-  int v_lo, v_hi, k_lo, k_hi, e_lo, e_hi;
+  int v_lo, v_hi, k_lo, k_hi;
 };
 
 __device__ __forceinline__ RowKeys row_keys(const Args& a, int row) {
-  RowKeys r{0, 0, kNoKey, a.kv_len, 0, 0};
+  RowKeys r{0, 0, kNoKey, a.kv_len};
   if (row < a.Sq) {
     int lo, hi;
     tile_range(a, row / a.bq, lo, hi);
@@ -563,23 +574,35 @@ __device__ __forceinline__ RowKeys row_keys(const Args& a, int row) {
     r.k_hi = min(r.k_hi, pos + 1);
     if (a.window > 0) r.k_lo = pos - a.window + 1;
   }
-  r.e_lo = max(r.v_lo, r.k_lo);
-  r.e_hi = min(r.v_hi, r.k_hi);
-  if (r.e_lo >= r.e_hi) {  // keeps no visited key: needs them all
-    r.e_lo = r.v_lo;
-    r.e_hi = r.v_hi;
-  }
   return r;
 }
 
-__device__ __forceinline__ bool needs(const RowKeys& r, int c0) {
-  return r.e_lo < r.e_hi && r.e_lo < c0 + kChunk && r.e_hi > c0;
+// the keys the row needs, [e_lo, e_hi): those it keeps of those it
+// visits, or, keeping none, all it visits (formed where used, not kept:
+// registers are scarce at D 256)
+__device__ __forceinline__ void needed_keys(const RowKeys& r, int& e_lo,
+                                            int& e_hi) {
+  e_lo = max(r.v_lo, r.k_lo);
+  e_hi = min(r.v_hi, r.k_hi);
+  if (e_lo >= e_hi) {
+    e_lo = r.v_lo;
+    e_hi = r.v_hi;
+  }
 }
 
-// every key of chunk c0 visited and kept
+// whether the row needs a key of the chunk of C keys at c0
+template <int C>
+__device__ __forceinline__ bool needs(const RowKeys& r, int c0) {
+  int e_lo, e_hi;
+  needed_keys(r, e_lo, e_hi);
+  return e_lo < e_hi && e_lo < c0 + C && e_hi > c0;
+}
+
+// every key of the chunk of C keys at c0 visited and kept
+template <int C>
 __device__ __forceinline__ bool inside(const RowKeys& r, int c0) {
-  return r.v_lo <= c0 && r.v_hi >= c0 + kChunk && r.k_lo <= c0 &&
-         r.k_hi >= c0 + kChunk;
+  return r.v_lo <= c0 && r.v_hi >= c0 + C && r.k_lo <= c0 &&
+         r.k_hi >= c0 + C;
 }
 
 // the raw K and V rows of chunk c0 into the staging area, by cp.async;
@@ -590,7 +613,7 @@ __device__ __forceinline__ void issue_chunk(const Args& a, long long k_base,
                                             KVT* ks, KVT* vs, int tid) {
   constexpr int kBytes = 4 * (int)sizeof(KVT);
   constexpr int CPR = D / 4;  // copies a row
-  constexpr int N = kChunk * CPR / kTileThreads;
+  constexpr int N = Layout<KVT, D>::kChunk * CPR / kTileThreads;
   const KVT* k = static_cast<const KVT*>(a.k);
   const KVT* v = static_cast<const KVT*>(a.v);
 #pragma unroll 4
@@ -611,9 +634,11 @@ __device__ __forceinline__ void convert_chunk(const KVT* st,
                                               __nv_bfloat16* buf, int tid) {
   constexpr int BS = Layout<KVT, D>::BS;
   constexpr int GPR = D / 4;  // 4-element groups a row
-  constexpr int N = kChunk * GPR / kTileThreads;
-  // 4 loads in flight a thread: o, Q and the rest hold most registers
-#pragma unroll 4
+  constexpr int N = Layout<KVT, D>::kChunk * GPR / kTileThreads;
+  // 4 loads in flight a thread (2 at D 256): o, Q and the rest hold most
+  // registers
+  constexpr int kInFlight = Layout<KVT, D>::kQShared ? 2 : 4;
+#pragma unroll (kInFlight)
   for (int u = 0; u < N; ++u) {
     const int i = tid + u * kTileThreads, j = i / GPR, c = (i % GPR) * 4;
     uint2 out;
@@ -633,6 +658,7 @@ __global__ void __launch_bounds__(kTileThreads, 1)
 flash_attention_tile_kernel(const Args a) {
   using L = Layout<KVT, D>;
   constexpr int BS = L::BS;
+  constexpr int kChunk = L::kChunk;
   constexpr int NT = D / 8;       // 8-wide output tiles
   constexpr int KS = D / 16;      // 16-deep Q.K steps
   constexpr int NK = kChunk / 8;  // 8-key score tiles of a chunk
@@ -642,6 +668,7 @@ flash_attention_tile_kernel(const Args a) {
   __nv_bfloat16* k_buf =                          // [kChunk][BS], bf16
       reinterpret_cast<__nv_bfloat16*>(tile_smem + 2 * L::stage_bytes);
   __nv_bfloat16* v_buf = k_buf + kChunk * BS;
+  __nv_bfloat16* q_s = v_buf + kChunk * BS;      // [kRows][BS] (kQShared)
 
   const int b = blockIdx.y, h = blockIdx.x;
   const int hkv = h / (a.Hq / a.Hkv);
@@ -662,14 +689,14 @@ flash_attention_tile_kernel(const Args a) {
 
   const int ra = r0 + warp * 16 + gid, rb = ra + 8;  // this thread's rows
   const RowKeys ka = row_keys(a, ra), kb = row_keys(a, rb);
-  // row tid, for the block's test of a chunk
-  const RowKeys kc = row_keys(a, tid < kRows ? r0 + tid : a.Sq);
 
-  // Q's A fragments: 4-byte loads (q rows are 8-byte aligned views)
-  uint32_t qf[KS][4];
-  {
-    const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
-    const __nv_bfloat16* qa = q + b * a.q_sb + h * a.q_sh + ra * a.q_ss;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) +
+                           b * a.q_sb + h * a.q_sh;
+  // Q's A fragments in registers (up to D 128): 4-byte loads (q rows are
+  // 8-byte aligned views)
+  uint32_t qf[L::kQShared ? 1 : KS][4];
+  if constexpr (!L::kQShared) {
+    const __nv_bfloat16* qa = q + ra * a.q_ss;
     const __nv_bfloat16* qb = qa + 8 * a.q_ss;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
@@ -685,7 +712,8 @@ flash_attention_tile_kernel(const Args a) {
 
   // this lane's ldmatrix row addresses: matrix mi = lane / 8, row lane % 8;
   // K: keys 8 (mi / 2) + row, dims 8 (mi % 2); V: keys 8 (mi % 2) + row,
-  // dims 8 (mi / 2)
+  // dims 8 (mi / 2); Q (kQShared): rows 8 (mi % 2) + row of the warp's
+  // 16, dims 8 (mi / 2), the A fragment's order
   const int mi = lane / 8, mr = lane % 8;
   const uint32_t k_addr =
       static_cast<uint32_t>(__cvta_generic_to_shared(k_buf)) +
@@ -693,6 +721,9 @@ flash_attention_tile_kernel(const Args a) {
   const uint32_t v_addr =
       static_cast<uint32_t>(__cvta_generic_to_shared(v_buf)) +
       2u * ((8 * (mi % 2) + mr) * BS + 8 * (mi / 2));
+  const uint32_t q_addr =
+      static_cast<uint32_t>(__cvta_generic_to_shared(q_s)) +
+      2u * ((warp * 16 + 8 * (mi % 2) + mr) * BS + 8 * (mi / 2));
 
   float o[NT][4];
 #pragma unroll
@@ -704,22 +735,35 @@ flash_attention_tile_kernel(const Args a) {
   const float scale2 = a.scale * kLog2e;
 
   // the next chunk a row of the block needs after c (c_end: none), a
-  // barrier per chunk tried
+  // barrier per chunk tried; each thread tests its two rows
   auto next_needed = [&](int c) {
     bool more;
     do {
       c += kChunk;
-      more = __syncthreads_or(c < c_end && needs(kc, c));
+      more = __syncthreads_or(
+          c < c_end && (needs<kChunk>(ka, c) || needs<kChunk>(kb, c)));
     } while (!more && c < c_end);
     return more ? c : c_end;
   };
   int c0 = next_needed(c_begin - kChunk);
+  if constexpr (L::kQShared) {
+    // Q's rows into shared memory, zeros past Sq, landing with the first
+    // chunk (8-byte copies: q rows are 8-byte aligned views)
+    constexpr int GPR = D / 4;
+#pragma unroll 4
+    for (int i = tid; i < kRows * GPR; i += kTileThreads) {
+      const int r = i / GPR, c = (i % GPR) * 4;
+      const bool in = r0 + r < a.Sq;
+      cp_async<8>(q_s + r * BS + c, q + (in ? (r0 + r) * a.q_ss + c : 0),
+                  in ? 8 : 0);
+    }
+  }
   if (c0 < c_end) issue_chunk<KVT, D>(a, k_base, v_base, c0, k_st, v_st, tid);
   cp_async_commit();
 
   while (c0 < c_end) {
     cp_async_wait_all();
-    __syncthreads();  // chunk c0 landed; no warp reads the buffers
+    __syncthreads();  // chunk c0 (and Q) landed; no warp reads the buffers
     convert_chunk<KVT, D>(k_st, k_buf, tid);
     convert_chunk<KVT, D>(v_st, v_buf, tid);
     // the search's first barrier also orders the conversion before the
@@ -730,9 +774,10 @@ flash_attention_tile_kernel(const Args a) {
       issue_chunk<KVT, D>(a, k_base, v_base, c1, k_st, v_st, tid);
     cp_async_commit();
 
-    if (__any_sync(0xffffffffu, needs(ka, c0) || needs(kb, c0))) {
-      const bool full =
-          __all_sync(0xffffffffu, inside(ka, c0) && inside(kb, c0));
+    if (__any_sync(0xffffffffu,
+                   needs<kChunk>(ka, c0) || needs<kChunk>(kb, c0))) {
+      const bool full = __all_sync(
+          0xffffffffu, inside<kChunk>(ka, c0) && inside<kChunk>(kb, c0));
 
       // S = Q . K^T over the chunk: NK tiles of 8 keys
       float s[NK][4];
@@ -740,15 +785,29 @@ flash_attention_tile_kernel(const Args a) {
       for (int n = 0; n < NK; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
+      // a 16-deep step of Q.K with Q's A fragment qk
+      auto qk_step = [&](int kk, const uint32_t (&qk)[4]) {
 #pragma unroll
         for (int np = 0; np < NK / 2; ++np) {
           uint32_t kf[4];
           ldmatrix_x4(k_addr + 2u * (16 * np * BS + 16 * kk), kf);
-          mma_bf16(s[2 * np], qf[kk], kf[0], kf[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+          mma_bf16(s[2 * np], qk, kf[0], kf[1]);
+          mma_bf16(s[2 * np + 1], qk, kf[2], kf[3]);
         }
+      };
+      if constexpr (L::kQShared) {
+        // unrolled by 8: in full (or by 2 or 4), ptxas spills beside o's
+        // 128 registers a thread; by 8 it keeps all in 255
+#pragma unroll 8
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t qk[4];
+          ldmatrix_x4(q_addr + 32u * kk, qk);
+          qk_step(kk, qk);
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) qk_step(kk, qf[kk]);
+      }
 
       // scale and mask, then the online softmax of rows ra (entries 0, 1
       // of each tile) and rb (entries 2, 3); s becomes P
@@ -863,7 +922,9 @@ cudaError_t dispatch_tile(const Args& a, int B, cudaStream_t stream) {
     case 16: return launch_tile<KVT, 16>(a, B, stream);
     case 32: return launch_tile<KVT, 32>(a, B, stream);
     case 64: return launch_tile<KVT, 64>(a, B, stream);
+    case 112: return launch_tile<KVT, 112>(a, B, stream);
     case 128: return launch_tile<KVT, 128>(a, B, stream);
+    case 256: return launch_tile<KVT, 256>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -996,10 +1057,11 @@ flash_attention_split_kernel(const Args a, float* __restrict__ part) {
   // the block's keys [w0, w1), then this block's part of them
   int w0 = 1 << 30, w1 = 0;
   for (int r = 0; r < R; r += G) {  // one row a query position
-    const tile::RowKeys& k = rk_s[r];
-    if (k.e_lo < k.e_hi) {
-      w0 = min(w0, k.e_lo);
-      w1 = max(w1, k.e_hi);
+    int e_lo, e_hi;
+    tile::needed_keys(rk_s[r], e_lo, e_hi);
+    if (e_lo < e_hi) {
+      w0 = min(w0, e_lo);
+      w1 = max(w1, e_hi);
     }
   }
   w0 = min(w0, w1);  // no row needs a key: an empty walk
@@ -1344,8 +1406,9 @@ cudaError_t dispatch(const Args& a, int B, float* part, int n_split,
 // (B, Hq, Sq) f32. q_bf16 / kv_bf16 select the input types, kv_round
 // rounds f32 K/V to bf16. window <= 0 means none; 0 <= kv_len <= Sk.
 // variant: 0 the rows instance, 1 the tile instance (bf16 q, K/V bf16 or
-// rounded to it, D 16, 32, 64 or 128). n_splits (rows instance only): 0
-// its walk of many rows; n >= 1 its split path over n parts of the keys
+// rounded to it, D 16, 32, 64, 112, 128 or 256). n_splits (rows instance
+// only): 0 its walk of many rows; n >= 1 its split path over n parts of
+// the keys
 // (Hq / Hkv * Sq <= 16, and <= 8 at D > 128), with `part` a float
 // workspace of n * B * Hq * Sq * (D + 2) when n > 1. Launches on `stream`
 // and returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue

@@ -26,8 +26,9 @@ counter counts the call by `work` (`build.kernel_call`).
 The kernel has two instances (`kernel_variant` picks one per call):
 "tile", bf16 tensor-core tiles of 128 query rows, for bf16 q over K/V
 that are bf16 or rounded to it (`kv_cast`) with at least 16 query rows
-(the static path's prefill), and "rows", f32 on the CUDA cores, for
-everything else (its decode steps, f32 operands).
+at D 16, 32, 64, 112, 128 or 256 (the static path's prefill at every
+shipped head dim), and "rows", f32 on the CUDA cores, for everything
+else (its decode steps, f32 operands).
 
 A decode step is bound by the cache's bytes: each K/V row up to kv_len
 is read once, for about G / 2 FLOP a byte of an f32 cache. The rows
@@ -37,7 +38,8 @@ instance takes such calls (at most SPLIT_MAX_ROWS = 16 query rows per
 K/V row is read once for the whole query group (the walk of many rows
 reads it once per query head), and walks one of `split_plan`'s n equal
 parts of the keys with pipelined copies; a second kernel adds the
-parts. Larger rows-instance calls keep its walk of many rows.
+parts. Larger rows-instance calls keep its walk of many rows. The plan
+is shared with paged attention (`kernels.plan`).
 """
 from __future__ import annotations
 
@@ -46,8 +48,9 @@ import pathlib
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, plan
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.plan import CARD_SMS, SPLIT_MAX_ROWS  # noqa: F401
 
 NAME = "flash_attention"
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -57,13 +60,7 @@ VARIANTS = ("rows", "tile")          # the C entry's variant 0 and 1
 # the tile instance takes a call with at least this many query rows, at
 # one of these head dims
 TILE_MIN_ROWS = 16
-TILE_HEAD_DIMS = (16, 32, 64, 128)
-# the rows instance's split path: at most this many query rows per
-# (batch, kv head) (8 above D 128, its registers' limit), parts of at
-# least this many keys, enough of them to give every SM of an H100 a block
-SPLIT_MAX_ROWS = 16
-SPLIT_MIN_KEYS = 32
-CARD_SMS = 132
+TILE_HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 
 
 def tile_takes(q_dtype, kv_dtype, kv_cast, head_dim: int) -> bool:
@@ -91,21 +88,15 @@ def split_takes(rows: int, head_dim: int) -> bool:
     """Whether the rows instance's split path takes a call of `rows` =
     G * Sq query rows per (batch, kv head) at `head_dim`: every decode
     step of the static path."""
-    return rows <= SPLIT_MAX_ROWS and (rows <= 8 or head_dim <= 128)
+    return rows <= plan.SPLIT_MAX_ROWS and (rows <= 8 or head_dim <= 128)
 
 
 def split_plan(batch: int, kv_heads: int, rows: int, head_dim: int,
                max_keys: int) -> int:
-    """The number of parts the split path cuts the keys into, from shapes
-    and host ints alone (`max_keys`: the call's kv_len, the keys it can
-    visit): enough that batch * kv_heads * n blocks give every SM a
-    block, each part at least SPLIT_MIN_KEYS keys long; 1 where the grid
-    already fills the card. 0: the call is not the split path's
-    (`split_takes`), the rows instance walks it as many rows."""
-    if not split_takes(rows, head_dim):
-        return 0
-    fill = -(-CARD_SMS // (batch * kv_heads))
-    return max(1, min(fill, max_keys // SPLIT_MIN_KEYS))
+    """`plan.split_plan` for this kernel's split path (`split_takes`;
+    `max_keys`: the call's kv_len, the keys it can visit)."""
+    return plan.split_plan(split_takes, batch, kv_heads, rows, head_dim,
+                           max_keys)
 
 
 def _entry():

@@ -369,8 +369,18 @@ cudaError_t dispatch_dv(int dv, const void* q, const void* k_pages,
 //     when none of its rows keeps a key there. A row that keeps no key
 //     at all (past the table, with a window) averages V over the whole
 //     table, as the plain version's softmax over all -1e30 does, so its
-//     block walks it all.
-// Shared memory at Dh 128: 101 KB with an f32 pool, 68 KB with bf16.
+//     block walks it all;
+//   * a grid of fewer blocks than half the SMs (gemma_2b's chunk: 8
+//     lanes x 1 kv head x 4 row tiles = 32 blocks on 132 SMs) is split
+//     over keys as well: n_split blocks share each (row tile, kv head,
+//     lane), block i walking stages [i n / n_split, (i + 1) n / n_split)
+//     of the block's n stages (n from the positions, on the device; the
+//     wrapper's `tile_plan` picks n_split from shapes alone). Each writes
+//     its rows' partial (m, l, unnormalised o), and the split path's
+//     merge kernel (paged_attention_merge_kernel, further down) adds
+//     them in order, with the same rule for masked-only and empty parts.
+// Shared memory at Dh 128: 101 KB with an f32 pool, 68 KB with bf16; at
+// Dh 256 197 KB and 131 KB (o then holds 128 floats a thread).
 
 namespace tile {
 
@@ -483,9 +493,10 @@ paged_attention_tile_kernel(const QT* __restrict__ q,
                             const KVT* __restrict__ v_pages,
                             const int* __restrict__ block_tables,
                             const int* __restrict__ positions,
-                            float* __restrict__ out, int S, int H, int KV,
-                            int n_pages, int page, int pmax, int window,
-                            float scale) {
+                            float* __restrict__ out,
+                            float* __restrict__ partial, int n_split, int S,
+                            int H, int KV, int n_pages, int page, int pmax,
+                            int window, float scale) {
   using L = Layout<KVT, DH>;
   constexpr bool kQExact = std::is_same<QT, __nv_bfloat16>::value;
   constexpr bool kKVExact = std::is_same<KVT, __nv_bfloat16>::value;
@@ -501,7 +512,8 @@ paged_attention_tile_kernel(const QT* __restrict__ q,
   const int b = blockIdx.z;
   const int kvh = blockIdx.y;
   const int G = H / KV;
-  const int r0 = blockIdx.x * kRows;
+  const int split = blockIdx.x % n_split;
+  const int r0 = blockIdx.x / n_split * kRows;
   const int n_rows = min(kRows, G * S - r0);
   const int* bt = block_tables + (size_t)b * pmax;
   const int* pos_b = positions + (size_t)b * S;
@@ -523,14 +535,32 @@ paged_attention_tile_kernel(const QT* __restrict__ q,
   const int t_begin =
       window > 0 && !any_blind ? max(0, q_lo - window + 1) : 0;
   const int t_end = min(q_hi, table_end);
-  const int n_tiles = t_end >= t_begin ? (t_end - t_begin) / kKeys + 1 : 0;
+  const int n_all = t_end >= t_begin ? (t_end - t_begin) / kKeys + 1 : 0;
+  // this block's stages of the walk: n_tiles of them from key t_first
+  const int st0 = (int)((long long)split * n_all / n_split);
+  const int n_tiles = (int)((long long)(split + 1) * n_all / n_split) - st0;
+  const int t_first = t_begin + st0 * kKeys;
+  // the partials of a split walk: [split][row][DH] o, then [split][row][2]
+  // (m, l), rows in (lane, kv head, row) order
+  const int R = G * S;
+  const size_t rows_total = (size_t)gridDim.z * KV * R;
+  const size_t row0 = ((size_t)b * KV + kvh) * R + r0;
+  float* ml = partial + (size_t)n_split * rows_total * DH;
+  if (n_split > 1 && n_tiles == 0) {  // an empty part: keeps nothing
+    for (int r = tid; r < n_rows; r += kThreads) {
+      float* dst = ml + ((size_t)split * rows_total + row0 + r) * 2;
+      dst[0] = kNegInf;
+      dst[1] = 0.f;
+    }
+    return;
+  }
 
   const long long row_elems = (long long)KV * DH;
   const long long head_off = (long long)kvh * DH;
   // the offsets of the first kStages stages, then the copies of all but
   // the last of them, one commit group each
   for (int i = tid; i < kStages * kKeys; i += kThreads) {
-    const int t = t_begin + i;
+    const int t = t_first + i;
     base_s[i / kKeys][i % kKeys] =
         t <= t_end
             ? pool_offset(bt[t / page], t, page, n_pages, row_elems, head_off)
@@ -608,11 +638,11 @@ paged_attention_tile_kernel(const QT* __restrict__ q,
     __syncthreads();  // every thread's copies of this stage landed
     // the block-table entry of a key kStages stages ahead: loaded here,
     // used after this stage's compute, so that its latency hides
-    const int t_next = t_begin + (it + kStages) * kKeys + tid;
+    const int t_next = t_first + (it + kStages) * kKeys + tid;
     const bool fetch = tid < kKeys && it + kStages < n_tiles;
     int entry = 0;
     if (fetch && t_next <= t_end) entry = bt[t_next / page];
-    const int t0 = t_begin + it * kKeys + part * kPart;
+    const int t0 = t_first + it * kKeys + part * kPart;
     // warp-uniform: a row of this warp keeps a key of its part of the
     // stage (or one keeps no key at all, which needs them all)
     if (warp_live && t0 <= w_hi && t0 <= t_end &&
@@ -776,65 +806,34 @@ paged_attention_tile_kernel(const QT* __restrict__ q,
     }
   }
   if (part != 0) return;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) l[i] = fmaxf(l[i], 1e-30f);
+  // one split: the output; else the partial (m, l, unnormalised o)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = i == 0 ? ra : rb;
     if (r >= n_rows) continue;
-    const int row = r0 + r, si = row / G, h = kvh * G + row % G;
-    float* dst = out + (((size_t)b * S + si) * H + h) * DH + 2 * tig;
+    float* dst;
+    float li = 1.f;
+    if (n_split == 1) {
+      const int row = r0 + r, si = row / G, h = kvh * G + row % G;
+      dst = out + (((size_t)b * S + si) * H + h) * DH;
+      li = fmaxf(l[i], 1e-30f);
+    } else {
+      const size_t idx = (size_t)split * rows_total + row0 + r;
+      dst = partial + idx * DH;
+      if (tig == 0) {
+        ml[idx * 2] = m[i];
+        ml[idx * 2 + 1] = l[i];
+      }
+    }
+    dst += 2 * tig;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
       *reinterpret_cast<float2*>(dst + 8 * nt) =
-          make_float2(o[nt][2 * i] / l[i], o[nt][2 * i + 1] / l[i]);
+          make_float2(o[nt][2 * i] / li, o[nt][2 * i + 1] / li);
   }
 }
 
 }  // namespace tile
-
-template <typename QT, typename KVT, int DH>
-cudaError_t launch_tile(const void* q, const void* k_pages,
-                        const void* v_pages, const int* block_tables,
-                        const int* positions, float* out, int B, int S,
-                        int H, int KV, int n_pages, int page, int pmax,
-                        int window, float scale, cudaStream_t stream) {
-  auto kernel = tile::paged_attention_tile_kernel<QT, KVT, DH>;
-  constexpr size_t smem = tile::Layout<KVT, DH>::smem;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const int G = H / KV;
-  dim3 grid((G * S + tile::kRows - 1) / tile::kRows, KV, B);
-  kernel<<<grid, tile::kThreads, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KVT*>(k_pages),
-      static_cast<const KVT*>(v_pages), block_tables, positions, out, S, H,
-      KV, n_pages, page, pmax, window, scale);
-  return cudaGetLastError();
-}
-
-template <typename QT, typename KVT>
-cudaError_t dispatch_tile(int Dh, const void* q, const void* k_pages,
-                          const void* v_pages, const int* block_tables,
-                          const int* positions, float* out, int B, int S,
-                          int H, int KV, int n_pages, int page, int pmax,
-                          int window, float scale, cudaStream_t stream) {
-#define PA_TILE(DH)                                                        \
-  return launch_tile<QT, KVT, DH>(q, k_pages, v_pages, block_tables,       \
-                                  positions, out, B, S, H, KV, n_pages,    \
-                                  page, pmax, window, scale, stream)
-  switch (Dh) {
-    case 16: PA_TILE(16);
-    case 32: PA_TILE(32);
-    case 64: PA_TILE(64);
-    case 128: PA_TILE(128);
-    default: return cudaErrorInvalidValue;
-  }
-#undef PA_TILE
-}
-
 
 // ---------------------------------------------------------------------------
 // The rows instance's split path: decode steps, few rows per (lane, kv head)
@@ -1300,18 +1299,72 @@ cudaError_t dispatch(int R, const void* q, int q_bf16, const void* k_pages,
 
 }  // namespace split
 
+// The tile instance: n_split blocks a (row tile, kv head, lane), then,
+// where n_split > 1, the split path's merge of their partials
+template <typename QT, typename KVT, int DH>
+cudaError_t launch_tile(const void* q, const void* k_pages,
+                        const void* v_pages, const int* block_tables,
+                        const int* positions, float* out, float* part,
+                        int n_split, int B, int S, int H, int KV, int n_pages,
+                        int page, int pmax, int window, float scale,
+                        cudaStream_t stream) {
+  auto kernel = tile::paged_attention_tile_kernel<QT, KVT, DH>;
+  static size_t allowed[split::kMaxDevices];  // the opt-in, per device
+  constexpr size_t smem = tile::Layout<KVT, DH>::smem;
+  cudaError_t err = split::allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  const int G = H / KV;
+  dim3 grid((G * S + tile::kRows - 1) / tile::kRows * n_split, KV, B);
+  kernel<<<grid, tile::kThreads, smem, stream>>>(
+      static_cast<const QT*>(q), static_cast<const KVT*>(k_pages),
+      static_cast<const KVT*>(v_pages), block_tables, positions, out, part,
+      n_split, S, H, KV, n_pages, page, pmax, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  constexpr int DV = DH <= 64 ? 2 : DH <= 128 ? 4 : 8;
+  const int rows_total = B * H * S;
+  split::paged_attention_merge_kernel<DV>
+      <<<(rows_total + split::kWarps - 1) / split::kWarps, split::kThreads,
+         0, stream>>>(part, out, n_split, rows_total, S, H, KV, DH);
+  return cudaGetLastError();
+}
+
+template <typename QT, typename KVT>
+cudaError_t dispatch_tile(int Dh, const void* q, const void* k_pages,
+                          const void* v_pages, const int* block_tables,
+                          const int* positions, float* out, float* part,
+                          int n_split, int B, int S, int H, int KV,
+                          int n_pages, int page, int pmax, int window,
+                          float scale, cudaStream_t stream) {
+#define PA_TILE(DH)                                                        \
+  return launch_tile<QT, KVT, DH>(q, k_pages, v_pages, block_tables,       \
+                                  positions, out, part, n_split, B, S, H,  \
+                                  KV, n_pages, page, pmax, window, scale,  \
+                                  stream)
+  switch (Dh) {
+    case 16: PA_TILE(16);
+    case 32: PA_TILE(32);
+    case 64: PA_TILE(64);
+    case 128: PA_TILE(128);
+    case 256: PA_TILE(256);
+    default: return cudaErrorInvalidValue;
+  }
+#undef PA_TILE
+}
+
 }  // namespace
 
 // C entry point, loaded with ctypes. q: (B, S, H, Dh) f32 or bf16
 // (q_bf16); k_pages/v_pages: (n_pages, page, KV, Dh) f32 or bf16
 // (kv_bf16); block_tables: (B, pmax) i32; positions: (B, S) i32; out:
 // (B, S, H, Dh) f32. All contiguous. window <= 0 means none. variant:
-// 0 the rows instance, 1 the tile instance (Dh 16, 32, 64 or 128; q and
-// the pools 16-byte aligned). n_splits (rows instance only): 0 its walk
-// of many rows; n >= 1 its split path over n parts of each lane's keys
-// (G * S <= 16, and <= 8 at Dh > 128; Dh a multiple of 4; the pools
-// aligned to 4 elements), with `part` a float workspace of n * B * H * S
-// * (Dh + 2) when n > 1. Launches on `stream` and returns
+// 0 the rows instance, 1 the tile instance (Dh 16, 32, 64, 128 or 256; q
+// and the pools 16-byte aligned). n_splits: for the rows instance 0 its
+// walk of many rows, n >= 1 its split path over n parts of each lane's
+// keys (G * S <= 16, and <= 8 at Dh > 128; Dh a multiple of 4; the pools
+// aligned to 4 elements); for the tile instance n >= 1 blocks over the
+// stages of each block's walk. `part` is a float workspace of n * B * H
+// * S * (Dh + 2) when n > 1. Launches on `stream` and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for
 // arguments it does not take.
 extern "C" int paged_attention_launch(
@@ -1323,10 +1376,10 @@ extern "C" int paged_attention_launch(
   if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || Dh < 1 ||
       Dh > kMaxHeadDim || page < 1 || pmax < 1 || n_pages < 1 ||
       (variant != 0 && variant != 1) || n_splits < 0 ||
-      (variant == 1 && n_splits != 0))
+      (variant == 1 && n_splits < 1) || (n_splits > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_splits > 0) {
+  if (variant == 0 && n_splits > 0) {
     const int R = H / KV * S;
     const uintptr_t align = kv_bf16 ? 8 : 16;
     if (R > split::kMaxRows || (R > 8 && Dh > 128) || Dh % 4 != 0 ||
@@ -1348,8 +1401,8 @@ extern "C" int paged_attention_launch(
         reinterpret_cast<uintptr_t>(v_pages) % 16 != 0)
       return (int)cudaErrorInvalidValue;
 #define PA_ARGS                                                              \
-  Dh, q, k_pages, v_pages, block_tables, positions, out, B, S, H, KV,       \
-      n_pages, page, pmax, window, scale, st
+  Dh, q, k_pages, v_pages, block_tables, positions, out, part, n_splits, B, \
+      S, H, KV, n_pages, page, pmax, window, scale, st
     cudaError_t err;
     if (q_bf16 && kv_bf16)
       err = dispatch_tile<__nv_bfloat16, __nv_bfloat16>(PA_ARGS);

@@ -13,8 +13,11 @@ by `work` (`build.kernel_call`).
 
 The kernel has two instances (`kernel_variant` picks one per call):
 "rows" for few query rows per (lane, kv head), the engine's decode
-steps, and "tile", tensor-core tiles of 64 query rows, for the
-engine's prefill chunks.
+steps, and "tile", tensor-core tiles of 64 query rows at Dh 16, 32, 64,
+128 or 256, for the engine's prefill chunks. Where the tile instance's
+grid of (row tile, kv head, lane) blocks would fill less than half the
+card (gemma_2b's chunk: 32 blocks), `tile_plan` cuts each block's walk
+into parts, a block each, whose partials the split path's merge adds.
 
 A decode step is bound by the pool's bytes: each K/V row a lane's
 query can see is read once, for about G / 2 FLOP a byte of an f32 pool.
@@ -26,7 +29,8 @@ K/V row is read once for the whole query group, and walks one of
 positions on the device) with pipelined copies; a second kernel adds
 the parts. The plan reads shapes only, never the device's positions,
 so a decode step takes no host sync. Larger rows-instance calls keep
-its walk of many rows.
+its walk of many rows. The plan is shared with flash attention
+(`kernels.plan`).
 """
 from __future__ import annotations
 
@@ -35,8 +39,9 @@ import pathlib
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, plan
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.plan import CARD_SMS, SPLIT_MAX_ROWS  # noqa: F401
 
 NAME = "paged_attention"
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
@@ -46,13 +51,9 @@ VARIANTS = ("rows", "tile")          # the C entry's variant 0 and 1
 # the tile instance takes a call with at least this many query rows per
 # (lane, kv head), G * S, at one of these head dims
 TILE_MIN_ROWS = 16
-TILE_HEAD_DIMS = (16, 32, 64, 128)
-# the rows instance's split path: at most this many query rows per
-# (lane, kv head) (8 above Dh 128, its registers' limit), parts of at
-# least this many keys, enough of them to give every SM of an H100 a block
-SPLIT_MAX_ROWS = 16
-SPLIT_MIN_KEYS = 32
-CARD_SMS = 132
+TILE_HEAD_DIMS = (16, 32, 64, 128, 256)
+TILE_ROWS = 64      # query rows a tile-instance block holds
+TILE_KEYS = 32      # keys a stage of its walk
 
 
 def kernel_variant(group: int, s: int, head_dim: int) -> str:
@@ -70,22 +71,29 @@ def split_takes(rows: int, head_dim: int) -> bool:
     """Whether the rows instance's split path takes a call of `rows` =
     G * S query rows per (lane, kv head) at `head_dim`: every decode
     step of the shipped configurations."""
-    return (rows <= SPLIT_MAX_ROWS and head_dim % 4 == 0
+    return (rows <= plan.SPLIT_MAX_ROWS and head_dim % 4 == 0
             and (rows <= 8 or head_dim <= 128))
 
 
 def split_plan(batch: int, kv_heads: int, rows: int, head_dim: int,
                max_keys: int) -> int:
-    """The number of parts the split path cuts each lane's keys into, from
-    shapes and host ints alone (`max_keys`: the keys a lane's table can
-    hold, Pmax * page): enough that batch * kv_heads * n blocks give
-    every SM a block, each part at least SPLIT_MIN_KEYS keys long; 1 where
-    the grid already fills the card. 0: the call is not the split path's
-    (`split_takes`), the rows instance walks it as many rows."""
-    if not split_takes(rows, head_dim):
-        return 0
-    fill = -(-CARD_SMS // (batch * kv_heads))
-    return max(1, min(fill, max_keys // SPLIT_MIN_KEYS))
+    """`plan.split_plan` for this kernel's split path (`split_takes`;
+    `max_keys`: the keys a lane's table can hold, Pmax * page)."""
+    return plan.split_plan(split_takes, batch, kv_heads, rows, head_dim,
+                           max_keys)
+
+
+def tile_plan(batch: int, kv_heads: int, rows: int, max_keys: int) -> int:
+    """The number of blocks the tile instance gives each (row tile, kv
+    head, lane), each walking its share of the block's stages of
+    TILE_KEYS keys, from shapes and host ints alone (`rows`: G * S;
+    `max_keys`: Pmax * page): 1 where the grid's blocks fill at least
+    half the card's SMs; else as many as one wave holds (CARD_SMS //
+    blocks), at most one a stage the table can give."""
+    blocks = batch * kv_heads * -(-rows // TILE_ROWS)
+    if 2 * blocks >= plan.CARD_SMS:
+        return 1
+    return max(1, min(plan.CARD_SMS // blocks, -(-max_keys // TILE_KEYS)))
 
 
 def _entry():
@@ -100,7 +108,7 @@ def _entry():
 
 
 def _check(q, k_pages, v_pages, block_tables, positions, window, variant,
-           splits):
+           splits, tile_parts):
     b, s, h, hd = q.shape
     if k_pages.dim() != 4:
         raise ValueError(f"k_pages must be (P, page, KV, Dh), got "
@@ -133,13 +141,19 @@ def _check(q, k_pages, v_pages, block_tables, positions, window, variant,
             raise ValueError(f"splits must be 0 (the walk of many rows) or, "
                              f"where the split path takes the call "
                              f"(split_takes), >= 1; got {splits!r}")
+    if tile_parts is not None:
+        if (variant or kernel_variant(h // kvh, s, hd)) != "tile":
+            raise ValueError("tile_parts names a path of the tile instance")
+        if not isinstance(tile_parts, int) or tile_parts < 1:
+            raise ValueError(f"tile_parts must be >= 1, got {tile_parts!r}")
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, positions, *,
                     window: int | None = None,
                     scale: float | None = None,
                     variant: str | None = None,
-                    splits: int | None = None) -> torch.Tensor:
+                    splits: int | None = None,
+                    tile_parts: int | None = None) -> torch.Tensor:
     """Fused paged attention over one layer's page pool.
 
     q:            (B, S, H, Dh) queries (S = chunk, or 1 for decode)
@@ -157,6 +171,9 @@ def paged_attention(q, k_pages, v_pages, block_tables, positions, *,
                   `split_plan`'s count, n >= 1 forces n parts of the split
                   path, 0 its walk of many rows; the chip smoke names
                   them to hold each against the plain version.
+    tile_parts:   the tile instance's blocks per (row tile, kv head,
+                  lane), each on its share of the walk: None (the serve
+                  path) takes `tile_plan`'s count, n >= 1 forces n.
 
     Returns the context tensor (B, S, H, Dh) f32: a query at position
     p attends to kv positions t <= p (and t > p - window when set) of
@@ -165,7 +182,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, positions, *,
     build.refuse_autograd(NAME, "the gather core (attn_impl='gather')", q,
                           k_pages, v_pages)
     _check(q, k_pages, v_pages, block_tables, positions, window, variant,
-           splits)
+           splits, tile_parts)
     b, s, h, hd = q.shape
     if scale is None:
         scale = 1.0 / (hd**0.5)
@@ -180,7 +197,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, positions, *,
                 scale=scale))
         return _launch(q, k_pages, v_pages, block_tables, positions,
                        window=window, scale=scale, variant=variant,
-                       splits=splits)
+                       splits=splits, tile_parts=tile_parts)
 
 
 def _output(q) -> torch.Tensor:
@@ -219,7 +236,7 @@ def work(q, k_pages, block_tables, positions, *,
 
 
 def _launch(q, k_pages, v_pages, block_tables, positions, *, window, scale,
-            variant, splits):
+            variant, splits, tile_parts):
     b, s, h, hd = q.shape
     tensors = (q, k_pages, v_pages, block_tables, positions)
     if not all(t.device.type == "cuda" and t.device == q.device
@@ -247,10 +264,12 @@ def _launch(q, k_pages, v_pages, block_tables, positions, *, window, scale,
         q = q.clone()                # the tile instance reads 16 bytes
     bt = block_tables.to(torch.int32).contiguous()
     pos = positions.to(torch.int32).contiguous()
-    n_splits = 0
-    if variant == "rows":
-        n_splits = (split_plan(b, k_pages.shape[2], g * s, hd,
-                               bt.shape[1] * k_pages.shape[1])
+    max_keys = bt.shape[1] * k_pages.shape[1]
+    if variant == "tile":
+        n_splits = (tile_plan(b, k_pages.shape[2], g * s, max_keys)
+                    if tile_parts is None else tile_parts)
+    else:
+        n_splits = (split_plan(b, k_pages.shape[2], g * s, hd, max_keys)
                     if splits is None else splits)
         # the split path copies 4 elements at a time
         if n_splits and any(t.data_ptr() % (4 * t.element_size())
@@ -258,7 +277,7 @@ def _launch(q, k_pages, v_pages, block_tables, positions, *, window, scale,
             raise ValueError("the split path needs pools aligned to 4 "
                              "elements")
     out = _output(q)
-    # the split path's partials: (m, l, o) of every row and part
+    # the split walks' partials: (m, l, o) of every row and part
     part = (torch.empty(n_splits * b * s * h * (hd + 2), dtype=torch.float32,
                         device=q.device) if n_splits > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -260,9 +260,11 @@ F32, BF16 = torch.float32, torch.bfloat16
     (BF16, F32, F32, 1024, 128, "rows"),
     (F32, F32, F32, 256, 128, "rows"),      # the f32 static path
     (F32, BF16, None, 256, 128, "rows"),    # f32 q
-    (BF16, F32, BF16, 1024, 256, "rows"),   # gemma_2b's D: no tile
+    (BF16, F32, BF16, 1024, 256, "tile"),   # gemma_2b's D
     (BF16, BF16, None, 64, 96, "rows"),
     (BF16, BF16, None, 64, 8, "rows"),
+    (BF16, F32, BF16, 1024, 112, "tile"),   # zamba2_7b's D
+    (BF16, F32, BF16, 1, 112, "rows"),      # its decode steps
 ])
 def test_kernel_variant(q_dt, kv_dt, kv_cast, sq, d, want):
     assert kernel_variant(q_dt, kv_dt, kv_cast, sq, d) == want
@@ -293,7 +295,13 @@ def test_variant_is_validated_before_dispatch():
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 NEG2 = np.float32(-1e30 * LOG2E)      # -1e30 in base 2, as the kernel
-CHUNK, BLOCK_ROWS, WARP_ROWS = 64, 128, 16
+BLOCK_ROWS, WARP_ROWS = 128, 16
+
+
+def _chunk(d: int) -> int:
+    """Keys a chunk of the tile instance: 64, or 32 at D 256, where Q
+    sits in shared memory beside the chunks."""
+    return 32 if d > 128 else 64
 
 
 def _split_p(p: torch.Tensor):
@@ -332,8 +340,9 @@ def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _tile_emulation(q, k, v, *, causal=True, window=None, kv_len=None,
                     q_offset=0, scale=None, bq=128, bk=128, kv_cast=None):
     """The tile instance's algorithm in torch. Per (batch, query head):
-    blocks of 128 query rows, each walking chunks of 64 keys from its
-    first row's first tile to its last row's last; a chunk is loaded
+    blocks of 128 query rows, each walking chunks of 64 keys (32 at D
+    256, `_chunk`) from its first row's first tile to its last row's
+    last; a chunk is loaded
     when a row of the block needs it and taken by each warp of 16 rows
     that has such a row. A row needs the chunks that hold a key it keeps
     among those it visits, or, keeping none, every visited one. Q.K is
@@ -345,6 +354,7 @@ def _tile_emulation(q, k, v, *, causal=True, window=None, kv_len=None,
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     g = hq // hkv
+    chunk = _chunk(d)
     scale = d ** -0.5 if scale is None else scale
     scale2 = torch.tensor(scale, dtype=F32) * torch.tensor(LOG2E, dtype=F32)
     kv_len = sk if kv_len is None else min(kv_len, sk)
@@ -352,7 +362,7 @@ def _tile_emulation(q, k, v, *, causal=True, window=None, kv_len=None,
     if kv_cast is not None:
         k, v = k.to(kv_cast), v.to(kv_cast)
     qf, kf, vf = (t.float() for t in (q, k, v))
-    pad = CHUNK + bk                        # keys past Sk load as zeros
+    pad = chunk + bk                        # keys past Sk load as zeros
     kf = torch.nn.functional.pad(kf, (0, 0, 0, nk * bk + pad - sk))
     vf = torch.nn.functional.pad(vf, (0, 0, 0, nk * bk + pad - sk))
 
@@ -381,7 +391,7 @@ def _tile_emulation(q, k, v, *, causal=True, window=None, kv_len=None,
         return v_lo, v_hi, k_lo, k_hi, e_lo, e_hi
 
     def needs(r, c0):
-        return r[4] < r[5] and r[4] < c0 + CHUNK and r[5] > c0
+        return r[4] < r[5] and r[4] < c0 + chunk and r[5] > c0
 
     o = torch.zeros((b, hq, sq, d))
     lse = torch.zeros((b, hq, sq))
@@ -391,14 +401,14 @@ def _tile_emulation(q, k, v, *, causal=True, window=None, kv_len=None,
         keys = [row_keys(r) for r in rows]
         c_begin = tile_range(rows[0] // bq)[0] * bk
         c_end = min((tile_range(rows[-1] // bq)[1] + 1) * bk, nk * bk)
-        chunks = [c0 for c0 in range(c_begin, c_end, CHUNK)
+        chunks = [c0 for c0 in range(c_begin, c_end, chunk)
                   if any(needs(r, c0) for r in keys)]
         for w0 in range(0, len(rows), WARP_ROWS):
             wk = keys[w0:w0 + WARP_ROWS]
             wr = torch.tensor(rows[w0:w0 + WARP_ROWS])
             mine = [c0 for c0 in chunks if any(needs(r, c0) for r in wk)]
             for r in wk:                      # the walk covers every need
-                assert all(any(c0 <= c < c0 + CHUNK for c0 in mine)
+                assert all(any(c0 <= c < c0 + chunk for c0 in mine)
                            for c in range(r[4], r[5]))
             v_lo, v_hi, k_lo, k_hi = (torch.tensor([r[i] for r in wk])[:, None]
                                       for i in range(4))
@@ -409,9 +419,9 @@ def _tile_emulation(q, k, v, *, causal=True, window=None, kv_len=None,
                     lsum = torch.zeros(len(wr))
                     acc = torch.zeros((len(wr), d))
                     for c0 in mine:
-                        c = torch.arange(c0, c0 + CHUNK)[None]
-                        kk = kf[bi, h // g, c0:c0 + CHUNK]
-                        vv = vf[bi, h // g, c0:c0 + CHUNK]
+                        c = torch.arange(c0, c0 + chunk)[None]
+                        kk = kf[bi, h // g, c0:c0 + chunk]
+                        vv = vf[bi, h // g, c0:c0 + chunk]
                         x = _mm_bf16(qw, kk.T) * scale2
                         x = torch.where((c >= k_lo) & (c < k_hi), x,
                                         torch.tensor(NEG2))
@@ -470,6 +480,15 @@ TILE_CASES = [
     #                                         prefill's layout, cut down
     (33, 70, 64, "bf16", False, None, 0, 50, (16, 32)),
     (100, 100, 128, "cast", True, None, "end", 0, (64, 64)),   # no key
+    # zamba2_7b's D 112 and gemma_2b's D 256 (32-key chunks): the static
+    # prefill's layout cut down, a window with rows past kv_len, ragged
+    # Sq over a shifted causal mask, a row block that keeps no key
+    (130, 160, 112, "cast", True, None, 0, 130, (128, 128)),
+    (130, 194, 112, "bf16", True, 16, "end", 150, (64, 16)),
+    (130, 160, 256, "cast", True, None, 0, 130, (128, 128)),
+    (130, 194, 256, "bf16", True, 1, "end", 150, (64, 16)),
+    (33, 65, 256, "cast", True, 16, "end", None, (16, 32)),
+    (100, 100, 256, "cast", True, None, "end", 0, (64, 64)),
 ]
 
 
@@ -503,8 +522,8 @@ def test_tile_emulation_matches_the_plain_version_and_pallas(case):
 
 
 # (D, G) of the configurations the card runs from chip_smoke phase 36 on:
-# gemma_2b's D 256 at G 8 (the rows instance only), qwen3_14b's G 5 and
-# deepseek_coder_33b's G 7 at D 128
+# gemma_2b's D 256 at G 8, qwen3_14b's G 5 and deepseek_coder_33b's G 7
+# at D 128
 NEW_GEOMETRIES = [(256, 8), (128, 5), (128, 7)]
 # (sq, sk, window, q_offset, kv_len, (bq, bk)): a causal prefill; a
 # prefill whose later rows keep no key (window 3, kv_len 16); a decode row
@@ -520,8 +539,8 @@ NEW_CASES = [(64, 64, None, 0, None, (32, 32)),
 def test_new_geometries_match_the_pallas_kernel(d, group, case):
     """At each new (D, G): the port's wrapper (the plain version, on CPU
     tensors) within 2e-5 of the Pallas kernel in interpret mode on o and
-    lse, block counts equal, f32 operands; at D 128 (a tile head dim)
-    the tile instance's algorithm, emulated on bf16 q over K/V rounded by
+    lse, block counts equal, f32 operands; the tile instance's algorithm
+    (at D 256 in 32-key chunks), emulated on bf16 q over K/V rounded by
     kv_cast (the static path), within 2e-4 of the plain version, and
     `kernel_variant` sends a prefill there and a decode to rows."""
     sq, sk, window, q_offset, kv_len, (bq, bk) = case

@@ -28,6 +28,7 @@ from repro_torch.kernels.paged_attention.paged_attention import (  # noqa: E402
     TILE_HEAD_DIMS,
     VARIANTS,
     kernel_variant,
+    tile_plan,
 )
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -163,7 +164,8 @@ def test_shape_validation():
     (1, 15, 128, "rows"),
     (1, 16, 64, "tile"),
     (4, 7, 16, "tile"),       # 28 rows: a ragged 64-row block
-    (4, 32, 256, "rows"),     # gemma_2b's Dh: no tile instance
+    (4, 32, 256, "tile"),     # gemma_2b's Dh (G 8 x 32 rows, any G * S
+    #                           >= 16 alike)
     (4, 32, 8, "rows"),
     (4, 32, 96, "rows"),
 ])
@@ -248,16 +250,19 @@ def test_3xtf32_dot_is_f32_accurate(n):
 
 
 def _tile_emulation(q, kp, vp, bt, pos, *, window=None, scale=None,
-                    rows=64, keys=32, warp_rows=16, split=2):
+                    rows=64, keys=32, warp_rows=16, split=2, parts=None):
     """The tile instance's algorithm in torch: blocks of 64 query rows
     of one (lane, kv head) in (position, head-in-group) order; a walk
     over [first row's p - window + 1, last row's p] in stages of 32 keys
     clipped to the table (the whole table when a row of the block keeps
-    no key); each 16-row tile taken by `split` warps, each on its part
+    no key), its n stages shared by `parts` blocks (`tile_plan`'s count
+    when None), block i taking stages [i n / parts, (i + 1) n / parts);
+    in a block each 16-row tile taken by `split` warps, each on its part
     of every stage, skipping a part none of its rows keeps a key of; an
     online softmax per warp with -1e30 masking and absent keys past the
-    walk; the warps' (m, l, o) merged at the end; Q.K and P.V in
-    3xTF32."""
+    walk; the warps' (m, l, o) merged at the end of a block, then the
+    blocks' by the split path's merge rule (`_merge_parts`); Q.K and P.V
+    in 3xTF32."""
     b, s, h, hd = q.shape
     n_pages, page, kvh, _ = kp.shape
     g = h // kvh
@@ -266,6 +271,42 @@ def _tile_emulation(q, kp, vp, bt, pos, *, window=None, scale=None,
     kv_exact = kp.dtype == torch.bfloat16
     table_end = bt.shape[1] * page - 1
     part_keys = keys // split
+    if parts is None:
+        parts = tile_plan(b, kvh, g * s, bt.shape[1] * page)
+
+    def warp_part(bi, kh, qw, pw, stages, t_end, part):
+        """(m, l, o) of one warp on its part of `stages`."""
+        w_lo, w_hi = int(pw[0]), int(pw[-1])
+        w_blind = bool(window) and w_hi - window + 1 > table_end
+        m = torch.full((len(pw),), -1e30)
+        lsum = torch.zeros(len(pw))
+        o = torch.zeros((len(pw), hd))
+        for st in stages:
+            t0 = st + part * part_keys
+            if t0 > w_hi or t0 > t_end or (
+                    window and not w_blind
+                    and t0 + part_keys - 1 <= w_lo - window):
+                continue
+            t = torch.arange(t0, t0 + part_keys)
+            present = t <= t_end
+            tc = t.clamp(max=t_end)
+            pid = bt[bi, tc // page].long().clamp(0, n_pages - 1)
+            kk = kp[pid, tc % page, kh] * present[:, None]
+            vv = vp[pid, tc % page, kh] * present[:, None]
+            sc = _mm3(qw, kk.T, q_exact, kv_exact) * scale
+            keep = present & (t[None] <= pw[:, None])
+            if window:
+                keep &= t[None] > pw[:, None] - window
+            sc = torch.where(keep, sc, torch.tensor(-1e30))
+            m_new = torch.maximum(m, sc.amax(1))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(present, torch.exp(sc - m_new[:, None]),
+                            torch.tensor(0.0))
+            lsum = lsum * alpha + p.sum(1)
+            o = o * alpha[:, None] + _mm3(p, vv, False, kv_exact)
+            m = m_new
+        return m, lsum, o
+
     out = torch.zeros((b, s, h, hd))
     for bi in range(b):
         for kh in range(kvh):
@@ -278,54 +319,42 @@ def _tile_emulation(q, kp, vp, bt, pos, *, window=None, scale=None,
                 t_begin = (max(0, q_lo - window + 1)
                            if window and not blind else 0)
                 t_end = min(q_hi, table_end)
+                n_all = (t_end - t_begin) // keys + 1 if t_end >= t_begin \
+                    else 0
                 for w0 in range(0, len(p_blk), warp_rows):
                     pw = p_blk[w0:w0 + warp_rows]
                     qw = qr[r0 + w0:r0 + w0 + len(pw)]
-                    w_lo, w_hi = int(pw[0]), int(pw[-1])
-                    w_blind = bool(window) and w_hi - window + 1 > table_end
-                    states = []
-                    for part in range(split):
-                        m = torch.full((len(pw),), -1e30)
-                        lsum = torch.zeros(len(pw))
-                        o = torch.zeros((len(pw), hd))
-                        for st in range(t_begin, t_end + 1, keys):
-                            t0 = st + part * part_keys
-                            if t0 > w_hi or t0 > t_end or (
-                                    window and not w_blind
-                                    and t0 + part_keys - 1 <= w_lo - window):
-                                continue
-                            t = torch.arange(t0, t0 + part_keys)
-                            present = t <= t_end
-                            tc = t.clamp(max=t_end)
-                            pid = bt[bi, tc // page].long().clamp(
-                                0, n_pages - 1)
-                            kk = kp[pid, tc % page, kh] * present[:, None]
-                            vv = vp[pid, tc % page, kh] * present[:, None]
-                            sc = _mm3(qw, kk.T, q_exact, kv_exact) * scale
-                            keep = present & (t[None] <= pw[:, None])
-                            if window:
-                                keep &= t[None] > pw[:, None] - window
-                            sc = torch.where(keep, sc, torch.tensor(-1e30))
-                            m_new = torch.maximum(m, sc.amax(1))
-                            alpha = torch.exp(m - m_new)
-                            p = torch.where(present,
-                                            torch.exp(sc - m_new[:, None]),
-                                            torch.tensor(0.0))
-                            lsum = lsum * alpha + p.sum(1)
-                            o = o * alpha[:, None] + _mm3(p, vv, False,
-                                                          kv_exact)
-                            m = m_new
-                        states.append((m, lsum, o))
-                    mm = torch.stack([st[0] for st in states]).amax(0)
-                    lsum = sum(st[1] * torch.exp(st[0] - mm)
-                               for st in states)
-                    o = sum(st[2] * torch.exp(st[0] - mm)[:, None]
-                            for st in states)
-                    res = o / lsum.clamp(min=1e-30)[:, None]
+                    blocks = []
+                    for i in range(parts):
+                        stages = range(t_begin + i * n_all // parts * keys,
+                                       t_begin + (i + 1) * n_all // parts
+                                       * keys, keys)
+                        states = [warp_part(bi, kh, qw, pw, stages, t_end,
+                                            part) for part in range(split)]
+                        mm = torch.stack([st[0] for st in states]).amax(0)
+                        blocks.append((mm, sum(st[1] * torch.exp(st[0] - mm)
+                                               for st in states),
+                                       sum(st[2] * torch.exp(st[0] - mm)
+                                           [:, None] for st in states)))
+                    res = _merge_parts(blocks)
                     for i in range(len(pw)):
                         row = r0 + w0 + i
                         out[bi, row // g, kh * g + row % g] = res[i]
     return out
+
+
+def _merge_parts(states):
+    """The split path's merge of (m, l, unnormalised o) partials, in
+    order: M = max m_i, L = sum l_i e^(m_i - M) over the partials with
+    l_i > 0 (an empty one adds nothing), o = the same sum of o_i e^(m_i
+    - M), divided by max(L, 1e-30)."""
+    m = torch.stack([st[0] for st in states]).amax(0)
+    lsum, o = torch.zeros_like(m), torch.zeros_like(states[0][2])
+    for mi, li, oi in states:
+        w = torch.where(li > 0, torch.exp(mi - m), torch.tensor(0.0))
+        lsum = lsum + li * w
+        o = o + oi * w[:, None]
+    return o / lsum.clamp(min=1e-30)[:, None]
 
 
 def _chunk_operands(seed, *, s, window, group=4, hd=128):
@@ -447,6 +476,86 @@ def test_tile_emulation_matches_reference(s, window, q_bf16):
     assert keeps[3].any() and (window is None) == keeps.all()
 
 
+@pytest.mark.parametrize("parts", [1, 2, 3, None])
+@pytest.mark.parametrize("window", [None, 3])
+@pytest.mark.parametrize("hd,group", [(256, 8), (128, 4)])
+def test_tile_split_emulation_matches_reference(hd, group, window, parts):
+    """The tile instance with each block's walk shared by `parts` blocks
+    (1: one block walks it all; None: `tile_plan`'s count, 2 here, since
+    the 4 lanes x 2 kv heads x 2-4 row tiles fill little of the card),
+    at gemma_2b's Dh 256 and G 8 and at Dh 128, G 4: emulated, within
+    2e-4 of the plain version and of the JAX oracle on every row (the
+    rows that keep no key average V over the whole table through every
+    part), and of the Pallas kernel on every row that keeps a key. With
+    3 parts over 2 stages one part is empty."""
+    q, kp, vp, bt, pos = _chunk_operands(hd + group + (window or 0),
+                                         s=32, window=window, group=group,
+                                         hd=hd)
+    tq = torch.from_numpy(q).to(torch.bfloat16)
+    q = tq.float().numpy()
+    tk, tv, tb, tp = (torch.from_numpy(a) for a in (kp, vp, bt, pos))
+    assert tile_plan(4, 2, group * 32, bt.shape[1] * kp.shape[1]) == 2
+    got = _tile_emulation(tq, tk, tv, tb, tp, window=window,
+                          parts=parts).numpy()
+    plain = paged_attention_ref(tq, tk, tv, tb, tp, window=window).numpy()
+    jargs = [jnp.asarray(a) for a in (q, kp, vp, bt, pos)]
+    oracle = np.asarray(jax_paged_ref(*jargs, window=window))
+    pallas = np.asarray(jax_paged(*jargs, window=window))
+    tol = dict(rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got, plain, **tol)
+    np.testing.assert_allclose(got, oracle, **tol)
+    keeps = _keeps_a_key(pos, bt.shape[1], kp.shape[1], window)
+    np.testing.assert_allclose(got[keeps], pallas[keeps], **tol)
+    assert (window is None) == keeps.all()
+
+
+# (B, KV, G, S, Pmax * page, want): the engine's prefill chunks at the
+# timed shapes (8 lanes, 37 pages of 8) of qwen3_8b, qwen2_moe_a2_7b,
+# gemma_2b, qwen3_14b, dbrx_132b and deepseek_coder_33b; the CPU tests'
+# and chip_smoke's small grids
+TILE_PLAN_CASES = [(8, 8, 4, 32, 296, 1), (8, 16, 1, 32, 296, 1),
+                   (8, 1, 8, 32, 296, 4), (8, 8, 5, 32, 296, 1),
+                   (8, 8, 6, 32, 296, 1), (8, 8, 7, 32, 296, 1),
+                   (4, 2, 4, 32, 56, 2), (4, 2, 4, 32, 2016, 8),
+                   (1, 1, 1, 16, 2000, 63)]
+
+
+@pytest.mark.parametrize("b,kvh,group,s,max_keys,want", TILE_PLAN_CASES)
+def test_tile_plan_at_the_timed_shapes(b, kvh, group, s, max_keys, want):
+    """The tile instance's part count from shapes and host ints alone (the
+    same from meta tensors): 1 where its blocks fill half the card or
+    more; else as many as one wave of the card holds, at most one a
+    stage of 32 keys of the table."""
+    q = torch.empty((b, s, kvh * group, 16), device="meta")
+    bt = torch.empty((b, max_keys // 8), dtype=torch.int32, device="meta")
+    n = tile_plan(q.shape[0], kvh, q.shape[2] // kvh * q.shape[1],
+                  bt.shape[1] * 8)
+    assert n == want and type(n) is int
+    blocks = b * kvh * -(-group * s // 64)
+    assert (want == 1) == (2 * blocks >= CARD_SMS) or want == -(-max_keys
+                                                                 // 32)
+    assert blocks * want <= CARD_SMS or want == 1
+
+
+def test_the_tile_parts_argument_is_validated_before_dispatch():
+    """`tile_parts` is checked on every device: n >= 1 only where the tile
+    instance runs, never beside the rows instance; on the CPU every count
+    gives the plain version, and on meta tensors the output's shape."""
+    q, kp, vp, bt, pos = (torch.from_numpy(a) for a in _chunk_operands(
+        5, s=8, window=None, hd=16))
+    want = paged_attention_ref(q, kp, vp, bt, pos)
+    for parts in (None, 1, 2, 5):
+        got = paged_attention(q, kp, vp, bt, pos, tile_parts=parts)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    for parts, kw in ((0, {}), (-1, {}), (1.5, {}), (2, dict(variant="rows"))):
+        with pytest.raises(ValueError, match="tile_parts"):
+            paged_attention(q, kp, vp, bt, pos, tile_parts=parts, **kw)
+    with pytest.raises(ValueError, match="tile_parts"):   # a decode step
+        paged_attention(q[:, :1], kp, vp, bt, pos[:, :1], tile_parts=1)
+    meta = [t.to("meta") for t in (q, kp, vp, bt, pos)]
+    assert paged_attention(*meta, tile_parts=3).shape == q.shape
+
+
 def test_tile_emulation_long_table():
     """2000 keys behind a 32-token chunk: the compensated products keep
     the error flat with depth (f32 pool, bf16 queries, as the engine)."""
@@ -495,8 +604,7 @@ def test_rows_emulation_matches_reference_on_every_row(s, window):
 
 
 # (Dh, G) of the configurations the card runs from chip_smoke phase 36 on:
-# gemma_2b's MQA at Dh 256 (8 query heads a kv head; the rows instance
-# only, 256 is not a tile head dim), qwen3_14b's G 5 and
+# gemma_2b's MQA at Dh 256 (8 query heads a kv head), qwen3_14b's G 5 and
 # deepseek_coder_33b's G 7 at Dh 128 (groups that are not powers of two,
 # so the rows instance's 16-row blocks straddle positions)
 NEW_GEOMETRIES = [(256, 8), (128, 5), (128, 7)]
