@@ -12,7 +12,9 @@ without printing a result:
   2. build every kernel of the serve path from the checkout's sources
      (nvcc, sm_90a), timed as set-up; the registers and spill stores of
      the tensor-core instances and of the rows instances' split path and
-     merge kernels (none may spill);
+     merge kernels (none may spill); each attention library's launch
+     argument block (`*_launch_args_bytes()`) against its wrapper's
+     ctypes mirror;
   3. hold each kernel against its plain PyTorch version on the card
      over a grid of cases, with the tolerance stated per kernel
      (paged_attention through both its instances, rows and tile, on
@@ -37,7 +39,12 @@ without printing a result:
      at a prefill chunk and flash_attention at the static prefill: also
      the other instance and the f32 bound; at a decode step the split
      path on the device alone (a CUDA graph) beside the library call's
-     and the other instance's, and the walk of many rows it replaced;
+     and the other instance's, and the walk of many rows it replaced,
+     and a graph's replay of the call against the eager call, bit for
+     bit; at the decode steps and paged_attention's prefill chunks the
+     host µs a call of the kernel and of the library call: perf_counter
+     around 50 back-to-back calls, a synchronize before and none
+     inside, the median of 5 such runs);
      sc_matmul int8: the ratio to torch._int_mm; artemis_mxu: the ratio
      to int8; artemis: the device time of each of its kernels);
   5. drain the paged-KV engine at the full qwen3_8b width (36 layers,
@@ -290,6 +297,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import json
@@ -685,6 +693,8 @@ def time_paged_attention(cfg) -> list[dict]:
                                  f"{err.max().item():.3e}")
         ms = cuda_time_ms(lambda i: paged_attention(
             q, kps[i % n_layers], vps[i % n_layers], bt, pos, scale=scale), 50)
+        host_ms = _host_ms(lambda i: paged_attention(
+            q, kps[i % n_layers], vps[i % n_layers], bt, pos, scale=scale))
         ms_by_variant = {variant: ms}
         split = {}
         n_splits = split_plan(b, kvh, h // kvh * s, hd, pmax * page)
@@ -699,6 +709,11 @@ def time_paged_attention(cfg) -> list[dict]:
                 raise AssertionError(f"paged_attention's walk disagrees with "
                                      f"its plain version at the {label} "
                                      f"shape")
+            if not _graph_matches_eager(lambda i: paged_attention(
+                    q, kp[0], vp[0], bt, pos, scale=scale)):
+                raise AssertionError(f"paged_attention's CUDA-graph replay "
+                                     f"differs from its eager call at the "
+                                     f"{label} shape")
             split = dict(
                 splits=n_splits,
                 device_ms=_graph_ms(lambda i: paged_attention(
@@ -736,6 +751,7 @@ def time_paged_attention(cfg) -> list[dict]:
                 scale=scale, enable_gqa=True)
 
         library_ms = cuda_time_ms(sdpa, 50)
+        library_host_ms = _host_ms(sdpa)
         if split:
             split["library_device_ms"] = _graph_ms(sdpa)
         del kall, vall
@@ -765,8 +781,8 @@ def time_paged_attention(cfg) -> list[dict]:
         row = dict(
             shape=label, B=b, S=s, H=h, KV=kvh, Dh=hd,
             tokens_per_lane=tokens, variant=variant,
-            max_abs_err=err.max().item(), ms=ms,
-            ms_by_variant=ms_by_variant,
+            max_abs_err=err.max().item(), ms=ms, host_ms=host_ms,
+            library_host_ms=library_host_ms, ms_by_variant=ms_by_variant,
             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             bound_f32_ms=bound_f32_ms, declared_bound_ms=declared_ms,
@@ -795,10 +811,12 @@ def time_paged_attention(cfg) -> list[dict]:
                       if variant == "tile" else "")
         log(f"  {label:13s} B {b} S {s:2d} G {h // kvh} Dh {hd} ({variant}"
             f"{parts_note}): "
-            f"max err {err.max().item():.2e} | kernel {ms*1e3:8.2f} us"
+            f"max err {err.max().item():.2e} | kernel {ms*1e3:8.2f} us, "
+            f"host {host_ms*1e3:6.2f} us a call"
             + f" ({other_note}){split_note}"
             + f" | plain {plain_ms*1e3:8.2f} us | sdpa "
-            f"{library_ms*1e3:8.2f} us | bound {bound_ms*1e3:6.2f} us "
+            f"{library_ms*1e3:8.2f} us, host {library_host_ms*1e3:6.2f} us "
+            f"a call | bound {bound_ms*1e3:6.2f} us "
             f"({row['bound_by']}: {n_bytes/1e6:.1f} MB, {flops/1e9:.3f} "
             f"GFLOP) {bound_ms/ms:.1%} of it | f32 bound "
             f"{bound_f32_ms*1e3:6.2f} us {bound_f32_ms/ms:.1%} of it | "
@@ -1106,6 +1124,45 @@ def _graph_ms(fn, n_calls=20, replays=5):
     ms = start.elapsed_time(stop) / (replays * n_calls)
     del graph
     return ms
+
+
+def _host_ms(fn, n_calls=50, repeats=5) -> float:
+    """Host ms a call of fn(i): perf_counter around n_calls back-to-back
+    calls, with a synchronize before and none inside, so it reads what
+    the host spends to enqueue a call (the wrapper's Python, its
+    allocations and the launches), not the device's time; the median of
+    `repeats` such runs, as the host's cores are shared."""
+    import torch
+    fn(0)
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_calls):
+            fn(i)
+        runs.append((time.perf_counter() - t0) * 1e3 / n_calls)
+    torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
+def _graph_matches_eager(fn) -> bool:
+    """Whether a CUDA graph's replay of the call fn(0) gives the eager
+    call's outputs bit for bit (the wrappers' workspace under capture:
+    the captured call takes a buffer of its own)."""
+    import torch
+    eager = fn(0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn(0)
+    graph.replay()
+    torch.cuda.synchronize()
+    pairs = (zip(eager, captured) if isinstance(eager, tuple)
+             else [(eager, captured)])
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in pairs)
+    del graph
+    return same
 
 
 def _kernel_us(fn, n_calls=10) -> dict:
@@ -1598,6 +1655,10 @@ def time_flash_attention(cfg) -> list[dict]:
                                      f"shape: max err {err.item():.3e}")
             errs[v_] = err.item()
         ms = _adaptive_ms(lambda i: flash_attention_all(q, *kv(i), **kw))
+        # the decode's host time a call (the prefill's is far under its
+        # device time)
+        host = ({} if sq > 1 else dict(host_ms=_host_ms(
+            lambda i: flash_attention_all(q, *kv(i), **kw))))
         ms_by_variant = {variant: ms}
         split = {}
         n_splits = split_plan(b, hkv, hq // hkv * sq, d, kv_len)
@@ -1610,6 +1671,11 @@ def time_flash_attention(cfg) -> list[dict]:
                 raise AssertionError(f"flash_attention's walk disagrees with "
                                      f"its plain version at the {label} "
                                      f"shape")
+            if not _graph_matches_eager(lambda i: flash_attention_all(
+                    q, *kv(0), **kw)):
+                raise AssertionError(f"flash_attention's CUDA-graph replay "
+                                     f"differs from its eager call at the "
+                                     f"{label} shape")
             split = dict(
                 splits=n_splits,
                 device_ms=_graph_ms(lambda i: flash_attention_all(
@@ -1637,6 +1703,8 @@ def time_flash_attention(cfg) -> list[dict]:
 
         lib_err = (sdpa(0) - out[0]).abs().max().item()
         library_ms = _adaptive_ms(sdpa)
+        if host:
+            host["library_host_ms"] = _host_ms(sdpa)
         if split:
             split["library_device_ms"] = _graph_ms(sdpa)
         pairs = sum(min(kv_len, r + q_offset + 1) for r in range(sq))
@@ -1655,7 +1723,11 @@ def time_flash_attention(cfg) -> list[dict]:
                          plain_ms=plain_ms, library_ms=library_ms,
                          library_max_abs_diff=lib_err, bound_ms=bound_ms,
                          bound_by=bound_by, bound_f32_ms=bound_f32_ms,
-                         bytes=n_bytes, flops=flops, **split))
+                         bytes=n_bytes, flops=flops, **host, **split))
+        host_note = (f", host {host['host_ms']*1e3:6.2f} us a call"
+                     if host else "")
+        lib_host_note = (f", host {host['library_host_ms']*1e3:6.2f} us a "
+                         f"call" if host else "")
         other_note = (f"{other} instance {ms_by_variant[other]*1e3:9.2f} "
                       f"us, max err {errs[other]:.2e}" if other
                       else f"no other instance takes D {d}")
@@ -1669,9 +1741,10 @@ def time_flash_attention(cfg) -> list[dict]:
         log(f"  {label:7s} Sq {sq:4d} q_offset {q_offset:4d} kv_len "
             f"{kv_len} G {hq // hkv} D {d} ({variant}): max err "
             f"{errs[variant]:.2e} | kernel "
-            f"{ms*1e3:9.2f} us ({other_note}){split_note} | plain "
-            f"{plain_ms*1e3:10.2f} us | "
-            f"sdpa {library_ms*1e3:9.2f} us (max diff {lib_err:.1e}) | "
+            f"{ms*1e3:9.2f} us{host_note} ({other_note}){split_note} | "
+            f"plain {plain_ms*1e3:10.2f} us | "
+            f"sdpa {library_ms*1e3:9.2f} us{lib_host_note} (max diff "
+            f"{lib_err:.1e}) | "
             f"bound {bound_ms*1e3:8.2f} us ({bound_by}: {n_bytes/1e6:.1f} "
             f"MB, {flops/1e9:.2f} GFLOP) {bound_ms/ms:.1%} of it | f32 "
             f"bound {bound_f32_ms*1e3:8.2f} us {bound_f32_ms/ms:.1%} of it "
@@ -5252,6 +5325,14 @@ def main() -> int:
                     f"stores")
                 if spill:
                     raise AssertionError(f"{name} spills")
+    # the attention entries' argument blocks against their ctypes mirrors
+    # (a block that drifted must never launch)
+    for fn in (paged_attention, flash_attention_all):
+        mod = sys.modules[fn.__module__]
+        size_fn = f"{mod.NAME}_launch_args_bytes"
+        build.check_launch_args(build.load(mod.SOURCE), size_fn, mod._Args)
+        log(f"  {size_fn}() = {ctypes.sizeof(mod._Args)} bytes, as its "
+            f"mirror {mod.__name__}._Args")
 
     phases.mark("3. kernels against their plain versions")
     pa_err = check_paged_attention()

@@ -21,6 +21,13 @@ work of the function the kernel computes, declared by the wrapper from
 the call's shapes and arguments, and nothing of the ops inside, so a
 kernel's work reads the same whether the kernel, its plain version or
 a meta tensor's shape computes it.
+
+The attention wrappers keep their host path short, since a decode
+call's device time is some 20-60 µs: each caches a launch plan per call
+signature (`PlanCache`: the checks that read shapes, strides, dtypes
+and host arguments, done once, and the C entry's argument block,
+`check_launch_args`, filled once), and takes the partials of its split
+walks from one buffer per (device, stream) (`workspace`).
 """
 from __future__ import annotations
 
@@ -48,6 +55,11 @@ launch_counts: collections.Counter = collections.Counter()
 _LIBS: dict[str, ctypes.CDLL] = {}
 # the open work counters (`roofline.count.Count`), innermost last
 COUNTERS: list = []
+# the split walks' f32 partials: one buffer per (device, raw stream)
+workspaces: dict = {}
+# the most launch plans a wrapper keeps (a static decode's query offset
+# makes each step a signature of its own)
+MAX_PLANS = 4096
 
 
 def reset_launch_counts() -> None:
@@ -103,6 +115,54 @@ def load(source: pathlib.Path) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(source)))
         _LIBS[key] = lib
     return lib
+
+
+def check_launch_args(lib: ctypes.CDLL, size_fn: str, mirror) -> None:
+    """Raise unless the library's argument block (`size_fn()`, its
+    sizeof) has the size of its ctypes mirror: an entry whose layout
+    drifted from the wrapper's must never launch."""
+    fn = getattr(lib, size_fn)
+    fn.restype, fn.argtypes = ctypes.c_int, []
+    size = fn()
+    if size != ctypes.sizeof(mirror):
+        raise RuntimeError(f"{size_fn}() = {size} bytes, but the wrapper's "
+                           f"{mirror.__name__} takes "
+                           f"{ctypes.sizeof(mirror)}: the C entry's "
+                           f"argument block and its mirror differ")
+
+
+class PlanCache(dict):
+    """A wrapper's launch plans by call signature (a dict, so a lookup
+    costs one hash): `put` stores a plan made after every check passed,
+    and empties the cache first when it holds MAX_PLANS."""
+
+    def put(self, key, plan):
+        if len(self) >= MAX_PLANS:
+            self.clear()
+        self[key] = plan
+        return plan
+
+
+def workspace(device: torch.device, stream: int, numel: int,
+              capturing: bool) -> torch.Tensor:
+    """An f32 scratch buffer of at least `numel` elements for kernels
+    launched on `stream` (its raw handle) of `device`: one per (device,
+    stream), made at the first call and grown when a call needs more,
+    else the same storage again. Calls on one stream run in order, so a
+    call's partials are read before the next call writes them.
+
+    Under a CUDA graph capture (`capturing`) the call gets a buffer of
+    its own, from the graph's pool, and the shared one is neither made,
+    grown nor handed out: a graph would keep its address after a later
+    growth freed it."""
+    if capturing:
+        return torch.empty(numel, dtype=torch.float32, device=device)
+    key = (device, stream)
+    buf = workspaces.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = torch.empty(numel, dtype=torch.float32, device=device)
+        workspaces[key] = buf
+    return buf
 
 
 def refuse_autograd(name: str, route: str, *tensors) -> None:

@@ -1399,39 +1399,92 @@ cudaError_t dispatch(const Args& a, int B, float* part, int n_split,
 
 }  // namespace
 
-// C entry point, loaded with ctypes. q: (B, Hq, Sq, D), k and v:
-// (B, Hkv, Sk, D), o: (B, Hq, Sq, D) f32, each given by its element
-// strides over (batch, head, position) with unit stride over D, 16-byte
-// (f32) or 8-byte (bf16) aligned rows; lse and nvis: contiguous
-// (B, Hq, Sq) f32. q_bf16 / kv_bf16 select the input types, kv_round
-// rounds f32 K/V to bf16. window <= 0 means none; 0 <= kv_len <= Sk.
-// variant: 0 the rows instance, 1 the tile instance (bf16 q, K/V bf16 or
-// rounded to it, D 16, 32, 64, 112, 128 or 256). n_splits (rows instance
-// only): 0 its walk of many rows; n >= 1 its split path over n parts of
-// the keys
-// (Hq / Hkv * Sq <= 16, and <= 8 at D > 128), with `part` a float
-// workspace of n * B * Hq * Sq * (D + 2) when n > 1. Launches on `stream`
+// The C entry's arguments, one block: the wrapper mirrors it as a
+// ctypes.Structure (`_Args` in flash_attention.py), fills the sizes,
+// strides and masks once per call signature and writes only the pointers
+// and the stream per call. `flash_attention_launch_args_bytes` gives its
+// size, which the wrapper holds against its mirror's when it loads the
+// library.
+//
+// q: (B, Hq, Sq, D), k and v: (B, Hkv, Sk, D), o: (B, Hq, Sq, D) f32,
+// each given by its element strides over (batch, head, position) with
+// unit stride over D, 16-byte (f32) or 8-byte (bf16) aligned rows; lse
+// and nvis: contiguous (B, Hq, Sq) f32. q_bf16 / kv_bf16 select the input
+// types, kv_round rounds f32 K/V to bf16. window <= 0 means none; 0 <=
+// kv_len <= Sk. variant: 0 the rows instance, 1 the tile instance (bf16
+// q, K/V bf16 or rounded to it, D 16, 32, 64, 112, 128 or 256). n_splits
+// (rows instance only): 0 its walk of many rows; n >= 1 its split path
+// over n parts of the keys (Hq / Hkv * Sq <= 16, and <= 8 at D > 128),
+// with `part` a float workspace of n * B * Hq * Sq * (D + 2) when n > 1.
+// The kernels launch on `stream`.
+struct FlashAttentionArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  float* o;
+  float* lse;
+  float* nvis;
+  float* part;
+  void* stream;
+  int B;
+  int Hq;
+  int Hkv;
+  int Sq;
+  int Sk;
+  int D;
+  long long q_sb;
+  long long q_sh;
+  long long q_ss;
+  long long k_sb;
+  long long k_sh;
+  long long k_ss;
+  long long v_sb;
+  long long v_sh;
+  long long v_ss;
+  long long o_sb;
+  long long o_sh;
+  long long o_ss;
+  int causal;
+  int window;
+  int kv_len;
+  int q_offset;
+  int bq;
+  int bk;
+  float scale;
+  int q_bf16;
+  int kv_bf16;
+  int kv_round;
+  int variant;
+  int n_splits;
+};
+
+extern "C" int flash_attention_launch_args_bytes() {
+  return (int)sizeof(FlashAttentionArgs);
+}
+
+// C entry point, loaded with ctypes: launches the call `args` describes
 // and returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue
 // for arguments it does not take.
-extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, float* o, float* lse,
-    float* nvis, int B, int Hq, int Hkv, int Sq, int Sk, int D,
-    long long q_sb, long long q_sh, long long q_ss, long long k_sb,
-    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
-    long long v_ss, long long o_sb, long long o_sh, long long o_ss,
-    int causal, int window, int kv_len, int q_offset, int bq, int bk,
-    float scale, int q_bf16, int kv_bf16, int kv_round, int variant,
-    int n_splits, float* part, void* stream) {
+extern "C" int flash_attention_launch(const FlashAttentionArgs* args) {
+  if (args == nullptr) return (int)cudaErrorInvalidValue;
+  const FlashAttentionArgs& c = *args;
+  const int B = c.B, Hq = c.Hq, Hkv = c.Hkv, Sq = c.Sq, Sk = c.Sk, D = c.D,
+            bq = c.bq, bk = c.bk, kv_len = c.kv_len, variant = c.variant,
+            n_splits = c.n_splits;
+  float* part = c.part;
   if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || Sk < 1 || D < 4 ||
       D % 4 != 0 || D > kMaxHeadDim || bq < 1 || bk < 1 || kv_len < 0 ||
       kv_len > Sk || (variant != 0 && variant != 1) || n_splits < 0 ||
       (variant == 1 && n_splits != 0))
     return (int)cudaErrorInvalidValue;
-  Args a{q,    k,    v,    o,    lse,  nvis,   Hq,     Hkv,    Sq,
-         Sk,   D,    q_sb, q_sh, q_ss, k_sb,   k_sh,   k_ss,   v_sb,
-         v_sh, v_ss, o_sb, o_sh, o_ss, causal, window, kv_len, q_offset,
-         bq,   bk,   (Sk + bk - 1) / bk, scale, q_bf16, kv_bf16, kv_round};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Args a{c.q,      c.k,      c.v,        c.o,    c.lse,  c.nvis,
+         Hq,       Hkv,      Sq,         Sk,     D,      c.q_sb,
+         c.q_sh,   c.q_ss,   c.k_sb,     c.k_sh, c.k_ss, c.v_sb,
+         c.v_sh,   c.v_ss,   c.o_sb,     c.o_sh, c.o_ss, c.causal,
+         c.window, kv_len,   c.q_offset, bq,     bk,     (Sk + bk - 1) / bk,
+         c.scale,  c.q_bf16, c.kv_bf16,  c.kv_round};
+  const int q_bf16 = c.q_bf16, kv_bf16 = c.kv_bf16, kv_round = c.kv_round;
+  cudaStream_t st = static_cast<cudaStream_t>(c.stream);
   if (n_splits > 0) {
     const int R = Hq / Hkv * Sq;
     if (R > split::kMaxRows || (R > 8 && D > 128) ||

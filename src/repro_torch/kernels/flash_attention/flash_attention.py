@@ -40,11 +40,21 @@ reads it once per query head), and walks one of `split_plan`'s n equal
 parts of the keys with pipelined copies; a second kernel adds the
 parts. Larger rows-instance calls keep its walk of many rows. The plan
 is shared with paged attention (`kernels.plan`).
+
+A decode call's device time is some 20-95 µs, so the host path is kept
+short: the checks that read only shapes, strides, dtypes and host
+arguments, the instance, its parts and the C entry's argument block
+(`_Args`, the .cu's `FlashAttentionArgs`) are made once per call
+signature (`_Plan`), a call writes the block's pointers and stream and
+makes one ctypes call with one pointer, o, lse and nvis are views of
+one allocation (`_layout`), and the split walks' partials come from a
+buffer kept per (device, stream) (`build.workspace`).
 """
 from __future__ import annotations
 
 import ctypes
 import pathlib
+import threading
 
 import torch
 
@@ -99,15 +109,32 @@ def split_plan(batch: int, kv_heads: int, rows: int, head_dim: int,
                            max_keys)
 
 
+class _Args(ctypes.Structure):
+    """The C entry's `FlashAttentionArgs`, field for field."""
+    _fields_ = [*((n, ctypes.c_void_p) for n in (
+                    "q", "k", "v", "o", "lse", "nvis", "part", "stream")),
+                *((n, ctypes.c_int) for n in (
+                    "B", "Hq", "Hkv", "Sq", "Sk", "D")),
+                *((f"{t}_s{dim}", ctypes.c_longlong)
+                  for t in "qkvo" for dim in "bhs"),
+                *((n, ctypes.c_int) for n in (
+                    "causal", "window", "kv_len", "q_offset", "bq", "bk")),
+                ("scale", ctypes.c_float),
+                *((n, ctypes.c_int) for n in (
+                    "q_bf16", "kv_bf16", "kv_round", "variant",
+                    "n_splits"))]
+
+
 def _entry():
+    """The C entry, built and loaded at first use; its argument block is
+    held against `_Args` when the library loads."""
     lib = build.load(SOURCE)
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
+        build.check_launch_args(lib, "flash_attention_launch_args_bytes",
+                                _Args)
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 6
-                       + [ctypes.c_float] + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p] * 2)
+        fn.argtypes = [ctypes.POINTER(_Args)]
     return fn
 
 
@@ -155,59 +182,124 @@ def _validate(q, k, v, *, causal, window, kv_len, bq, bk, kv_cast,
                              f"(split_takes), >= 1; got {splits!r}")
 
 
-def _aligned(t: torch.Tensor) -> bool:
-    """Rows of 4-element groups on 16-byte (f32) or 8-byte (bf16)
-    boundaries, as the kernel's vector loads and stores need."""
-    align = 4 * t.element_size()
-    return (t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:3])
-            and t.data_ptr() % align == 0)
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Unit stride over D and strides of 4 elements elsewhere: with an
+    address on a 16-byte (f32) or 8-byte (bf16) boundary, rows of
+    4-element groups on such boundaries, as the kernel's vector loads
+    and stores need."""
+    return t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:3])
 
 
-def _launch(q, k, v, *, causal, window, kv_len, q_offset, scale, bq, bk,
-            kv_cast, variant, splits):
-    b, hq, sq, d = q.shape
-    _, hkv, sk, _ = k.shape
-    if q.dtype not in _FLOAT_TYPES or k.dtype not in _FLOAT_TYPES \
-            or v.dtype != k.dtype:
-        raise TypeError(f"flash_attention kernel takes f32/bf16 q and K/V, "
-                        f"got q {q.dtype}, k {k.dtype}, v {v.dtype}")
-    if kv_cast not in (None, *_FLOAT_TYPES):
-        raise TypeError(f"flash_attention kernel rounds K/V to bf16 or "
-                        f"f32 only, got kv_cast={kv_cast}")
-    if d % 4 or d > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention kernel takes D a multiple of 4 "
-                         f"up to {MAX_HEAD_DIM}, got {d}")
-    if not _aligned(q):
-        q = q.contiguous()
-    if not (_aligned(k) and _aligned(v)):
-        # a copy of K/V (a whole cache) would cost more than the attention
-        raise ValueError("flash_attention kernel needs K/V with unit stride "
-                         "over D and 4-element aligned rows")
-    o, lse, nvis = _outputs(q)
-    round_kv = int(kv_cast == torch.bfloat16 and k.dtype == torch.float32)
-    variant = variant or kernel_variant(q.dtype, k.dtype, kv_cast, sq, d)
-    n_splits = 0
-    if variant == "rows":
-        n_splits = (split_plan(b, hkv, hq // hkv * sq, d, kv_len)
-                    if splits is None else splits)
-    # the split path's partials: (m, l, o) of every row and part
-    part = (torch.empty(n_splits * b * hq * sq * (d + 2),
-                        dtype=torch.float32, device=q.device)
-            if n_splits > 1 else None)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _entry()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), nvis.data_ptr(), b, hq, hkv, sq, sk, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        int(causal), window or 0, kv_len, q_offset, bq, bk, float(scale),
-        int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-        round_kv, VARIANTS.index(variant), n_splits,
-        part.data_ptr() if part is not None else None, stream)
+_KV_LAYOUT = ("flash_attention kernel needs K/V with unit stride over D "
+              "and 4-element aligned rows")
+
+# the launch plans, by call signature (`flash_attention_all`'s key)
+_PLANS = build.PlanCache()
+
+
+class _Plan:
+    """What a call signature decides once: `_validate`'s checks, kv_len
+    resolved, the scale and the outputs' layout on every device; on the
+    card also the kernel's types, D and K/V strides, the instance, its
+    parts, the workspace's size and the C entry's argument block with
+    every size, stride and mask filled in. Made only after every check
+    passed, so a refused call stores none. What a signature does not fix
+    (the operands' device and their addresses' alignment) is checked per
+    call by `_launch`."""
+
+    def __init__(self, kind, q, k, v, *, causal, window, kv_len, q_offset,
+                 scale, bq, bk, kv_cast, variant, splits):
+        _validate(q, k, v, causal=causal, window=window, kv_len=kv_len,
+                  bq=bq, bk=bk, kv_cast=kv_cast, variant=variant,
+                  splits=splits)
+        b, hq, sq, d = q.shape
+        _, hkv, sk, _ = k.shape
+        kv_len = sk if kv_len is None else min(int(kv_len), sk)
+        self.kv_len, self.q_offset = kv_len, int(q_offset)
+        self.scale = 1.0 / (d ** 0.5) if scale is None else scale
+        self.ref_kw = dict(causal=causal, window=window, kv_len=kv_len,
+                           q_offset=self.q_offset, scale=self.scale, bq=bq,
+                           bk=bk, kv_cast=kv_cast)
+        self.layout = _layout(q.shape)
+        if kind != "cuda":
+            return
+        if q.dtype not in _FLOAT_TYPES or k.dtype not in _FLOAT_TYPES \
+                or v.dtype != k.dtype:
+            raise TypeError(f"flash_attention kernel takes f32/bf16 q and "
+                            f"K/V, got q {q.dtype}, k {k.dtype}, v {v.dtype}")
+        if kv_cast not in (None, *_FLOAT_TYPES):
+            raise TypeError(f"flash_attention kernel rounds K/V to bf16 or "
+                            f"f32 only, got kv_cast={kv_cast}")
+        if d % 4 or d > MAX_HEAD_DIM:
+            raise ValueError(f"flash_attention kernel takes D a multiple of "
+                             f"4 up to {MAX_HEAD_DIM}, got {d}")
+        if not (_rows_aligned(k) and _rows_aligned(v)):
+            # a copy of K/V (a whole cache) would cost more than the
+            # attention
+            raise ValueError(_KV_LAYOUT)
+        # q's rows as given, else a contiguous copy's (a new allocation,
+        # so aligned)
+        self.q_ready = _rows_aligned(q)
+        self.q_align = 4 * q.element_size()
+        self.kv_align = 4 * k.element_size()
+        q_strides = (q.stride()[:3] if self.q_ready
+                     else (hq * sq * d, sq * d, d))
+        self.variant = variant or kernel_variant(q.dtype, k.dtype, kv_cast,
+                                                 sq, d)
+        n_splits = 0
+        if self.variant == "rows":
+            n_splits = (split_plan(b, hkv, hq // hkv * sq, d, kv_len)
+                        if splits is None else splits)
+        # the split path's partials: (m, l, o) of every row and part
+        self.part_numel = (n_splits * b * hq * sq * (d + 2)
+                           if n_splits > 1 else 0)
+        self.launch = _entry()
+        strides = (*q_strides, *k.stride()[:3], *v.stride()[:3],
+                   *self.layout[1][0][1][:3])
+        self.args = _Args(
+            B=b, Hq=hq, Hkv=hkv, Sq=sq, Sk=sk, D=d,
+            **{f"{t}_s{dim}": stride for (t, dim), stride in zip(
+                ((t, dim) for t in "qkvo" for dim in "bhs"), strides)},
+            causal=int(causal), window=window or 0, kv_len=kv_len,
+            q_offset=self.q_offset, bq=bq, bk=bk, scale=float(self.scale),
+            q_bf16=int(q.dtype == torch.bfloat16),
+            kv_bf16=int(k.dtype == torch.bfloat16),
+            kv_round=int(kv_cast == torch.bfloat16
+                         and k.dtype == torch.float32),
+            variant=VARIANTS.index(self.variant), n_splits=n_splits)
+        self.args_ref = ctypes.byref(self.args)
+        # the block is written and read by one call at a time
+        self.lock = threading.Lock()
+        self.count_key = f"{NAME}.{self.variant}"
+
+
+def _launch(plan, q, k, v):
+    if k.data_ptr() % plan.kv_align or v.data_ptr() % plan.kv_align:
+        raise ValueError(_KV_LAYOUT)
+    if not plan.q_ready:
+        q = q.clone(memory_format=torch.contiguous_format)
+    elif q.data_ptr() % plan.q_align:
+        # an aligned copy in q's own layout, which the plan's strides name
+        q = torch.empty_strided(q.shape, q.stride(), dtype=q.dtype,
+                                device=q.device).copy_(q)
+    dev = q.device
+    o, lse, nvis = _outputs(plan.layout, dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    part = (build.workspace(dev, stream, plan.part_numel,
+                            torch.cuda.is_current_stream_capturing())
+            if plan.part_numel else None)
+    with plan.lock:
+        a = plan.args
+        a.q, a.k, a.v = q.data_ptr(), k.data_ptr(), v.data_ptr()
+        a.o, a.lse, a.nvis = o.data_ptr(), lse.data_ptr(), nvis.data_ptr()
+        a.part = part.data_ptr() if part is not None else None
+        a.stream = stream
+        err = plan.launch(plan.args_ref)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel ({variant}) launch "
+        raise RuntimeError(f"flash_attention kernel ({plan.variant}) launch "
                            f"failed: CUDA error {err}")
     build.launch_counts[NAME] += 1
-    build.launch_counts[f"{NAME}.{variant}"] += 1
+    build.launch_counts[plan.count_key] += 1
     return o, lse, nvis
 
 
@@ -233,48 +325,60 @@ def flash_attention_all(q, k, v, *, causal: bool = True,
     the same function for every instance and path.
 
     Returns (o (B, Hq, Sq, D) f32, lse (B, Hq, Sq) f32, nvis (B, Hq, Sq)
-    f32: the K tiles each row's query tile executed); o is a view of a
-    (B, Sq, Hq, D) tensor, on every device.
+    f32: the K tiles each row's query tile executed), views of one
+    allocation (`_layout`); o is laid out (B, Sq, Hq, D), on every
+    device.
     """
     build.refuse_autograd(NAME, "the gather core (attn_impl='gather')", q,
                           k, v)
-    _validate(q, k, v, causal=causal, window=window, kv_len=kv_len, bq=bq,
-              bk=bk, kv_cast=kv_cast, variant=variant, splits=splits)
-    sk = k.shape[2]
-    kv_len = sk if kv_len is None else min(int(kv_len), sk)
-    if scale is None:
-        scale = 1.0 / (q.shape[-1] ** 0.5)
-    kw = dict(causal=causal, window=window, kv_len=kv_len,
-              q_offset=int(q_offset), scale=scale, bq=bq, bk=bk,
-              kv_cast=kv_cast)
-    tensors = (q, k, v)
+    dev = q.device
+    kind = dev.type if (k.device == dev and v.device == dev) else None
+    key = (kind, q.shape, q.stride(), q.dtype, k.shape, k.stride(), k.dtype,
+           v.shape, v.stride(), v.dtype, causal, window, kv_len, q_offset,
+           scale, bq, bk, kv_cast, variant, splits)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS.put(key, _Plan(
+            kind, q, k, v, causal=causal, window=window, kv_len=kv_len,
+            q_offset=q_offset, scale=scale, bq=bq, bk=bk, kv_cast=kv_cast,
+            variant=variant, splits=splits))
     with build.kernel_call(NAME, lambda: work(
-            q, k, causal=causal, window=window, kv_len=kv_len,
-            q_offset=int(q_offset))):
-        if all(t.device.type == "meta" for t in tensors):
-            return _outputs(q)
-        if all(t.device.type == "cpu" for t in tensors):
-            out = _outputs(q)
-            for dst, src in zip(out, flash_attention_ref(q, k, v, **kw)):
+            q, k, causal=causal, window=window, kv_len=plan.kv_len,
+            q_offset=plan.q_offset)):
+        if kind == "meta":
+            return _outputs(plan.layout, dev)
+        if kind == "cpu":
+            out = _outputs(plan.layout, dev)
+            for dst, src in zip(out, flash_attention_ref(q, k, v,
+                                                         **plan.ref_kw)):
                 dst.copy_(src)
             return out
-        if not all(t.device.type == "cuda" and t.device == q.device
-                   for t in tensors):
+        if kind != "cuda":
             raise ValueError(f"flash_attention: all operands must be on "
                              f"one device, got "
-                             f"{[str(t.device) for t in tensors]}")
-        return _launch(q, k, v, variant=variant, splits=splits, **kw)
+                             f"{[str(t.device) for t in (q, k, v)]}")
+        return _launch(plan, q, k, v)
 
 
-def _outputs(q) -> tuple:
-    """Empty (o, lse, nvis) in the kernel's layout, on q's device: o laid
-    out (B, Sq, Hq, D) and returned as a (B, Hq, Sq, D) view, so the
-    attention layer's reshape to (B, Sq, Hq * D) is free."""
-    b, hq, sq, d = q.shape
-    o = torch.empty((b, sq, hq, d), dtype=torch.float32,
-                    device=q.device).transpose(1, 2)
-    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    return o, lse, torch.empty_like(lse)
+def _layout(shape) -> tuple:
+    """(elements, ((size, stride, offset) of o, lse, nvis)): the outputs
+    as views of one f32 allocation in the kernel's layout. o, first and
+    so as aligned as the allocation, is laid out (B, Sq, Hq, D) and seen
+    as (B, Hq, Sq, D), so the attention layer's reshape to (B, Sq,
+    Hq * D) is free; lse and nvis follow it, each (B, Hq, Sq)
+    contiguous."""
+    b, hq, sq, d = shape
+    n_o, n_row = b * sq * hq * d, b * hq * sq
+    rows = ((b, hq, sq), (hq * sq, sq, 1))
+    return n_o + 2 * n_row, (((b, hq, sq, d), (sq * hq * d, d, hq * d, 1), 0),
+                             (*rows, n_o), (*rows, n_o + n_row))
+
+
+def _outputs(layout, device) -> tuple:
+    """Empty (o, lse, nvis) of `_layout`, on `device`."""
+    numel, views = layout
+    buf = torch.empty(numel, dtype=torch.float32, device=device)
+    return tuple(buf.as_strided(*view) for view in views)
 
 
 def _kept_pairs(sq: int, *, causal: bool, window: int | None, kv_len: int,

@@ -1354,31 +1354,76 @@ cudaError_t dispatch_tile(int Dh, const void* q, const void* k_pages,
 
 }  // namespace
 
-// C entry point, loaded with ctypes. q: (B, S, H, Dh) f32 or bf16
-// (q_bf16); k_pages/v_pages: (n_pages, page, KV, Dh) f32 or bf16
-// (kv_bf16); block_tables: (B, pmax) i32; positions: (B, S) i32; out:
-// (B, S, H, Dh) f32. All contiguous. window <= 0 means none. variant:
-// 0 the rows instance, 1 the tile instance (Dh 16, 32, 64, 128 or 256; q
-// and the pools 16-byte aligned). n_splits: for the rows instance 0 its
-// walk of many rows, n >= 1 its split path over n parts of each lane's
-// keys (G * S <= 16, and <= 8 at Dh > 128; Dh a multiple of 4; the pools
-// aligned to 4 elements); for the tile instance n >= 1 blocks over the
-// stages of each block's walk. `part` is a float workspace of n * B * H
-// * S * (Dh + 2) when n > 1. Launches on `stream` and returns
-// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for
-// arguments it does not take.
-extern "C" int paged_attention_launch(
-    const void* q, const void* k_pages, const void* v_pages,
-    const int* block_tables, const int* positions, float* out, int B, int S,
-    int H, int KV, int Dh, int n_pages, int page, int pmax, int window,
-    float scale, int q_bf16, int kv_bf16, int variant, int n_splits,
-    float* part, void* stream) {
+// The C entry's arguments, one block: the wrapper mirrors it as a
+// ctypes.Structure (`_Args` in paged_attention.py), fills the sizes once
+// per call signature and writes only the pointers and the stream per
+// call. `paged_attention_launch_args_bytes` gives its size, which the
+// wrapper holds against its mirror's when it loads the library.
+//
+// q: (B, S, H, Dh) f32 or bf16 (q_bf16); k_pages/v_pages: (n_pages, page,
+// KV, Dh) f32 or bf16 (kv_bf16); block_tables: (B, pmax) i32; positions:
+// (B, S) i32; out: (B, S, H, Dh) f32. All contiguous. window <= 0 means
+// none. variant: 0 the rows instance, 1 the tile instance (Dh 16, 32, 64,
+// 128 or 256; q and the pools 16-byte aligned). n_splits: for the rows
+// instance 0 its walk of many rows, n >= 1 its split path over n parts of
+// each lane's keys (G * S <= 16, and <= 8 at Dh > 128; Dh a multiple of
+// 4; the pools aligned to 4 elements); for the tile instance n >= 1
+// blocks over the stages of each block's walk. `part` is a float
+// workspace of n * B * H * S * (Dh + 2) when n > 1. The kernels launch on
+// `stream`.
+struct PagedAttentionArgs {
+  const void* q;
+  const void* k_pages;
+  const void* v_pages;
+  const int* block_tables;
+  const int* positions;
+  float* out;
+  float* part;
+  void* stream;
+  int B;
+  int S;
+  int H;
+  int KV;
+  int Dh;
+  int n_pages;
+  int page;
+  int pmax;
+  int window;
+  float scale;
+  int q_bf16;
+  int kv_bf16;
+  int variant;
+  int n_splits;
+};
+
+extern "C" int paged_attention_launch_args_bytes() {
+  return (int)sizeof(PagedAttentionArgs);
+}
+
+// C entry point, loaded with ctypes: launches the call `args` describes
+// and returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue
+// for arguments it does not take.
+extern "C" int paged_attention_launch(const PagedAttentionArgs* args) {
+  if (args == nullptr) return (int)cudaErrorInvalidValue;
+  const void* q = args->q;
+  const void* k_pages = args->k_pages;
+  const void* v_pages = args->v_pages;
+  const int* block_tables = args->block_tables;
+  const int* positions = args->positions;
+  float* out = args->out;
+  float* part = args->part;
+  const int B = args->B, S = args->S, H = args->H, KV = args->KV,
+            Dh = args->Dh, n_pages = args->n_pages, page = args->page,
+            pmax = args->pmax, window = args->window;
+  const float scale = args->scale;
+  const int q_bf16 = args->q_bf16, kv_bf16 = args->kv_bf16,
+            variant = args->variant, n_splits = args->n_splits;
   if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || Dh < 1 ||
       Dh > kMaxHeadDim || page < 1 || pmax < 1 || n_pages < 1 ||
       (variant != 0 && variant != 1) || n_splits < 0 ||
       (variant == 1 && n_splits < 1) || (n_splits > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(args->stream);
   if (variant == 0 && n_splits > 0) {
     const int R = H / KV * S;
     const uintptr_t align = kv_bf16 ? 8 : 16;

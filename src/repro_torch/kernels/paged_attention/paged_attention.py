@@ -31,11 +31,20 @@ the parts. The plan reads shapes only, never the device's positions,
 so a decode step takes no host sync. Larger rows-instance calls keep
 its walk of many rows. The plan is shared with flash attention
 (`kernels.plan`).
+
+A decode call's device time is about 20 µs, so the host path is kept
+short: the checks that read only shapes, strides, dtypes and host
+arguments, the instance, its parts and the C entry's argument block
+(`_Args`, the .cu's `PagedAttentionArgs`) are made once per call
+signature (`_Plan`), a call writes the block's pointers and stream and
+makes one ctypes call with one pointer, and the split walks' partials
+come from a buffer kept per (device, stream) (`build.workspace`).
 """
 from __future__ import annotations
 
 import ctypes
 import pathlib
+import threading
 
 import torch
 
@@ -96,14 +105,29 @@ def tile_plan(batch: int, kv_heads: int, rows: int, max_keys: int) -> int:
     return max(1, min(plan.CARD_SMS // blocks, -(-max_keys // TILE_KEYS)))
 
 
+class _Args(ctypes.Structure):
+    """The C entry's `PagedAttentionArgs`, field for field."""
+    _fields_ = [*((n, ctypes.c_void_p) for n in (
+                    "q", "k_pages", "v_pages", "block_tables", "positions",
+                    "out", "part", "stream")),
+                *((n, ctypes.c_int) for n in (
+                    "B", "S", "H", "KV", "Dh", "n_pages", "page", "pmax",
+                    "window")),
+                ("scale", ctypes.c_float),
+                *((n, ctypes.c_int) for n in (
+                    "q_bf16", "kv_bf16", "variant", "n_splits"))]
+
+
 def _entry():
+    """The C entry, built and loaded at first use; its argument block is
+    held against `_Args` when the library loads."""
     lib = build.load(SOURCE)
     fn = lib.paged_attention_launch
     if fn.argtypes is None:
+        build.check_launch_args(lib, "paged_attention_launch_args_bytes",
+                                _Args)
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                       + [ctypes.c_float] + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p] * 2)
+        fn.argtypes = [ctypes.POINTER(_Args)]
     return fn
 
 
@@ -181,23 +205,33 @@ def paged_attention(q, k_pages, v_pages, block_tables, positions, *,
     """
     build.refuse_autograd(NAME, "the gather core (attn_impl='gather')", q,
                           k_pages, v_pages)
-    _check(q, k_pages, v_pages, block_tables, positions, window, variant,
-           splits, tile_parts)
-    b, s, h, hd = q.shape
-    if scale is None:
-        scale = 1.0 / (hd**0.5)
-    tensors = (q, k_pages, v_pages, block_tables, positions)
+    dev = q.device
+    kind = dev.type if (k_pages.device == dev and v_pages.device == dev
+                        and block_tables.device == dev
+                        and positions.device == dev) else None
+    key = (kind, q.shape, q.stride(), q.dtype, k_pages.shape,
+           k_pages.stride(), k_pages.dtype, v_pages.shape, v_pages.stride(),
+           v_pages.dtype, block_tables.shape, block_tables.stride(),
+           block_tables.dtype, positions.shape, positions.stride(),
+           positions.dtype, window, scale, variant, splits, tile_parts)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS.put(key, _Plan(kind, q, k_pages, v_pages, block_tables,
+                                     positions, window, scale, variant,
+                                     splits, tile_parts))
     with build.kernel_call(NAME, lambda: work(q, k_pages, block_tables,
                                               positions, window=window)):
-        if all(t.device.type == "meta" for t in tensors):
+        if kind == "meta":
             return _output(q)
-        if all(t.device.type == "cpu" for t in tensors):
+        if kind == "cpu":
             return _output(q).copy_(paged_attention_ref(
                 q, k_pages, v_pages, block_tables, positions, window=window,
-                scale=scale))
-        return _launch(q, k_pages, v_pages, block_tables, positions,
-                       window=window, scale=scale, variant=variant,
-                       splits=splits, tile_parts=tile_parts)
+                scale=plan.scale))
+        if kind != "cuda":
+            tensors = (q, k_pages, v_pages, block_tables, positions)
+            raise ValueError(f"paged_attention: all operands must be on one "
+                             f"device, got {[str(t.device) for t in tensors]}")
+        return _launch(plan, q, k_pages, v_pages, block_tables, positions)
 
 
 def _output(q) -> torch.Tensor:
@@ -235,63 +269,108 @@ def work(q, k_pages, block_tables, positions, *,
     return 4 * hd * h * pairs, n_bytes
 
 
-def _launch(q, k_pages, v_pages, block_tables, positions, *, window, scale,
-            variant, splits, tile_parts):
-    b, s, h, hd = q.shape
-    tensors = (q, k_pages, v_pages, block_tables, positions)
-    if not all(t.device.type == "cuda" and t.device == q.device
-               for t in tensors):
-        raise ValueError(f"paged_attention: all operands must be on one "
-                         f"device, got {[str(t.device) for t in tensors]}")
-    if q.dtype not in _FLOAT_TYPES or k_pages.dtype not in _FLOAT_TYPES \
-            or v_pages.dtype != k_pages.dtype:
-        raise TypeError(f"paged_attention kernel takes f32/bf16 q and "
-                        f"pools, got q {q.dtype}, k {k_pages.dtype}, "
-                        f"v {v_pages.dtype}")
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"paged_attention kernel takes Dh <= "
-                         f"{MAX_HEAD_DIM}, got {hd}")
-    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
-        # a copy of the pool would cost more than the attention itself
-        raise ValueError("paged_attention kernel needs contiguous pools")
-    g = h // k_pages.shape[2]
-    variant = variant or kernel_variant(g, s, hd)
-    if variant == "tile" and (k_pages.data_ptr() % 16
-                              or v_pages.data_ptr() % 16):
-        raise ValueError("the tile instance needs 16-byte aligned pools")
-    q = q.contiguous()
-    if variant == "tile" and q.data_ptr() % 16:
+# the launch plans, by call signature (`paged_attention`'s key)
+_PLANS = build.PlanCache()
+
+
+class _Plan:
+    """What a call signature decides once: the checks that read only
+    shapes, strides, dtypes and host arguments (`_check` on every device;
+    on the card also the kernel's types, Dh and contiguous pools), the
+    scale, and for the card the instance, its parts, the workspace's
+    size and the C entry's argument block with every size filled in.
+    Made only after every check passed, so a refused call stores none.
+    What a signature does not fix (the operands' device and their
+    addresses' alignment) is checked per call by `_launch`."""
+
+    def __init__(self, kind, q, k_pages, v_pages, block_tables, positions,
+                 window, scale, variant, splits, tile_parts):
+        _check(q, k_pages, v_pages, block_tables, positions, window,
+               variant, splits, tile_parts)
+        b, s, h, hd = q.shape
+        self.scale = 1.0 / (hd**0.5) if scale is None else scale
+        if kind != "cuda":
+            return
+        if q.dtype not in _FLOAT_TYPES or k_pages.dtype not in _FLOAT_TYPES \
+                or v_pages.dtype != k_pages.dtype:
+            raise TypeError(f"paged_attention kernel takes f32/bf16 q and "
+                            f"pools, got q {q.dtype}, k {k_pages.dtype}, "
+                            f"v {v_pages.dtype}")
+        if hd > MAX_HEAD_DIM:
+            raise ValueError(f"paged_attention kernel takes Dh <= "
+                             f"{MAX_HEAD_DIM}, got {hd}")
+        if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+            # a copy of the pool would cost more than the attention itself
+            raise ValueError("paged_attention kernel needs contiguous pools")
+        n_pages, page, kvh, _ = k_pages.shape
+        g = h // kvh
+        self.variant = variant or kernel_variant(g, s, hd)
+        max_keys = block_tables.shape[1] * page
+        if self.variant == "tile":
+            n_splits = (tile_plan(b, kvh, g * s, max_keys)
+                        if tile_parts is None else tile_parts)
+            # the tile instance reads 16 bytes at a time
+            self.align = 16
+        else:
+            n_splits = (split_plan(b, kvh, g * s, hd, max_keys)
+                        if splits is None else splits)
+            # the split path copies 4 elements at a time
+            self.align = 4 * k_pages.element_size() if n_splits else 0
+        self.n_splits = n_splits
+        # the split walks' partials: (m, l, o) of every row and part
+        self.part_numel = (n_splits * b * s * h * (hd + 2)
+                           if n_splits > 1 else 0)
+        self.out_shape = (b, s, h, hd)
+        self.q_ready = q.is_contiguous()
+        self.tables_ready = (block_tables.dtype == torch.int32
+                             and block_tables.is_contiguous())
+        self.positions_ready = (positions.dtype == torch.int32
+                                and positions.is_contiguous())
+        self.launch = _entry()
+        self.args = _Args(
+            B=b, S=s, H=h, KV=kvh, Dh=hd, n_pages=n_pages, page=page,
+            pmax=block_tables.shape[1], window=window or 0,
+            scale=float(self.scale), q_bf16=int(q.dtype == torch.bfloat16),
+            kv_bf16=int(k_pages.dtype == torch.bfloat16),
+            variant=VARIANTS.index(self.variant), n_splits=n_splits)
+        self.args_ref = ctypes.byref(self.args)
+        # the block is written and read by one call at a time
+        self.lock = threading.Lock()
+        self.count_key = f"{NAME}.{self.variant}"
+
+
+def _launch(plan, q, k_pages, v_pages, block_tables, positions):
+    if plan.align and (k_pages.data_ptr() % plan.align
+                       or v_pages.data_ptr() % plan.align):
+        raise ValueError("the tile instance needs 16-byte aligned pools"
+                         if plan.variant == "tile" else
+                         "the split path needs pools aligned to 4 elements")
+    if not plan.q_ready:
+        q = q.contiguous()
+    if plan.variant == "tile" and q.data_ptr() % 16:
         q = q.clone()                # the tile instance reads 16 bytes
-    bt = block_tables.to(torch.int32).contiguous()
-    pos = positions.to(torch.int32).contiguous()
-    max_keys = bt.shape[1] * k_pages.shape[1]
-    if variant == "tile":
-        n_splits = (tile_plan(b, k_pages.shape[2], g * s, max_keys)
-                    if tile_parts is None else tile_parts)
-    else:
-        n_splits = (split_plan(b, k_pages.shape[2], g * s, hd, max_keys)
-                    if splits is None else splits)
-        # the split path copies 4 elements at a time
-        if n_splits and any(t.data_ptr() % (4 * t.element_size())
-                            for t in (k_pages, v_pages)):
-            raise ValueError("the split path needs pools aligned to 4 "
-                             "elements")
-    out = _output(q)
-    # the split walks' partials: (m, l, o) of every row and part
-    part = (torch.empty(n_splits * b * s * h * (hd + 2), dtype=torch.float32,
-                        device=q.device) if n_splits > 1 else None)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _entry()(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        bt.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        b, s, h, k_pages.shape[2], hd, k_pages.shape[0], k_pages.shape[1],
-        bt.shape[1], window or 0, float(scale),
-        int(q.dtype == torch.bfloat16), int(k_pages.dtype == torch.bfloat16),
-        VARIANTS.index(variant), n_splits,
-        part.data_ptr() if part is not None else None, stream)
+    bt = (block_tables if plan.tables_ready
+          else block_tables.to(torch.int32).contiguous())
+    pos = (positions if plan.positions_ready
+           else positions.to(torch.int32).contiguous())
+    dev = q.device
+    out = torch.empty(plan.out_shape, dtype=torch.float32, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    part = (build.workspace(dev, stream, plan.part_numel,
+                            torch.cuda.is_current_stream_capturing())
+            if plan.part_numel else None)
+    with plan.lock:
+        a = plan.args
+        a.q, a.k_pages, a.v_pages = (q.data_ptr(), k_pages.data_ptr(),
+                                     v_pages.data_ptr())
+        a.block_tables, a.positions = bt.data_ptr(), pos.data_ptr()
+        a.out = out.data_ptr()
+        a.part = part.data_ptr() if part is not None else None
+        a.stream = stream
+        err = plan.launch(plan.args_ref)
     if err != 0:
-        raise RuntimeError(f"paged_attention kernel ({variant}) launch "
+        raise RuntimeError(f"paged_attention kernel ({plan.variant}) launch "
                            f"failed: CUDA error {err}")
     build.launch_counts[NAME] += 1
-    build.launch_counts[f"{NAME}.{variant}"] += 1
+    build.launch_counts[plan.count_key] += 1
     return out
