@@ -35,6 +35,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.sc_matmul.sc_matmul import (  # noqa: E402
     SOURCE,
+    _Args,
     _table,
 )
 
@@ -82,10 +83,11 @@ def main() -> int:
         libs = dict(zip(paths, pool.map(build.build, paths.values())))
     entries = {}
     for name, lib in libs.items():
-        fn = ctypes.CDLL(str(lib)).sc_matmul_launch
+        loaded = ctypes.CDLL(str(lib))
+        build.check_launch_args(loaded, "sc_matmul_launch_args_bytes", _Args)
+        fn = loaded.sc_matmul_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        fn.argtypes = [ctypes.POINTER(_Args)]
         entries[name] = fn
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -109,10 +111,15 @@ def main() -> int:
         for name in list(entries) + list(entries)[::-1]:
             fn = entries[name]
 
+            args = _Args(A=a.data_ptr(), out=out.data_ptr(),
+                         scratch=out.data_ptr(), table=table.data_ptr(),
+                         stream=stream, M=M, N=n, K=k, mode=2,
+                         acc_depth=DEPTH, readout_bits=BITS, delta=delta,
+                         rbar=63.5)
+
             def call(i):
-                err = fn(a.data_ptr(), bs[i % 4].data_ptr(), out.data_ptr(),
-                         out.data_ptr(), table.data_ptr(), M, n, k, 2, DEPTH,
-                         BITS, delta, 63.5, stream)
+                args.B = bs[i % 4].data_ptr()
+                err = fn(ctypes.byref(args))
                 if err:
                     raise RuntimeError(f"{name}: CUDA error {err}")
 

@@ -12,9 +12,10 @@ without printing a result:
   2. build every kernel of the serve path from the checkout's sources
      (nvcc, sm_90a), timed as set-up; the registers and spill stores of
      the tensor-core instances and of the rows instances' split path and
-     merge kernels (none may spill); each attention library's launch
-     argument block (`*_launch_args_bytes()`) against its wrapper's
-     ctypes mirror;
+     merge kernels and of sc_quantize (none may spill); each C entry's
+     launch argument block (`*_launch_args_bytes()`: both attention
+     kernels, sc_matmul and sc_quantize) against its wrapper's ctypes
+     mirror;
   3. hold each kernel against its plain PyTorch version on the card
      over a grid of cases, with the tolerance stated per kernel
      (paged_attention through both its instances, rows and tile, on
@@ -25,7 +26,11 @@ without printing a result:
      the static prefill's own shape at batch 2 included; sc_matmul's
      integer dots also at the edges of their tiles, splits and int32
      range, its artemis path at the edges of its K split and windows and
-     on operands of -128; both attention kernels also at phase 36's
+     on operands of -128; sc_quantize, the int8 quantization in front of
+     sc_matmul, bit for bit (int8 and scale) at the qwen3_8b and
+     qwen2_moe_a2_7b weights and activations per tensor, per row, per
+     lane and with a given absmax, per column, and on ties, zeros, a NaN
+     and an inf (`check_sc_quantize`); both attention kernels also at phase 36's
      head dims and groups: Dh 256 at G 8 and Dh 128 at G 5, 6 and 7
      through both instances (paged's tile instance at the parts its
      plan gives, `tile_plan`, and at one part where that is more than
@@ -46,7 +51,12 @@ without printing a result:
      around 50 back-to-back calls, a synchronize before and none
      inside, the median of 5 such runs);
      sc_matmul int8: the ratio to torch._int_mm; artemis_mxu: the ratio
-     to int8; artemis: the device time of each of its kernels);
+     to int8; artemis: the device time of each of its kernels; at decode
+     and expert rows its host µs a call; sc_quantize at the weights and
+     activations, per call, on the device and its host µs, beside its
+     plain version and byte bound; an sc_matmul call (artemis at M 8,
+     with scratch) and an sc_quantize call replayed from a CUDA graph,
+     bit-equal to the eager calls);
   5. drain the paged-KV engine at the full qwen3_8b width (36 layers,
      bf16, attn_impl="fused") with seeded random weights, with every
      launch count zeroed just before and read just after: each kernel
@@ -59,7 +69,9 @@ without printing a result:
   7. drain the same trace at the full width (bf16, attn_impl="gather")
      under each quantized policy (int8, artemis_mxu, artemis), counts
      zeroed just before each drain and read just after: sc_matmul once
-     per dense projection (7 per layer) of every forward, and
+     per dense projection (7 per layer) of every forward, sc_quantize
+     twice that (one an operand; every quantized path below is held to
+     the same, `hold_quantize`), and
      paged_attention never; then profile one prefill-chunk forward and
      one decode forward under int8 and artemis (device time by group;
      artemis_mxu's forwards are int8's but for its sc_matmul);
@@ -265,7 +277,8 @@ without printing a result:
      weights load; tok/s, ms a forward, weights and peak GiB; the phase's
      seconds against 150;
  16. (last) sc_matmul against its plain version at every shape phases
-     7, 9, 14, 19, 22, 23, 24, 25, 26-29, 30, 33, 35 and 36 gave it;
+     7, 9, 14, 19, 22, 23, 24, 25, 26-29, 30, 33, 35 and 36 gave it, and
+     sc_quantize at every shape, dtype and grouping they gave it;
      print the kernels line, the card line, then the result line.
 Each phase's seconds are logged as it ends. Phase 4 also times each
 kernel at the qwen2_moe_a2_7b shapes (4b), flash_attention at
@@ -285,11 +298,12 @@ failing rank fails the phase and the script.
 
 Kernels: paged_attention (exact engine path; its rows instance at
 decode, its tensor-core tile instance at a prefill chunk), sc_matmul
-(the ARTEMIS MAC of the quantized policies) and flash_attention (exact
+(the ARTEMIS MAC of the quantized policies) and sc_quantize (their
+operands' int8 quantization, in sc_matmul's library) and flash_attention (exact
 static path; its bf16 tensor-core tile instance at the prefill, its
 rows instance at decode), all CUDA C++ for sm_90a, built in parallel.
-sc_matmul is held bit for bit against its plain version, the attention
-kernels within 2e-4.
+sc_matmul and sc_quantize are held bit for bit against their plain
+versions, the attention kernels within 2e-4.
 
 The script imports nothing of `repro` (the JAX package) or of jax.
 """
@@ -853,6 +867,8 @@ SC_ROWS = (("decode", 8), ("prefill_chunk", 256))
 MOE_SC_SHAPES = ((2048, 1408), (1408, 2048), (2048, 2048))
 MOE_SC_ROWS = (("decode_expert", 1), ("decode_shared", 8),
                ("prefill_expert", 20), ("prefill_shared", 256))
+# the most rows a timed sc_matmul call has for its host µs to be read
+SC_HOST_ROWS = 20
 # the policy's defaults, which a call may leave out
 SC_DEFAULTS = dict(acc_depth=20, readout_bits=8, rbar=63.5)
 # (M, K, N, kwargs) of every call held bit for bit against the plain version
@@ -991,32 +1007,40 @@ def check_sc_moe_shapes(gen) -> int:
 
 @contextlib.contextmanager
 def sc_path_shapes(into: set):
-    """Records the (M, K, N, kwargs) of every sc_matmul call made inside
-    the block, through the name `core.artemis_matmul` calls; the wrapper
-    itself, and its launch count, run as they are."""
+    """Records the (M, K, N, kwargs) of every sc_matmul call and the
+    `_q_key` of every sc_quantize call made inside the block, through
+    the names `core.artemis_matmul` calls; the wrappers themselves, and
+    their launch counts, run as they are."""
     import importlib
     # the module, not the function of that name the package exports
     am = importlib.import_module("repro_torch.core.artemis_matmul")
-    real = am.sc_matmul_quantized
+    real, real_q = am.sc_matmul_quantized, am.quantize_int8
 
     def recording(aq, bq, **kw):
         into.add(_sc_key(aq.shape[0], aq.shape[1], bq.shape[1], kw))
         return real(aq, bq, **kw)
 
-    am.sc_matmul_quantized = recording
+    def recording_q(x, axis=None, absmax=None):
+        into.add(_q_key(x.shape, x.dtype, axis, absmax is not None))
+        return real_q(x, axis, absmax)
+
+    am.sc_matmul_quantized, am.quantize_int8 = recording, recording_q
     try:
         yield into
     finally:
-        am.sc_matmul_quantized = real
+        am.sc_matmul_quantized, am.quantize_int8 = real, real_q
 
 
 def check_sc_path_shapes(shapes: set) -> dict:
     """Every sc_matmul shape and setting the main path ran, held against
     the plain version: those phases 3-4 compared are counted, the rest
-    compared now on random operands."""
+    compared now on random operands; then every sc_quantize shape,
+    dtype and grouping it ran, the same way."""
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
+    quant = {key for key in shapes if key[0] == "quantize"}
+    shapes = shapes - quant
     new = sorted(shapes - SC_CHECKED, key=str)
     for m, k, n, kw in new:
         _sc_compare(_int8(gen, m, k), _int8(gen, k, n),
@@ -1025,7 +1049,225 @@ def check_sc_path_shapes(shapes: set) -> dict:
         f"{len(shapes) - len(new)} were compared in phases 3-4, {len(new)} "
         f"now, all bit-equal: "
         + ", ".join(f"{dict(kw)['mode']} {m}x{k}x{n}" for m, k, n, kw in new))
-    return dict(n_shapes=len(shapes), n_compared_here=len(new))
+    new_q = sorted(quant - QUANT_CHECKED, key=str)
+    for _, shape, dtype, axis, given in new_q:
+        x = _q_input(gen, shape, getattr(torch, dtype))
+        _quantize_compare(x, axis, _q_absmax(x) if given else None,
+                          "path shape")
+    log(f"sc_quantize: the main path ran {len(quant)} shapes, dtypes and "
+        f"groupings; {len(quant) - len(new_q)} were compared in phases "
+        f"3-4, {len(new_q)} now, all bit-equal (int8 and scale)")
+    return dict(n_shapes=len(shapes), n_compared_here=len(new),
+                quantize_shapes=len(quant), quantize_compared_here=len(new_q))
+
+
+# ---------------------------------------------------------------------------
+# phases 3-4 and 16: sc_quantize (the int8 quantization in front of the MAC)
+# against its plain version, and its timing
+# ---------------------------------------------------------------------------
+
+# (shape, dtype name, axis, absmax given) of every call held bit for bit
+# against the plain version
+QUANT_CHECKED: set = set()
+# the launches of sc_quantize on each path, by the path's label: two a
+# product (`hold_quantize`)
+QUANT_PATHS: dict = {}
+
+
+def _q_key(shape, dtype, axis, given) -> tuple:
+    axis = axis if axis is None or isinstance(axis, int) else tuple(axis)
+    return ("quantize", tuple(shape), str(dtype).replace("torch.", ""), axis,
+            bool(given))
+
+
+def _q_input(gen, shape, dtype):
+    """Normal values on the card, scaled as activations are."""
+    import torch
+    return (3 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+
+
+def _q_absmax(x):
+    """A given absmax, as the tensor- and data-parallel seams give one:
+    the whole tensor's (here 1.5 times x's own), f32, one element."""
+    return (x.detach().abs().amax().float() * 1.5).reshape(())
+
+
+def _quantize_compare(x, axis, absmax, label):
+    """The kernel against its plain version on the same input: the int8
+    tensor and the scale's bits equal (a NaN scale against a NaN), else
+    raise."""
+    import torch
+    from repro_torch.kernels.sc_matmul import quantize_int8, quantize_int8_ref
+    q, s = quantize_int8(x, axis, absmax)
+    torch.cuda.synchronize()
+    rq, rs = quantize_int8_ref(x, axis, absmax)
+    QUANT_CHECKED.add(_q_key(x.shape, x.dtype, axis, absmax is not None))
+    nan = s.isnan()
+    same = (q.shape == rq.shape and q.dtype == rq.dtype == torch.int8
+            and s.shape == rs.shape and s.dtype == rs.dtype
+            and torch.equal(q, rq) and torch.equal(nan, rs.isnan())
+            and torch.equal(s[~nan].view(torch.int32),
+                            rs[~nan].view(torch.int32)))
+    if not same:
+        raise AssertionError(
+            f"sc_quantize {label} {tuple(x.shape)} {x.dtype} axis {axis} "
+            f"absmax {'given' if absmax is not None else 'own'}: not "
+            f"bit-equal to its plain version ({int((q != rq).sum())} int8 "
+            f"values differ; scales {s.flatten()[:4].tolist()} vs "
+            f"{rs.flatten()[:4].tolist()})")
+    return q, s
+
+
+def _q_ties_and_zeros(dtype):
+    """Rows on rounding ties and edges: row 0 all zeros (the 1e-8
+    floor), row 1 every level -127..127 and every half step between
+    them (round half to even), row 2 the same halved, row 3 a NaN, row 4
+    an inf; 4096 wide."""
+    import torch
+    x = torch.zeros((8, 4096), device="cuda")
+    steps = torch.arange(-127, 128, device="cuda", dtype=torch.float32)
+    x[1, :255] = steps
+    x[1, 255:509] = steps[:-1] + 0.5
+    x[2] = x[1] * 0.5
+    x[3, :300] = x[1, :300]
+    x[3, 7] = float("nan")
+    x[4, :300] = x[1, :300]
+    x[4, 9] = float("inf")
+    return x.to(dtype)
+
+
+def check_sc_quantize() -> int:
+    """sc_quantize bit for bit against its plain version: the qwen3_8b
+    and qwen2_moe_a2_7b weights per tensor (bf16 as served, f32 as the
+    train step's master weights), their activations at M 1, 8, 20 and
+    256 per tensor, per lane (every dim but the first: the recurrent
+    families' lanes) and per row (axis -1), a given absmax, a weight's
+    per-column scale (axis 0), ragged widths, and rows on ties, of zeros,
+    of a NaN and an inf; returns the number of cases."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    n = 0
+    weights = sorted(set(SC_SHAPES) | set(MOE_SC_SHAPES))
+    for k, nn in weights:
+        for dtype in (torch.bfloat16, torch.float32):
+            _quantize_compare(_q_input(gen, (k, nn), dtype), None, None,
+                              "weight")
+            n += 1
+    ks = sorted({k for k, _ in weights})
+    for m in (1, 8, 20, 256):
+        for k in ks:
+            x = _q_input(gen, (m, k), torch.bfloat16)
+            for axis in (None, -1):
+                _quantize_compare(x, axis, None, "activation")
+            _quantize_compare(x, None, _q_absmax(x), "given absmax")
+            lanes = x.reshape(8, m // 8, k) if m % 8 == 0 else x[:, None]
+            _quantize_compare(lanes, (1, 2), None, "per lane")
+            n += 4
+    for shape, axis in (((4096, 1024), 0), ((333, 45), 0), ((37, 333), None),
+                        ((7, 333), -1), ((3, 5, 7, 41), (1, 2, 3))):
+        for dtype in (torch.bfloat16, torch.float32):
+            _quantize_compare(_q_input(gen, shape, dtype), axis, None,
+                              "ragged")
+            n += 1
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _q_ties_and_zeros(dtype)
+        for axis in (-1, None):
+            _quantize_compare(x, axis, None, "ties and zeros")
+            n += 1
+    log(f"sc_quantize: {n} cases bit-equal to the plain version (int8 and "
+        f"scale): weights {weights} per tensor in bf16 and f32, "
+        f"activations at M 1/8/20/256 x K {ks} per tensor, per row, per "
+        f"lane and with a given absmax, per-column and ragged shapes, "
+        f"ties, zeros, NaN and inf")
+    return n
+
+
+def _q_bound(x) -> tuple[float, int]:
+    """(bound ms, bytes): x read once, the int8 tensor and a scale
+    written once, at the card's memory rate (no arithmetic to price)."""
+    n_bytes = x.numel() * (x.element_size() + 1) + 4
+    return n_bytes / HBM_BYTES_PER_S * 1e3, n_bytes
+
+
+def time_sc_quantize(weights=SC_SHAPES, m_rows=SC_ROWS,
+                     model="qwen3_8b") -> list[dict]:
+    """sc_quantize per tensor at each full-width weight (bf16) and at the
+    activations of every M in `m_rows` by every K (bf16): the kernel per
+    call, on the device alone (a CUDA graph) and its host µs, beside its
+    plain version (`core.quantization`'s ops) and its byte bound; no
+    single library call computes the function. A weight's calls read
+    another of 4 copies (up to 400 MB), so the 50 MB L2 holds none."""
+    import torch
+    from repro_torch.kernels.sc_matmul import quantize_int8, quantize_int8_ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    copies = 4
+    cases = [("weight", shape) for shape in weights] + [
+        (label, (m, k)) for label, m in m_rows
+        for k in sorted({k for k, _ in weights})]
+    rows = []
+    for label, shape in cases:
+        xs = [_q_input(gen, shape, torch.bfloat16) for _ in range(copies)]
+        _quantize_compare(xs[0], None, None, label)
+        ms = _adaptive_ms(lambda i: quantize_int8(xs[i % copies]))
+        device_ms = _graph_ms(lambda i: quantize_int8(xs[i % copies]))
+        host_ms = _host_ms(lambda i: quantize_int8(xs[i % copies]))
+        plain_ms = _adaptive_ms(lambda i: quantize_int8_ref(
+            xs[i % copies]), budget_s=0.5, most=10)
+        bound_ms, n_bytes = _q_bound(xs[0])
+        rows.append(dict(model=model, shape=label, dims=list(shape),
+                         max_abs_err=0.0, ms=ms, device_ms=device_ms,
+                         host_ms=host_ms, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=bound_ms,
+                         bound_by="bytes", bytes=n_bytes))
+        log(f"  sc_quantize {label:13s} {str(tuple(shape)):15s}: kernel "
+            f"{ms*1e3:8.2f} us (device {device_ms*1e3:8.2f}, host "
+            f"{host_ms*1e3:6.2f}) | plain {plain_ms*1e3:9.2f} us | bound "
+            f"{bound_ms*1e3:7.2f} us (bytes) | {bound_ms/device_ms:6.1%} of "
+            f"bound on the device")
+        del xs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_sc_graph_replays() -> dict:
+    """One sc_matmul_quantized call (artemis at M 8, which takes scratch
+    from the workspace) and one quantize_int8 call (a qwen3_8b weight,
+    whose chunk maxima take scratch) replayed from a CUDA graph, each
+    bit-equal to the eager call."""
+    import torch
+    from repro_torch.kernels.sc_matmul import (quantize_int8,
+                                               sc_matmul_quantized)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    a, b = _int8(gen, 8, 4096), _int8(gen, 4096, 12288)
+    w = _q_input(gen, (4096, 12288), torch.bfloat16)
+    out = dict(sc_matmul_artemis_m8=_graph_matches_eager(
+                   lambda i: sc_matmul_quantized(a, b, mode="artemis")),
+               sc_quantize_weight=_graph_matches_eager(
+                   lambda i: quantize_int8(w)))
+    log(f"  CUDA graph replays bit-equal to the eager calls: {out}")
+    if not all(out.values()):
+        raise AssertionError(f"a graph's replay differs from the eager "
+                             f"call: {out}")
+    return out
+
+
+def hold_quantize(counts: dict, label: str, noisy_products: int = 0) -> int:
+    """A path's sc_quantize launches (its launch counts, zeroed just
+    before it ran): two a product, one an operand, so twice its
+    sc_matmul launches and its noisy artemis products (which quantize on
+    the card and scan in plain torch); recorded in QUANT_PATHS."""
+    got = counts.get("sc_quantize", 0)
+    want = 2 * (counts.get("sc_matmul", 0) + noisy_products)
+    if got != want:
+        raise AssertionError(f"{label}: sc_quantize launched {got} times, "
+                             f"want {want} (two a product)")
+    if got:
+        QUANT_PATHS[label] = got
+    return got
 
 
 def check_sc_artemis_edges(gen) -> int:
@@ -1216,6 +1458,11 @@ def time_sc_matmul(shapes=SC_SHAPES, m_rows=SC_ROWS,
                     a, bs[i % copies], mode=mode))
                 device_ms = _graph_ms(lambda i: sc_matmul_quantized(
                     a, bs[i % copies], mode=mode))
+                # the host's µs a call where the device's are few: decode
+                # and expert rows
+                host_ms = (_host_ms(lambda i: sc_matmul_quantized(
+                    a, bs[i % copies], mode=mode)) if m <= SC_HOST_ROWS
+                    else None)
                 plain_ms = _adaptive_ms(lambda i: sc_matmul_ref(
                     a, bs[i % copies], mode=mode), budget_s=1.0, most=10)
                 library_ms = None
@@ -1229,7 +1476,7 @@ def time_sc_matmul(shapes=SC_SHAPES, m_rows=SC_ROWS,
                 bound_ms, bound_by, n_bytes, ops = _sc_bound(mode, m, k, n)
                 row = dict(model=model, mode=mode, shape=label, M=m, K=k,
                            N=n, max_abs_err=0.0, ms=ms, device_ms=device_ms,
-                           plain_ms=plain_ms,
+                           host_ms=host_ms, plain_ms=plain_ms,
                            library_ms=library_ms, bound_ms=bound_ms,
                            bound_by=bound_by, bytes=n_bytes, ops=ops)
                 if mode == "artemis":   # products and (decode) the scan
@@ -1251,8 +1498,11 @@ def time_sc_matmul(shapes=SC_SHAPES, m_rows=SC_ROWS,
                         f"{name} {us:.2f} us"
                         for name, us in row["kernel_us"].items())
                 rows.append(row)
+                host_txt = ("" if host_ms is None
+                            else f", host {host_ms*1e3:6.2f}")
                 log(f"  {mode:11s} {label:13s} M {m:3d} K {k:5d} N {n:5d}:"
-                    f" kernel {ms*1e3:9.2f} us (device {device_ms*1e3:8.2f})"
+                    f" kernel {ms*1e3:9.2f} us (device {device_ms*1e3:8.2f}"
+                    f"{host_txt})"
                     f" | plain {plain_ms*1e3:10.2f}"
                     f" us{lib_txt} | bound {bound_ms*1e3:8.2f} us "
                     f"({bound_by}) | {bound_ms/ms:6.1%} of bound")
@@ -1984,6 +2234,7 @@ def quantized_drains(cfg, sc_rows, n_forwards_exact) -> dict:
         if run["counts"].get("paged_attention", 0):
             raise AssertionError(f"{mode}: the gather drain launched "
                                  f"paged_attention")
+        hold_quantize(run["counts"], f"qwen3_8b {mode} engine")
         runs[mode] = dict(tok_s=tok_s, wall_s=run["wall_s"],
                           n_forwards=run["n_forwards"], launches=launches,
                           n_tokens=m["n_generated_tokens"],
@@ -2081,7 +2332,8 @@ def static_drain(cfg, profile: bool = True) -> dict:
     if by_variant != want_by_variant:
         raise AssertionError(f"flash_attention's instances launched "
                              f"{by_variant}, want {want_by_variant}")
-    if counts.get("paged_attention", 0) or counts.get("sc_matmul", 0):
+    if counts.get("paged_attention", 0) or counts.get("sc_matmul", 0) \
+            or counts.get("sc_quantize", 0):
         raise AssertionError(f"the exact static path launched {counts}")
     out = dict(model=model, prefill_ms=run["prefill_s"] * 1e3,
                decode_tok_s=run["decode_tok_per_s"], step_ms=step_ms,
@@ -2199,6 +2451,7 @@ def static_checks(cfg, model) -> dict:
             or counts.get("paged_attention", 0):
         raise AssertionError(f"int8 static run launches {counts}, want "
                              f"sc_matmul {want} and nothing else")
+    hold_quantize(counts, f"{cfg.name} int8 static")
     gc.collect()
     torch.cuda.empty_cache()
     return dict(int8_prefill_ms=run["prefill_s"] * 1e3,
@@ -2317,7 +2570,8 @@ def check_paged_counts(cfg, run, label) -> dict:
         raise AssertionError(f"{label}: paged_attention launches "
                              f"{by_variant}, want {want} of which tile "
                              f"{want_tile}")
-    if counts.get("sc_matmul", 0) or counts.get("flash_attention", 0):
+    if counts.get("sc_matmul", 0) or counts.get("flash_attention", 0) \
+            or counts.get("sc_quantize", 0):
         raise AssertionError(f"{label}: the exact engine path launched "
                              f"{counts}")
     return dict(launches=launches, launches_by_variant=by_variant)
@@ -2436,7 +2690,8 @@ def moe_static(cfg, model) -> dict:
             cfg.n_layers * 33:
         raise AssertionError(f"MoE static run: flash_attention launches "
                              f"{by_variant}, want {want}")
-    if counts.get("paged_attention", 0) or counts.get("sc_matmul", 0):
+    if counts.get("paged_attention", 0) or counts.get("sc_matmul", 0) \
+            or counts.get("sc_quantize", 0):
         raise AssertionError(f"the exact static path launched {counts}")
     return dict(prefill_ms=run["prefill_s"] * 1e3,
                 decode_tok_s=run["decode_tok_per_s"], step_ms=step_ms,
@@ -2467,6 +2722,7 @@ def moe_int8_drain(cfg, model) -> dict:
             run["counts"].get("flash_attention", 0):
         raise AssertionError(f"MoE int8 drain launches {run['counts']}, "
                              f"want sc_matmul {want} and nothing else")
+    hold_quantize(run["counts"], "qwen2_moe_a2_7b int8 engine")
     return dict(tok_s=tok_s, wall_s=run["wall_s"],
                 n_forwards=run["n_forwards"], launches=launches)
 
@@ -2758,9 +3014,11 @@ def rwkv6_int8(cfg, model) -> dict:
         f"launches {launches} = {RWKV6_LAYER_PRODUCTS} x {cfg.n_layers} "
         f"layers x {run['n_applies']} applies? {launches == want}")
     if launches != want or set(k for k, v in run["counts"].items() if v) \
-            != {"sc_matmul"}:
+            != {"sc_matmul", "sc_quantize"}:
         raise AssertionError(f"rwkv6 int8 drain launches {run['counts']}, "
-                             f"want sc_matmul {want} and nothing else")
+                             f"want sc_matmul {want}, sc_quantize twice "
+                             f"that, and nothing else")
+    hold_quantize(run["counts"], "rwkv6_3b int8 engine")
     return dict(tok_s=tok_s, wall_s=run["wall_s"],
                 n_forwards=run["n_forwards"], n_applies=run["n_applies"],
                 launches=launches, lane_check=lane_check(cfg, model))
@@ -2973,6 +3231,9 @@ GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::matmul",
             "aten::baddbmm")
 SC_KERNEL_NAMES = ("dot_kernel", "artemis_kernel", "artemis_scan_kernel",
                    "mxu_epilogue")
+# sc_quantize's kernels, launched from its C entry (no torch op encloses
+# them): the quantize/cast group by name
+QUANT_KERNEL_NAMES = ("sc_quantize",)
 FA_KERNEL_NAMES = ("flash_attention_kernel", "flash_attention_tile_kernel",
                    "flash_attention_split_kernel",
                    "flash_attention_merge_kernel")
@@ -2989,6 +3250,8 @@ def profile_scopes():
     layers = importlib.import_module("repro_torch.models.layers")
     targets = [(quant, "quant_scale", "quantize"),
                (quant, "quantize", "quantize"),
+               *([(am, "quantize_int8", "quantize")]
+                 if hasattr(am, "quantize_int8") else []),
                (am, "sc_matmul_quantized", "sc_matmul"),
                (layers, "_int_einsum", "int_einsum"),
                (layers, "_quant_einsum", "quant_einsum"),
@@ -3016,7 +3279,9 @@ def _op_group(evt) -> str:
     """The group of the kernels an operator launched: its innermost
     enclosing scope of `profile_scopes`, and for the two quantized entry
     points whether it is a matrix product (the straight-through term's
-    exact f32 product) or elementwise (casts, dequantize)."""
+    exact f32 product) or elementwise (casts, dequantize); a product's
+    kernel that the profiler hangs from a runtime call rather than from
+    the product's op is filed by its name (`device_time_by_group`)."""
     node = evt
     while node is not None and node.name not in PROFILE_SCOPES:
         node = node.cpu_parent
@@ -3030,13 +3295,16 @@ def _op_group(evt) -> str:
 
 def device_time_by_group(prof) -> tuple[dict, float]:
     """(ms by group, total ms) of the profiled device kernels. sc_matmul
-    counts its kernels by name; the other groups take each operator's
+    and sc_quantize (in quantize/cast) count their kernels by name,
+    which no torch op launches, and a GEMM kernel the profiler files
+    under a runtime call in a quantized entry goes to the STE's exact
+    product by its name; the other groups take each operator's
     kernels by `_op_group`; "other" is the rest of the device time. The
     device rows named after a scope are the profiler's spans of those
     ranges on the device timeline, not kernels: they are left out."""
     from torch.autograd import DeviceType
     total = 0.0
-    groups = {"sc_matmul": 0.0}
+    groups = {"sc_matmul": 0.0, "quantize/cast": 0.0}
     for evt in prof.key_averages():
         us = evt.self_device_time_total
         if evt.device_type != DeviceType.CUDA or us <= 0 \
@@ -3045,6 +3313,8 @@ def device_time_by_group(prof) -> tuple[dict, float]:
         total += us
         if any(k in evt.key for k in SC_KERNEL_NAMES):
             groups["sc_matmul"] += us
+        elif any(k in evt.key for k in QUANT_KERNEL_NAMES):
+            groups["quantize/cast"] += us
     for evt in prof.events():
         if evt.device_type != DeviceType.CPU or not evt.kernels:
             continue
@@ -3052,8 +3322,14 @@ def device_time_by_group(prof) -> tuple[dict, float]:
         if group in ("sc_matmul", "other"):
             continue
         for kern in evt.kernels:
-            if not any(k in kern.name for k in SC_KERNEL_NAMES):
-                groups[group] = groups.get(group, 0.0) + kern.duration
+            if any(k in kern.name for k in SC_KERNEL_NAMES
+                   + QUANT_KERNEL_NAMES):
+                continue
+            if group == "quantize/cast" and "gemm" in kern.name:
+                kern_group = "STE exact product"
+            else:
+                kern_group = group
+            groups[kern_group] = groups.get(kern_group, 0.0) + kern.duration
     groups["other"] = total - sum(groups.values())
     return {k: v * 1e-3 for k, v in groups.items()}, total * 1e-3
 
@@ -3279,6 +3555,7 @@ def train_full_width(cfg, n_layers: int = TRAIN_LAYERS,
             counts.get("paged_attention", 0):
         raise AssertionError(f"the phase's launch counts {counts} are not "
                              f"the sum of its steps' (sc_matmul {total_sc})")
+    hold_quantize(counts, f"{cfg.name} train ({n_layers} layers)")
     peak = torch.cuda.max_memory_allocated() / 2**30
     bound_ms = ADAMW_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S * 1e3
     adamw_med = statistics.median(adamw_ms[1:] or adamw_ms)
@@ -3655,6 +3932,7 @@ def noisy_artemis_on_card(cfg) -> dict:
     noisy_launches = dict(launch_counts)
     if noisy_launches.get("sc_matmul", 0):
         raise AssertionError(f"the noisy product launched {noisy_launches}")
+    hold_quantize(noisy_launches, "noisy artemis product", noisy_products=1)
     t = time.perf_counter()
     host = artemis_matmul(a, b, pol, key=key)
     host_s = time.perf_counter() - t
@@ -3666,6 +3944,7 @@ def noisy_artemis_on_card(cfg) -> dict:
     if quiet_launches.get("sc_matmul", 0) != 1:
         raise AssertionError(f"the noiseless product launched "
                              f"{quiet_launches}, want sc_matmul once")
+    hold_quantize(quiet_launches, "noiseless artemis product")
     level = float(20 * 127 / 255 * 128 * quant_scale(a) * quant_scale(b))
     out = _card_vs_host(card, host)
     apart = out.pop("apart")
@@ -3775,6 +4054,8 @@ def examples_on_card(path_sc: set) -> dict:
                                  logits_drift=qs["logits_drift"])
         if not 0 < qs["sc_matmul_launches"] <= launch_counts["sc_matmul"]:
             raise AssertionError(f"quickstart's artemis_mxu forward: {qs}")
+        hold_quantize(out["quickstart"]["launches"],
+                      "examples/torch_quickstart.py artemis_mxu forward")
         for name, kernel in (("serve_batched", "flash_attention"),
                              ("serve_engine", "paged_attention")):
             argv = sys.argv
@@ -3979,9 +4260,12 @@ def mesh_qwen3(cfg, path_sc: set) -> dict:
             if counts.get("sc_matmul", 0) != want or \
                     counts.get("paged_attention", 0):
                 raise AssertionError(f"{label} rank {rank} launched {counts}")
+            hold_quantize(counts, f"qwen3_8b sharded {label} engine (rank "
+                                  f"{rank})")
             path_sc |= per[job]["sc_shapes"]
-    shard_shapes = sorted({(m, k, n) for per in runs
-                           for m, k, n, _ in per[1]["sc_shapes"]})
+    shard_shapes = sorted({key[:3] for per in runs
+                           for key in per[1]["sc_shapes"]
+                           if key[0] != "quantize"})
     log(f"  int8 shard shapes (M, K, N): {shard_shapes}")
     return dict(exact=exact, int8=int8, shard_shapes=shard_shapes,
                 transport=meshlib.transport_line(MESH_N, "cuda"))
@@ -4359,6 +4643,7 @@ def shard_run(device, job) -> dict:
             # the plain version runs on the CPU (a rehearsal): no launch
             want = 0 if mode == "exact" or device.type != "cuda" else want_sc
             if counts.get("sc_matmul", 0) != want or \
+                    counts.get("sc_quantize", 0) != 2 * want or \
                     counts.get("flash_attention", 0) or \
                     counts.get("paged_attention", 0):
                 raise AssertionError(f"sharded step {step} ({mode}) "
@@ -4485,6 +4770,9 @@ def sharded_train(path_sc: set, smoke: bool = False) -> dict:
                 if any(k != want for k in sc):
                     raise AssertionError(f"{name} {mode}: sc_matmul "
                                          f"launches {sc}, want {want}")
+                for rank, r in enumerate(res):
+                    hold_quantize(r[mode]["counts"], f"{name} {mode} train "
+                                                     f"(rank {rank})")
                 line = (f"  {name} {mode}: loss {r0['metrics']['loss']:.7f}, "
                         f"the step {r0['step_s']:.1f} s, sc_matmul a rank "
                         f"{sc}")
@@ -4777,6 +5065,9 @@ def check_tp_static(job, res: list, smoke: bool = False) -> dict:
                 for r in res for v in "abc"):
         raise AssertionError(f"{name}: sc_matmul {sc} (want {want_sc}), "
                              f"flash_attention {fa} (want {want_fa}) a rank")
+    for rank, r in enumerate(res):
+        hold_quantize(r["b"]["counts"], f"{name} tensor-parallel int8 "
+                                        f"static (rank {rank})")
     secs = max(r["seconds"] for r in res)
     log(f"  {name} static (reduced: depth {cfg.n_layers} of "
         f"{configs_full_layers(job['arch'])}, ranks {SHARD_N} sharing one "
@@ -4887,7 +5178,7 @@ def check_flash_counts(cfg, run, label, prompt_len, gen_len,
         f"{counts.get('sc_matmul', 0)}")
     if by_variant != want or counts.get("flash_attention", 0) != \
             cfg.n_layers * (1 + gen_len) or counts.get("paged_attention", 0) \
-            or counts.get("sc_matmul", 0):
+            or counts.get("sc_matmul", 0) or counts.get("sc_quantize", 0):
         raise AssertionError(f"{label}: launches {counts}, want flash "
                              f"{want} and nothing else")
     return by_variant
@@ -5030,6 +5321,7 @@ def new_config_run(arch: str, n_layers: int | None, path_sc: set) -> dict:
                     or run["counts"].get("flash_attention", 0):
                 raise AssertionError(f"{arch} int8 drain launches "
                                      f"{run['counts']}, want sc_matmul {want}")
+            hold_quantize(run["counts"], f"{arch} int8 engine")
             out["quantized"]["int8"] = dict(
                 engine=True, tok_s=tok / run["wall_s"], wall_s=run["wall_s"],
                 n_forwards=run["n_forwards"], launches=launches,
@@ -5054,6 +5346,7 @@ def new_config_run(arch: str, n_layers: int | None, path_sc: set) -> dict:
                         counts.get("paged_attention", 0):
                     raise AssertionError(f"{arch} {mode} static run launches "
                                          f"{counts}, want sc_matmul {want}")
+                hold_quantize(counts, f"{arch} {mode} static")
                 out["quantized"][mode] = dict(
                     engine=False, prefill_ms=run["prefill_s"] * 1e3,
                     decode_tok_s=run["decode_tok_per_s"],
@@ -5285,7 +5578,8 @@ def main() -> int:
         from repro_torch.kernels import build
         from repro_torch.kernels.flash_attention import flash_attention_all
         from repro_torch.kernels.paged_attention import paged_attention
-        from repro_torch.kernels.sc_matmul import sc_matmul_quantized
+        from repro_torch.kernels.sc_matmul import (quantize_int8,
+                                                   sc_matmul_quantized)
     except ImportError as e:
         print(f"chip_smoke: the port is not here ({e}); run from the "
               f"repository root", file=sys.stderr)
@@ -5318,6 +5612,7 @@ def main() -> int:
         log(f"  ptxas: {ptxas_summary(report)}")
         for name, regs, spill in ptxas_instances(report):
             if any(k in name for k in ("mma_dot_kernel", "artemis_kernel",
+                                       "sc_quantize",
                                        "paged_attention_tile",
                                        "flash_attention_tile",
                                        "attention_split", "attention_merge")):
@@ -5325,9 +5620,10 @@ def main() -> int:
                     f"stores")
                 if spill:
                     raise AssertionError(f"{name} spills")
-    # the attention entries' argument blocks against their ctypes mirrors
-    # (a block that drifted must never launch)
-    for fn in (paged_attention, flash_attention_all):
+    # the C entries' argument blocks against their ctypes mirrors (a
+    # block that drifted must never launch)
+    for fn in (paged_attention, flash_attention_all, sc_matmul_quantized,
+               quantize_int8):
         mod = sys.modules[fn.__module__]
         size_fn = f"{mod.NAME}_launch_args_bytes"
         build.check_launch_args(build.load(mod.SOURCE), size_fn, mod._Args)
@@ -5338,6 +5634,7 @@ def main() -> int:
     pa_err = check_paged_attention()
     pa_split = check_paged_split()
     n_sc_cases = check_sc_matmul()
+    n_q_cases = check_sc_quantize()
     fa_err, n_fa_cases = check_flash_attention()
     fa_split = check_flash_split()
 
@@ -5346,12 +5643,16 @@ def main() -> int:
     phases.mark("4. kernel timing at the full-width qwen3_8b shapes")
     timing = time_paged_attention(cfg)
     sc_rows = time_sc_matmul()
+    q_rows = time_sc_quantize()
+    sc_graphs = check_sc_graph_replays()
     fa_rows = time_flash_attention(cfg)
     phases.mark("4b. kernel timing at the full-width qwen2_moe_a2_7b "
                 "shapes (G = 1, Hq = Hkv = 16; the expert products)")
     moe_rows = {"paged_attention": time_paged_attention(moe_cfg),
                 "sc_matmul": time_sc_matmul(MOE_SC_SHAPES, MOE_SC_ROWS,
                                             "qwen2_moe_a2_7b"),
+                "sc_quantize": time_sc_quantize(MOE_SC_SHAPES, MOE_SC_ROWS,
+                                                "qwen2_moe_a2_7b"),
                 "flash_attention": time_flash_attention(moe_cfg)}
     for rows in (moe_rows["paged_attention"], moe_rows["flash_attention"]):
         for row in rows:
@@ -5607,6 +5908,9 @@ def main() -> int:
     # the one with a library call; every mode and shape is in "shapes"
     head = next(r for r in sc_rows if r["mode"] == "int8"
                 and r["M"] == 8 and (r["K"], r["N"]) == (4096, 12288))
+    # sc_quantize's headline row: the w_gate/w_up weight, per tensor
+    q_head = next(r for r in q_rows if r["shape"] == "weight"
+                  and r["dims"] == [4096, 12288])
     ex = arith["examples"]
     pa_paths = {"qwen3_8b engine": full["launches"],
                 "qwen3_8b mixed engine": mixed["launches"],
@@ -5683,7 +5987,22 @@ def main() -> int:
         "cases_bit_equal": n_sc_cases + len(sc_rows)
         + len(moe_rows["sc_matmul"]) + sc_path["n_compared_here"],
         "path_shapes": sc_path,
+        "graph_replays": sc_graphs,
         "shapes": sc_rows + moe_rows["sc_matmul"],
+    }, {
+        "name": "sc_quantize", "route": "cuda",
+        "source": "src/repro_torch/kernels/sc_matmul/csrc/sc_matmul.cu",
+        # no Pallas kernel: the quantization inside the reference's jitted
+        # float entry of the Pallas kernel
+        "replaces": "src/repro/kernels/sc_matmul/ops.py:51",
+        "launches": sum(QUANT_PATHS.values()),
+        "launches_by_path": dict(QUANT_PATHS),
+        "max_abs_err": 0.0, "ms": q_head["ms"],
+        "plain_ms": q_head["plain_ms"], "bound_ms": q_head["bound_ms"],
+        "bound_by": q_head["bound_by"], "library_ms": None,
+        "cases_bit_equal": n_q_cases + len(q_rows)
+        + len(moe_rows["sc_quantize"]) + sc_path["quantize_compared_here"],
+        "shapes": q_rows + moe_rows["sc_quantize"],
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"

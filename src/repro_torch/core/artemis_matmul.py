@@ -22,8 +22,13 @@ The quantized modes quantize the whole (..., M, K) activation tensor and
 the (K, N) weight as the reference does, flatten the leading dimensions
 and hand the int8 operands to `kernels.sc_matmul.sc_matmul_quantized`:
 its plain version on the CPU, the hand-written Hopper kernel on CUDA.
-With policy.ste the forward value is exact + (out - exact).detach(), so
-gradients are those of the exact product.
+The quantization itself is `kernels.sc_matmul.quantize_int8` (the
+`sc_quantize` kernel on CUDA, `core.quantization` on the CPU), on the
+operands as given: it computes in f32, and bf16 to f32 is exact, so
+only the straight-through term's exact product casts them. With
+policy.ste the forward value is exact + (out - exact).detach(), so
+gradients are those of the exact product; without it the scales keep
+their gradient, through `core.quantization`'s ops.
 
 The artemis mode with analog readout noise (sigma_analog > 0) runs the
 reference's group scan (`_artemis_emulated`) in plain PyTorch on the
@@ -41,18 +46,35 @@ from repro_torch.core import quantization as q
 from repro_torch.core.analog import MomcapConfig, readout_quantize
 from repro_torch.core.policy import ArithmeticPolicy
 from repro_torch.core.quantization import SC_LEVELS
+from repro_torch.kernels.sc_matmul.quantize import quantize_int8
 from repro_torch.kernels.sc_matmul.sc_matmul import sc_matmul_quantized
+
+# the dtypes the sc_quantize kernel reads; others are cast to f32 first
+_KERNEL_FLOATS = (torch.float32, torch.bfloat16)
 
 
 def _quantize_pair(a: torch.Tensor, b: torch.Tensor,
                    policy: ArithmeticPolicy, b_absmax=None, a_absmax=None):
-    """Per-tensor (activations) / per-column (weights) symmetric int8:
-    (aq, bq, sa, sb). `b_absmax`: the whole weight's absmax when b is a
-    rank's part of it; `a_absmax`: the whole batch's activation absmax
-    when a is a data rank's rows of it (`quant_scale`'s absmax_of)."""
-    sa = q.quant_scale(a, 8, policy.act_quant_axis, absmax_of=a_absmax)
-    sb = q.quant_scale(b, 8, policy.weight_quant_axis, absmax_of=b_absmax)
-    return q.quantize(a, sa), q.quantize(b, sb), sa, sb
+    """Per-tensor (activations) / per-column (weights) symmetric int8 of
+    the f32 of a and b: (aq, bq, sa, sb). `b_absmax`: the whole weight's
+    absmax when b is a rank's part of it; `a_absmax`: the whole batch's
+    activation absmax when a is a data rank's rows of it (`quant_scale`'s
+    absmax_of). The int8 values come from `quantize_int8`; where the
+    output differentiates through the scales (no STE), the scales come
+    from `core.quantization`'s ops, whose values are the kernel's."""
+    a32 = a if a.dtype in _KERNEL_FLOATS else a.float()
+    b32 = b if b.dtype in _KERNEL_FLOATS else b.float()
+    grads = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+    if grads:
+        a32, b32 = a32.detach(), b32.detach()
+    aq, sa = quantize_int8(a32, policy.act_quant_axis, a_absmax)
+    bq, sb = quantize_int8(b32, policy.weight_quant_axis, b_absmax)
+    if grads and not policy.ste:
+        sa = q.quant_scale(a.float(), 8, policy.act_quant_axis,
+                           absmax_of=a_absmax)
+        sb = q.quant_scale(b.float(), 8, policy.weight_quant_axis,
+                           absmax_of=b_absmax)
+    return aq, bq, sa, sb
 
 
 def _artemis_noisy(aq: torch.Tensor, bq: torch.Tensor,
@@ -115,10 +137,8 @@ def artemis_matmul(a: torch.Tensor, b: torch.Tensor,
     `a_absmax`: the absmax of the whole activation when a is a data
     rank's rows of it.
     """
-    a = a.float()
-    b = b.float()
     if policy.mode == "exact":
-        return torch.matmul(a, b)
+        return torch.matmul(a.float(), b.float())
     aq, bq, sa, sb = _quantize_pair(a, b, policy, b_absmax, a_absmax)
     if policy.mode == "artemis" and policy.sigma_analog > 0.0:
         acc = _artemis_noisy(aq, bq, policy, key)
@@ -128,11 +148,12 @@ def artemis_matmul(a: torch.Tensor, b: torch.Tensor,
             acc_depth=policy.acc_depth, readout_bits=policy.readout_bits,
             rbar=policy.rbar).reshape(*aq.shape[:-1], bq.shape[-1])
     if policy.mode == "int8":
-        out = acc.float() * sa * sb
+        # the int32 sums go to f32 inside the product, as .float() would
+        out = acc * sa * sb
     else:
         out = acc * SC_LEVELS * sa * sb
     if policy.ste:
-        exact = torch.matmul(a, b)
+        exact = torch.matmul(a.float(), b.float())
         out = exact + (out - exact).detach()
     return out
 
@@ -140,8 +161,11 @@ def artemis_matmul(a: torch.Tensor, b: torch.Tensor,
 def calibrate_rbar(a: torch.Tensor, b: torch.Tensor,
                    policy: ArithmeticPolicy) -> float:
     """Exact E[(m_a*m_b) mod 128] over the operands' actual distribution,
-    the per-layer refinement of the MXU correction constant."""
-    aq, bq, _, _ = _quantize_pair(a, b, policy)
+    the per-layer refinement of the MXU correction constant. Off every
+    serve and train path, it quantizes in the operands' own dtype with
+    `core.quantization`'s ops, as the reference does."""
+    aq = q.quantize(a, q.quant_scale(a, 8, policy.act_quant_axis))
+    bq = q.quantize(b, q.quant_scale(b, 8, policy.weight_quant_axis))
     ma, _ = q.magnitude_sign(aq)
     mb, _ = q.magnitude_sign(bq)
     r = (ma[..., :, :, None] * mb[None, :, :]) % SC_LEVELS

@@ -22,12 +22,13 @@ the call's shapes and arguments, and nothing of the ops inside, so a
 kernel's work reads the same whether the kernel, its plain version or
 a meta tensor's shape computes it.
 
-The attention wrappers keep their host path short, since a decode
-call's device time is some 20-60 µs: each caches a launch plan per call
+The wrappers keep their host path short, since a decode call's device
+time is some 5-60 µs: each caches a launch plan per call
 signature (`PlanCache`: the checks that read shapes, strides, dtypes
 and host arguments, done once, and the C entry's argument block,
-`check_launch_args`, filled once), and takes the partials of its split
-walks from one buffer per (device, stream) (`workspace`).
+`check_launch_args`, filled once), and takes its scratch (the split
+walks' partials, sc_matmul's sums, sc_quantize's chunk maxima) from one
+buffer per (device, stream) (`workspace`).
 """
 from __future__ import annotations
 
@@ -169,11 +170,15 @@ def refuse_autograd(name: str, route: str, *tensors) -> None:
     """Raise if autograd would record through kernel `name`: grad mode
     on and a floating input that requires grad. The kernels compute no
     gradient, so the differentiable `route` must be taken instead."""
-    if torch.is_grad_enabled() and any(
-            t.is_floating_point() and t.requires_grad for t in tensors):
+    if any(t.requires_grad for t in tensors) and torch.is_grad_enabled() \
+            and any(t.is_floating_point() and t.requires_grad
+                    for t in tensors):
         raise RuntimeError(
             f"{name} has no backward: a differentiable caller takes "
             f"{route} (or runs under torch.no_grad())")
+
+
+_NO_COUNT = contextlib.nullcontext()
 
 
 def kernel_call(name: str, work, int8: bool = False):
@@ -182,7 +187,7 @@ def kernel_call(name: str, work, int8: bool = False):
     `work()` -> (FLOPs, bytes) of its function (on int8 operands if
     `int8`), in place of the ops run inside."""
     if not COUNTERS:
-        return contextlib.nullcontext()
+        return _NO_COUNT
     stack = contextlib.ExitStack()
     for counter in COUNTERS:
         stack.enter_context(counter.kernel(name, work, int8))

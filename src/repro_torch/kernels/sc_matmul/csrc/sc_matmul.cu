@@ -881,6 +881,33 @@ cudaError_t launch_artemis(const int8_t* A, const int8_t* B, float* out,
 // each possible group sum x, or x itself for readout_bits < 0 (ideal
 // readout); delta = acc_depth * 127 / levels rounded to f32 by the caller.
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
+//
+// The wrapper hands a call over as one packed block, ScMatmulArgs, which
+// it mirrors as a ctypes.Structure (`_Args` in sc_matmul.py), fills once
+// per call signature and of which it writes only the pointers and the
+// stream per call; `sc_matmul_launch_args_bytes` gives its size, which the
+// wrapper holds against its mirror's when it loads the library.
+struct ScMatmulArgs {
+  const void* A;
+  const void* B;
+  void* out;
+  void* scratch;
+  const void* table;
+  void* stream;
+  int M;
+  int N;
+  int K;
+  int mode;
+  int acc_depth;
+  int readout_bits;
+  float delta;
+  float rbar;
+};
+
+extern "C" int sc_matmul_launch_args_bytes() {
+  return (int)sizeof(ScMatmulArgs);
+}
+
 extern "C" long long sc_matmul_scratch_bytes(int M, int N, int K, int mode,
                                              int acc_depth) {
   if (mode == kModeMxu) return 2LL * M * N * (long long)sizeof(int);
@@ -889,11 +916,10 @@ extern "C" long long sc_matmul_scratch_bytes(int M, int N, int K, int mode,
   return 0;
 }
 
-extern "C" int sc_matmul_launch(const void* A, const void* B, void* out,
-                                void* scratch, const void* table, int M,
-                                int N, int K, int mode, int acc_depth,
-                                int readout_bits, float delta, float rbar,
-                                void* stream) {
+static int mac_launch(const void* A, const void* B, void* out,
+                      void* scratch, const void* table, int M, int N, int K,
+                      int mode, int acc_depth, int readout_bits, float delta,
+                      float rbar, void* stream) {
   if (M < 1 || N < 1 || K < 1 || N % kNGranule != 0 ||
       reinterpret_cast<uintptr_t>(A) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(B) % 16 != 0)
@@ -943,4 +969,399 @@ extern "C" int sc_matmul_launch(const void* A, const void* B, void* out,
   }
   return (int)launch_int_dot<false>(a, b, value, nullptr, M, N, K, dev, sms,
                                     st);
+}
+
+extern "C" int sc_matmul_launch(const ScMatmulArgs* args) {
+  if (args == nullptr) return (int)cudaErrorInvalidValue;
+  return mac_launch(args->A, args->B, args->out, args->scratch, args->table,
+                    args->M, args->N, args->K, args->mode, args->acc_depth,
+                    args->readout_bits, args->delta, args->rbar,
+                    args->stream);
+}
+
+// ---------------------------------------------------------------------------
+// sc_quantize: the symmetric int8 quantization in front of the MAC
+// ---------------------------------------------------------------------------
+//
+// Replaces no Pallas kernel. The reference quantizes both operands inside
+// the jitted float entry of its Pallas kernel (repro/kernels/sc_matmul/
+// ops.py, through repro/core/quantization.py's quant_scale and quantize),
+// where XLA fuses the chain into a pass or two; run as eager torch ops it
+// is ten passes over a weight. This kernel computes what the port's
+// core.quantization.quant_scale and quantize compute on the f32 of x, bit
+// for bit:
+//   m = max |x| over a group, ordered as torch.amax orders it (NaN above
+//       inf: the bits of |x| compared as unsigned integers);
+//   scale = max(m, 1e-8) / 127, NaN kept, an IEEE division (__fdiv_rn);
+//   q = clamp(rint(x / scale), -127, 127), NaN to 0, as int8, the
+//       quotient that of a true division (`quantize_one` divides only
+//       where a product by the reciprocal cannot decide the integer).
+// x is (O, R, I) contiguous, bf16 (exact in f32) or f32, and a group is the
+// R elements of one (o, i): I = 1 for a scale per tensor (O = 1), per lane
+// (O lanes) or per row (O rows), I > 1 for one per trailing index (a
+// weight's per-column scale). A given absmax (one f32) takes the place of
+// the reduction: one group, whose max is given, and no reduction launched.
+//
+// What bounds it: bytes. The function reads x once and writes q once (3
+// bytes a bf16 element); the kernels read x twice and write q once, 5
+// bytes, less what the second pass finds in the 50 MB L2: its blocks run
+// in the first pass's reverse order and each walks its chunk from the end,
+// so it starts on what the first pass read last, and it stores q with
+// streaming stores that leave x's lines in L2. The reduction has two
+// stages and no atomics: each block of the first pass reduces its chunk of
+// a group to one max in `part`; each block of the second reduces its
+// group's chunk maxima (from L2) to the scale, then quantizes its own
+// chunk. Where the rows align a thread loads 16 bytes at a time, kUnroll
+// loads in flight before it uses one.
+
+namespace quant {
+
+constexpr int kThreads = 256;
+constexpr int kUnroll = 4;  // 16-byte loads a thread has in flight
+
+__device__ __forceinline__ float bf16_bits_to_f32(uint32_t h) {
+  return __uint_as_float(h << 16);
+}
+
+// element i of x as f32
+template <bool kBf16>
+__device__ __forceinline__ float load1(const void* x, long long i) {
+  if constexpr (kBf16)
+    return bf16_bits_to_f32(static_cast<const uint16_t*>(x)[i]);
+  else
+    return static_cast<const float*>(x)[i];
+}
+
+// the elements of 16 bytes of x as f32: 8 bf16 or 4 f32
+template <bool kBf16>
+constexpr int kVec = kBf16 ? 8 : 4;
+
+template <bool kBf16>
+__device__ __forceinline__ void unpack16(const uint4& raw,
+                                         float (&v)[kVec<kBf16>]) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (kBf16) {
+      v[2 * j] = bf16_bits_to_f32(w[j] & 0xFFFFu);
+      v[2 * j + 1] = bf16_bits_to_f32(w[j] >> 16);
+    } else {
+      v[j] = __uint_as_float(w[j]);
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t abs_bits(float v) {
+  return __float_as_uint(v) & 0x7FFFFFFFu;
+}
+
+// the scale of a group whose max |x| is m: torch.clamp_min(m, 1e-8) / 127
+// (a NaN compares false and stays)
+__device__ __forceinline__ float scale_of(float m) {
+  if (m < 1e-8f) m = 1e-8f;
+  return __fdiv_rn(m, 127.0f);
+}
+
+// x quantized with scale s, rcp = RN(1 / s): rint(RN(x / s)) clamped to
+// +-127, NaN to 0, as torch computes it, with a true division only where
+// it can decide. y = RN(x * rcp) is within 3 * 2^-24 |x / s| of RN(x / s)
+// (each is one or two roundings of the exact quotient), under 2.3e-5 while
+// |y| < 128, so where y lies more than 1e-4 from every half-integer both
+// round to the same integer; nearer one (a tie among them), past 128 or
+// NaN, the division decides. _rn intrinsics: nvcc fuses none of them.
+__device__ __forceinline__ int8_t quantize_one(float x, float s, float rcp) {
+  const float y = __fmul_rn(x, rcp);
+  const float ry = rintf(y);
+  // |y - rint(y)|, exact (the two are within a factor of 2 or rint(y) is 0)
+  const float d = fabsf(__fsub_rn(y, ry));
+  float t = fabsf(y) < 128.0f && fabsf(d - 0.5f) > 1e-4f
+                ? ry
+                : rintf(__fdiv_rn(x, s));
+  t = t < -127.0f ? -127.0f : (t > 127.0f ? 127.0f : t);
+  return t != t ? int8_t(0) : static_cast<int8_t>(static_cast<int>(t));
+}
+
+__device__ __forceinline__ uint32_t pack4(const int8_t* t) {
+  return (uint32_t)(uint8_t)t[0] | (uint32_t)(uint8_t)t[1] << 8 |
+         (uint32_t)(uint8_t)t[2] << 16 | (uint32_t)(uint8_t)t[3] << 24;
+}
+
+// the int8 of 16 bytes of x to q, with a streaming store (evict first:
+// x's lines stay in L2 for the rest of the pass)
+template <bool kBf16>
+__device__ __forceinline__ void quantize16(const uint4& raw, float s,
+                                           float rcp, int8_t* q) {
+  float v[kVec<kBf16>];
+  int8_t t[kVec<kBf16>];
+  unpack16<kBf16>(raw, v);
+#pragma unroll
+  for (int j = 0; j < kVec<kBf16>; ++j) t[j] = quantize_one(v[j], s, rcp);
+  if constexpr (kBf16)
+    __stcs(reinterpret_cast<uint2*>(q), make_uint2(pack4(t), pack4(t + 4)));
+  else
+    __stcs(reinterpret_cast<unsigned int*>(q), pack4(t));
+}
+
+// the block's max of m (every thread gets it); called once a kernel
+__device__ __forceinline__ uint32_t block_max(uint32_t m) {
+  __shared__ uint32_t warp_max[kThreads / 32];
+  m = __reduce_max_sync(0xFFFFFFFFu, m);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_max[warp] = m;
+  __syncthreads();
+  if (warp == 0) {
+    m = lane < kThreads / 32 ? warp_max[lane] : 0u;
+    m = __reduce_max_sync(0xFFFFFFFFu, m);
+    if (lane == 0) warp_max[0] = m;
+  }
+  __syncthreads();
+  return warp_max[0];
+}
+
+// I == 1: block (o, c) of the first pass takes elements [c * chunk, (c +
+// 1) * chunk) of row o, and writes its max to part[c * O + o]. kVec16:
+// the rows and chunks are whole 16 bytes and x is 16-byte aligned, so a
+// thread loads 16 bytes at a time, kUnroll loads at once.
+template <bool kBf16, bool kVec16>
+__global__ void __launch_bounds__(kThreads)
+    sc_quantize_absmax_rows_kernel(const void* __restrict__ x,
+                                   uint32_t* __restrict__ part, long long O,
+                                   long long R, long long chunk, int chunks) {
+  const long long o = blockIdx.x / chunks;
+  const int c = blockIdx.x % chunks;
+  const long long r0 = o * R + c * chunk;
+  const long long n = min(R - c * chunk, chunk);
+  uint32_t m = 0;
+  if constexpr (kVec16) {
+    constexpr int V = kVec<kBf16>;
+    const uint4* p = reinterpret_cast<const uint4*>(
+        static_cast<const char*>(x) + r0 * (kBf16 ? 2 : 4));
+    const long long nv = n / V;
+    long long i = threadIdx.x;
+    for (; i + (kUnroll - 1) * kThreads < nv; i += kUnroll * kThreads) {
+      uint4 raw[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) raw[u] = p[i + u * kThreads];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        float v[V];
+        unpack16<kBf16>(raw[u], v);
+#pragma unroll
+        for (int j = 0; j < V; ++j) m = max(m, abs_bits(v[j]));
+      }
+    }
+    for (; i < nv; i += kThreads) {
+      float v[V];
+      unpack16<kBf16>(p[i], v);
+#pragma unroll
+      for (int j = 0; j < V; ++j) m = max(m, abs_bits(v[j]));
+    }
+  } else {
+    for (long long i = threadIdx.x; i < n; i += kThreads)
+      m = max(m, abs_bits(load1<kBf16>(x, r0 + i)));
+  }
+  m = block_max(m);
+  if (threadIdx.x == 0) part[(long long)c * O + o] = m;
+}
+
+// The second pass: block (o, c) reduces row o's chunk maxima (or takes
+// the given absmax) to the scale, writes it (chunk 0), and quantizes its
+// chunk. The blocks run in the first pass's reverse order and each walks
+// its chunk from the end, so it starts on what the first pass read last,
+// which L2 still holds.
+template <bool kBf16, bool kVec16>
+__global__ void __launch_bounds__(kThreads)
+    sc_quantize_rows_kernel(const void* __restrict__ x,
+                            const uint32_t* __restrict__ part,
+                            const float* __restrict__ given,
+                            int8_t* __restrict__ q, float* __restrict__ scale,
+                            long long O, long long R, long long chunk,
+                            int chunks) {
+  const long long b = gridDim.x - 1 - (long long)blockIdx.x;
+  const long long o = b / chunks;
+  const int c = b % chunks;
+  float m;
+  if (given != nullptr) {
+    m = *given;
+  } else {
+    uint32_t bits = 0;
+    for (int k = threadIdx.x; k < chunks; k += kThreads)
+      bits = max(bits, part[(long long)k * O + o]);
+    m = __uint_as_float(block_max(bits));
+  }
+  const float s = scale_of(m), rcp = __frcp_rn(s);
+  if (c == 0 && threadIdx.x == 0) scale[o] = s;
+  const long long r0 = o * R + c * chunk;
+  const long long n = min(R - c * chunk, chunk);
+  if constexpr (kVec16) {
+    constexpr int V = kVec<kBf16>;
+    const uint4* p = reinterpret_cast<const uint4*>(
+        static_cast<const char*>(x) + r0 * (kBf16 ? 2 : 4));
+    int8_t* qr = q + r0;
+    const long long nv = n / V;
+    // vector nv - 1 - i, i counting up: the chunk from its end
+    long long i = threadIdx.x;
+    for (; i + (kUnroll - 1) * kThreads < nv; i += kUnroll * kThreads) {
+      uint4 raw[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) raw[u] = p[nv - 1 - i - u * kThreads];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        quantize16<kBf16>(raw[u], s, rcp,
+                          qr + (nv - 1 - i - u * kThreads) * V);
+    }
+    for (; i < nv; i += kThreads)
+      quantize16<kBf16>(p[nv - 1 - i], s, rcp, qr + (nv - 1 - i) * V);
+  } else {
+    for (long long i = threadIdx.x; i < n; i += kThreads)
+      q[r0 + i] = quantize_one(load1<kBf16>(x, r0 + i), s, rcp);
+  }
+}
+
+// I > 1: block (o, c, tile) takes rows [c * chunk, (c + 1) * chunk) of
+// the kThreads columns of its tile, a thread a column (neighbouring
+// threads on neighbouring addresses)
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads)
+    sc_quantize_absmax_cols_kernel(const void* __restrict__ x,
+                                   uint32_t* __restrict__ part, long long O,
+                                   long long R, long long I, long long chunk,
+                                   int chunks, int tiles) {
+  long long b = blockIdx.x;
+  const int tile = b % tiles;
+  b /= tiles;
+  const int c = b % chunks;
+  const long long o = b / chunks;
+  const long long i = (long long)tile * kThreads + threadIdx.x;
+  if (i >= I) return;
+  const long long r1 = min(R, (c + 1) * chunk);
+  uint32_t m = 0;
+  for (long long r = c * chunk; r < r1; ++r)
+    m = max(m, abs_bits(load1<kBf16>(x, (o * R + r) * I + i)));
+  part[((long long)c * O + o) * I + i] = m;
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads)
+    sc_quantize_cols_kernel(const void* __restrict__ x,
+                            const uint32_t* __restrict__ part,
+                            int8_t* __restrict__ q, float* __restrict__ scale,
+                            long long O, long long R, long long I,
+                            long long chunk, int chunks, int tiles) {
+  long long b = blockIdx.x;
+  const int tile = b % tiles;
+  b /= tiles;
+  const int c = b % chunks;
+  const long long o = b / chunks;
+  const long long i = (long long)tile * kThreads + threadIdx.x;
+  if (i >= I) return;
+  uint32_t bits = 0;
+  for (int k = 0; k < chunks; ++k)
+    bits = max(bits, part[((long long)k * O + o) * I + i]);
+  const float s = scale_of(__uint_as_float(bits)), rcp = __frcp_rn(s);
+  if (c == 0) scale[o * I + i] = s;
+  const long long r1 = min(R, (c + 1) * chunk);
+  for (long long r = c * chunk; r < r1; ++r) {
+    const long long e = (o * R + r) * I + i;
+    q[e] = quantize_one(load1<kBf16>(x, e), s, rcp);
+  }
+}
+
+template <bool kBf16, bool kVec16>
+cudaError_t launch_rows(const void* x, uint32_t* part, const float* given,
+                        int8_t* q, float* scale, long long O, long long R,
+                        long long chunk, int chunks, cudaStream_t st) {
+  const unsigned blocks = (unsigned)(O * chunks);
+  if (given == nullptr) {
+    sc_quantize_absmax_rows_kernel<kBf16, kVec16>
+        <<<blocks, kThreads, 0, st>>>(x, part, O, R, chunk, chunks);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  sc_quantize_rows_kernel<kBf16, kVec16><<<blocks, kThreads, 0, st>>>(
+      x, part, given, q, scale, O, R, chunk, chunks);
+  return cudaGetLastError();
+}
+
+template <bool kBf16>
+cudaError_t launch_quantize(const void* x, uint32_t* part,
+                            const float* given, int8_t* q, float* scale,
+                            long long O, long long R, long long I,
+                            long long chunk, int chunks, cudaStream_t st) {
+  constexpr int V = kVec<kBf16>;
+  if (I == 1) {
+    const bool whole = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(q) % V == 0 &&
+                       R % V == 0 && chunk % V == 0;
+    return whole ? launch_rows<kBf16, true>(x, part, given, q, scale, O, R,
+                                            chunk, chunks, st)
+                 : launch_rows<kBf16, false>(x, part, given, q, scale, O, R,
+                                             chunk, chunks, st);
+  }
+  const int tiles = (int)((I + kThreads - 1) / kThreads);
+  const unsigned blocks = (unsigned)(O * chunks * tiles);
+  sc_quantize_absmax_cols_kernel<kBf16><<<blocks, kThreads, 0, st>>>(
+      x, part, O, R, I, chunk, chunks, tiles);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  sc_quantize_cols_kernel<kBf16><<<blocks, kThreads, 0, st>>>(
+      x, part, q, scale, O, R, I, chunk, chunks, tiles);
+  return cudaGetLastError();
+}
+
+}  // namespace quant
+
+// C entry point of the quantization, loaded with ctypes and handed one
+// packed block (`_Args` in quantize.py mirrors it, checked against
+// `sc_quantize_launch_args_bytes` at load). x: (outer, reduce, inner)
+// contiguous, bf16 (x_bf16) or f32; q: the same shape, int8; scale:
+// (outer, inner) f32. Each group's reduce elements are cut into `chunks`
+// chunks of `chunk` (the last one ragged); part: chunks * outer * inner
+// uint32 of scratch. absmax: a given f32 absmax of the whole tensor
+// (outer = inner = 1), or null; part is then unused. Launches on `stream`
+// and returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue
+// for arguments it does not take.
+struct ScQuantizeArgs {
+  const void* x;
+  const float* absmax;
+  void* q;
+  float* scale;
+  void* part;
+  void* stream;
+  long long outer;
+  long long reduce;
+  long long inner;
+  long long chunk;
+  int chunks;
+  int x_bf16;
+};
+
+extern "C" int sc_quantize_launch_args_bytes() {
+  return (int)sizeof(ScQuantizeArgs);
+}
+
+extern "C" int sc_quantize_launch(const ScQuantizeArgs* args) {
+  if (args == nullptr) return (int)cudaErrorInvalidValue;
+  const long long O = args->outer, R = args->reduce, I = args->inner,
+                  chunk = args->chunk;
+  const int chunks = args->chunks;
+  const long long tiles = (I + quant::kThreads - 1) / quant::kThreads;
+  if (args->x == nullptr || args->q == nullptr || args->scale == nullptr ||
+      O < 1 || R < 1 || I < 1 || chunks < 1 || chunk < 1 ||
+      (chunks - 1) * chunk >= R || chunks * chunk < R ||
+      O * chunks * tiles > 0x7FFFFFFFLL ||
+      (args->absmax != nullptr && (O != 1 || I != 1)) ||
+      (args->absmax == nullptr && args->part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(args->stream);
+  uint32_t* part = static_cast<uint32_t*>(args->part);
+  int8_t* q = static_cast<int8_t*>(args->q);
+  return (int)(args->x_bf16
+                   ? quant::launch_quantize<true>(args->x, part, args->absmax,
+                                                  q, args->scale, O, R, I,
+                                                  chunk, chunks, st)
+                   : quant::launch_quantize<false>(args->x, part,
+                                                   args->absmax, q,
+                                                   args->scale, O, R, I,
+                                                   chunk, chunks, st));
 }

@@ -19,11 +19,21 @@ true division and accumulated in group order. For `artemis` the wrapper
 hands the kernel the readout level of every possible group sum
 (`readout_table`, built once per device, depth and readout) and, at
 decode, scratch where the groups' exact sums meet before the scan.
+
+Every quantized projection calls it, so its host path is kept short,
+as the attention wrappers' are: the checks that read only shapes,
+strides, dtypes and host arguments, the padded sizes, the scratch's
+size, the readout table and the C entry's argument block (`_Args`, the
+.cu's `ScMatmulArgs`) are made once per call signature (`_Plan`); a
+call writes the block's pointers and stream and makes one ctypes call,
+and the scratch of artemis_mxu and of artemis at decode comes from the
+buffer kept per (device, stream) (`build.workspace`).
 """
 from __future__ import annotations
 
 import ctypes
 import pathlib
+import threading
 
 import torch
 
@@ -47,16 +57,27 @@ ARTEMIS_K_GRANULE = 16
 _TABLES: dict[tuple, torch.Tensor] = {}
 
 
+class _Args(ctypes.Structure):
+    """The C entry's `ScMatmulArgs`, field for field."""
+    _fields_ = [*((n, ctypes.c_void_p) for n in (
+                    "A", "B", "out", "scratch", "table", "stream")),
+                *((n, ctypes.c_int) for n in (
+                    "M", "N", "K", "mode", "acc_depth", "readout_bits")),
+                ("delta", ctypes.c_float), ("rbar", ctypes.c_float)]
+
+
 def _entries():
-    """(sc_matmul_launch, sc_matmul_scratch_bytes) of the built library."""
+    """(sc_matmul_launch, sc_matmul_scratch_bytes) of the built library;
+    the launch's argument block is held against `_Args` when the
+    library loads."""
     lib = build.load(SOURCE)
     fn, nbytes = lib.sc_matmul_launch, lib.sc_matmul_scratch_bytes
     if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        build.check_launch_args(lib, "sc_matmul_launch_args_bytes", _Args)
         nbytes.restype = ctypes.c_longlong
         nbytes.argtypes = [ctypes.c_int] * 5
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(_Args)]
     return fn, nbytes
 
 
@@ -131,51 +152,109 @@ def sc_matmul_quantized(aq: torch.Tensor, bq: torch.Tensor, *,
     int32 for mode="int8" (integer dot units), float32 in SC product
     units otherwise.
     """
-    build.refuse_autograd(NAME, "the straight-through estimator "
-                          "(core.artemis_matmul with policy.ste)", aq, bq)
-    _check(aq, bq, mode, acc_depth, readout_bits)
+    # a plan on the card holds its device's readout table
+    key = (aq.device, bq.device, aq.shape, aq.stride(), aq.dtype, bq.shape,
+           bq.stride(), bq.dtype, mode, acc_depth, readout_bits, rbar)
+    p = _PLANS.get(key)
+    if p is None:
+        # a plan holds int8 operands, which never require grad
+        build.refuse_autograd(NAME, "the straight-through estimator "
+                              "(core.artemis_matmul with policy.ste)", aq,
+                              bq)
+        p = _PLANS.put(key, _Plan(aq, bq, mode, acc_depth, readout_bits,
+                                  rbar))
     with build.kernel_call(NAME, lambda: work(aq, bq), int8=True):
-        if aq.device.type == "meta" and bq.device.type == "meta":
+        if p.kind == "cuda":
+            return _launch(p, aq, bq)
+        if p.kind == "meta":
             return _output(aq.shape[0], bq.shape[1], mode, aq.device)
-        if aq.device.type == "cpu" and bq.device.type == "cpu":
-            return _output(aq.shape[0], bq.shape[1], mode,
-                           aq.device).copy_(sc_matmul_ref(
-                               aq, bq, mode=mode, acc_depth=acc_depth,
-                               readout_bits=readout_bits, rbar=rbar))
-        if not (aq.device.type == "cuda" and bq.device == aq.device):
-            raise ValueError(f"sc_matmul_quantized: both operands must be "
-                             f"on one device, got {aq.device} and "
-                             f"{bq.device}")
+        if p.kind == "cpu":
+            return _output(aq.shape[0], bq.shape[1], mode, aq.device).copy_(
+                sc_matmul_ref(aq, bq, mode=mode, acc_depth=acc_depth,
+                              readout_bits=readout_bits, rbar=rbar))
+        raise ValueError(f"sc_matmul_quantized: both operands must be on "
+                         f"one device, got {aq.device} and {bq.device}")
+
+
+# the launch plans, by call signature (`sc_matmul_quantized`'s key)
+_PLANS = build.PlanCache()
+
+
+class _Plan:
+    """What a call signature decides once: `_check` on every device; on
+    the card also the kernel's depth limit, whether the operands need
+    padding or a contiguous copy, the output's layout, the scratch's
+    size (`sc_matmul_scratch_bytes`, asked once), the readout table and
+    the C entry's argument block with every size filled in. Made only
+    after every check passed, so a refused call stores none. What a
+    signature does not fix (the operands' addresses' alignment) is
+    checked per call by `_launch`."""
+
+    def __init__(self, aq, bq, mode, acc_depth, readout_bits, rbar,
+                 kind=None):
+        _check(aq, bq, mode, acc_depth, readout_bits)
+        dev = aq.device
+        # the operands' device kind (None: two devices); `kind` names it
+        # for a test that plans a card's call from CPU tensors
+        self.kind = kind or (dev.type if bq.device == dev else None)
+        if self.kind != "cuda":
+            return
         if mode == "artemis" and acc_depth > MAX_ACC_DEPTH:
             raise ValueError(f"sc_matmul kernel takes acc_depth <= "
                              f"{MAX_ACC_DEPTH}, got {acc_depth}")
-        a, b = pad_operands(aq, bq, mode, acc_depth)
-        m, kp = a.shape
-        n, np_ = bq.shape[1], b.shape[1]
-        out = torch.empty((m, np_), device=aq.device, dtype=torch.int32
-                          if mode == "int8" else torch.float32)
-        launch, scratch_bytes = _entries()
+        m, k = aq.shape
+        n = bq.shape[1]
+        gk, gn = granules(mode, acc_depth)
+        kp, np_ = k + (-k) % gk, n + (-n) % gn
+        self.mode, self.acc_depth, self.n = mode, acc_depth, n
+        self.device = dev
+        # operands the kernel takes as they are, but for their alignment
+        self.ready = (aq.is_contiguous() and bq.is_contiguous()
+                      and (kp, np_) == (k, n))
+        self.out_shape = (m, np_)
+        self.out_dtype = torch.int32 if mode == "int8" else torch.float32
+        self.launch, scratch_bytes = _entries()
         # artemis_mxu sums its two integer dots here first (split over K);
         # artemis at decode every group's exact sums, for the scan
         nbytes = scratch_bytes(m, np_, kp, _MODE_IDS[mode], acc_depth)
-        scratch = (torch.empty(nbytes, dtype=torch.uint8, device=aq.device)
-                   if nbytes else out)
-        table = (_table(acc_depth, readout_bits, aq.device)
-                 if mode == "artemis" else out)
+        self.scratch_numel = -(-nbytes // 4)
+        self.table = (_table(acc_depth, readout_bits, aq.device)
+                      if mode == "artemis" else None)
         levels = (0.0 if readout_bits is None
                   else float(2**readout_bits - 1))
-        delta = (acc_depth * (SC_LEVELS - 1) / levels) if levels else 0.0
-        stream = torch.cuda.current_stream(aq.device).cuda_stream
-        err = launch(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                     scratch.data_ptr(), table.data_ptr(), m, np_, kp,
-                     _MODE_IDS[mode], acc_depth,
-                     -1 if readout_bits is None else readout_bits, delta,
-                     float(rbar), stream)
-        if err != 0:
-            raise RuntimeError(f"sc_matmul kernel launch failed: CUDA error "
-                               f"{err}")
-        build.launch_counts[NAME] += 1
-        return out if np_ == n else out[:, :n]
+        self.args = _Args(
+            table=None if self.table is None else self.table.data_ptr(),
+            M=m, N=np_, K=kp, mode=_MODE_IDS[mode], acc_depth=acc_depth,
+            readout_bits=-1 if readout_bits is None else readout_bits,
+            delta=(acc_depth * (SC_LEVELS - 1) / levels) if levels else 0.0,
+            rbar=float(rbar))
+        self.args_ref = ctypes.byref(self.args)
+        # the block is written and read by one call at a time
+        self.lock = threading.Lock()
+
+
+def _launch(p, aq, bq):
+    pa, pb = aq.data_ptr(), bq.data_ptr()
+    if not p.ready or pa % 16 or pb % 16:
+        a, b = pad_operands(aq, bq, p.mode, p.acc_depth)
+        pa, pb = a.data_ptr(), b.data_ptr()
+    dev = p.device
+    out = torch.empty(p.out_shape, dtype=p.out_dtype, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    scratch = (build.workspace(dev, stream, p.scratch_numel,
+                               torch.cuda.is_current_stream_capturing())
+               if p.scratch_numel else None)
+    with p.lock:
+        args = p.args
+        args.A, args.B, args.out = pa, pb, out.data_ptr()
+        args.scratch = scratch.data_ptr() if scratch is not None else None
+        args.stream = stream
+        err = p.launch(p.args_ref)
+    if err != 0:
+        raise RuntimeError(f"sc_matmul kernel launch failed: CUDA error "
+                           f"{err}")
+    build.launch_counts[NAME] += 1
+    return out if p.out_shape[1] == p.n else out[:, :p.n]
 
 
 def _padded_n(n: int) -> int:

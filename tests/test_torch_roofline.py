@@ -221,9 +221,12 @@ def test_cpu_and_meta_count_the_same(mode):
     policy = ArithmeticPolicy(mode=mode)
     cpu = _count_serve(cfg, policy, "cpu")
     assert cpu == _count_serve(cfg, policy, "meta")
-    kernel = "flash_attention" if mode == "exact" else "sc_matmul"
-    want = cfg.n_layers * 2 * (1 if mode == "exact" else 7)
-    assert cpu[2] == {kernel: want}
+    # a quantized product is one sc_matmul call and one sc_quantize call
+    # an operand
+    products = cfg.n_layers * 2 * 7
+    want = ({"flash_attention": cfg.n_layers * 2} if mode == "exact" else
+            {"sc_matmul": products, "sc_quantize": 2 * products})
+    assert cpu[2] == want
     assert cpu[0] > 0 and cpu[1] > 0 and cpu[3] > 0
 
 

@@ -374,7 +374,8 @@ def test_tensor_parallel_serve_steps_match_single_device(ranks, mode):
     second, cache = steps.make_decode_step(cfg, pol)(
         model, steps.greedy_sample(first)[:, None], cache)
     want_calls = {"flash_attention": 2 * cfg.n_layers} if mode == "exact" \
-        else {"sc_matmul": 2 * 7 * cfg.n_layers}
+        else {"sc_matmul": 2 * 7 * cfg.n_layers,
+              "sc_quantize": 2 * 2 * 7 * cfg.n_layers}
     tol = STEP_TOL if mode == "exact" else 0.0
     for r in ranks[2][f"steps {mode}"]:
         kv = r["kv_heads"]

@@ -313,8 +313,9 @@ def test_int8_static_steps_bit_equal_single_device(runs, arch):
     for r in ranks:
         for want, got in zip(want_logits, r["logits"]):
             assert torch.equal(got, want)
-        assert r["kernel_calls"] == {
-            "sc_matmul": (N_DECODE + 1) * _policy_products(tc)}
+        products = (N_DECODE + 1) * _policy_products(tc)
+        assert r["kernel_calls"] == {"sc_matmul": products,
+                                     "sc_quantize": 2 * products}
     joined = _joined_cache(ranks, tc, 2)
     for key, want in want_cache.items():
         assert torch.equal(joined[key], want), key
