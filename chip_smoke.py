@@ -11,8 +11,10 @@ without printing a result:
   1. the card: name and power limit (nvidia-smi), capability (9, 0);
   2. build every kernel of the serve path from the checkout's sources
      (nvcc, sm_90a), timed as set-up; the registers and spill stores of
-     the tensor-core instances and of the rows instances' split path and
-     merge kernels and of sc_quantize (none may spill); each C entry's
+     the tensor-core instances, of the rows instances' split path and
+     merge kernels, of artemis's instances (its tile path above decode
+     and that path's level scan included) and of sc_quantize (none may
+     spill); each C entry's
      launch argument block (`*_launch_args_bytes()`: both attention
      kernels, sc_matmul and sc_quantize) against its wrapper's ctypes
      mirror;
@@ -26,7 +28,9 @@ without printing a result:
      the static prefill's own shape at batch 2 included; sc_matmul's
      integer dots also at the edges of their tiles, splits and int32
      range, its artemis path at the edges of its K split and windows and
-     on operands of -128; sc_quantize, the int8 quantization in front of
+     on operands of -128, above decode at the edges of its thread tiles,
+     windows and K split, at depths 1, 20 and 128 and readouts 7, 8, 12,
+     15, 17, 24 and ideal (`check_sc_artemis_tiles`); sc_quantize, the int8 quantization in front of
      sc_matmul, bit for bit (int8 and scale) at the qwen3_8b and
      qwen2_moe_a2_7b weights and activations per tensor, per row, per
      lane and with a given absmax, per column, and on ties, zeros, a NaN
@@ -50,9 +54,11 @@ without printing a result:
      host µs a call of the kernel and of the library call: perf_counter
      around 50 back-to-back calls, a synchronize before and none
      inside, the median of 5 such runs);
-     sc_matmul int8: the ratio to torch._int_mm; artemis_mxu: the ratio
-     to int8; artemis: the device time of each of its kernels; at decode
-     and expert rows its host µs a call; sc_quantize at the weights and
+     sc_matmul int8: the ratio to torch._int_mm, with B row-major and
+     column-major (cuBLASLt's layout); artemis_mxu: the ratio to int8;
+     artemis: the device time of each of its kernels, and its time at
+     M 1024 beside M 8 and 256; at decode and expert rows its host µs a
+     call; sc_quantize at the weights and
      activations, per call, on the device and its host µs, beside its
      plain version and byte bound; an sc_matmul call (artemis at M 8,
      with scratch) and an sc_quantize call replayed from a CUDA graph,
@@ -922,6 +928,23 @@ SC_DOT_KNS = ((31, 45), (32, 16), (33, 130), (127, 200), (128, 128),
 SC_ART_MS = (1, 8, 9, 37, 256)
 SC_ART_KS = (20, 60, 100, 140, 180, 12288 + 13)
 SC_ART_NS = (4, 36, 1028)
+# above decode (M > 16) a warp walks all of K in 32-deep windows over a
+# tile of 32 rows and 64 or 32 columns (8 x 8 or 8 x 4 outputs a thread),
+# and where the grid has too few tiles K is split over blocks (the levels
+# scanned by a second kernel): M on both sides of the 32 rows, 255 / 256
+# (split at N 1028) and 1024 (8 x 4 at N 1028); K below a window, a
+# window and a half, groups straddling windows and parts, and ragged
+# against both; N below, across and past the 32 and 64 columns
+SC_TILE_MS = (17, 37, 255, 256, 1024)
+SC_TILE_KS = (16, 48, 100, 1013)
+SC_TILE_NS = (4, 36, 1028)
+# depth and readout: the table's levels (its size runs from 129 to
+# 16385 floats) and ideal, the sums in lanes up to 128 * 128; past 16
+# bits a level does not fit the split's 16-bit words (it hands the scan
+# the sums)
+SC_TILE_READOUTS = ((20, 12), (1, 8), (1, 12), (1, None), (128, 8),
+                    (128, 12), (128, None), (20, 15), (14, 7), (20, 17),
+                    (20, 24), (128, 24))
 
 
 def _sc_extreme(gen, m, k, n):
@@ -1311,6 +1334,55 @@ def check_sc_artemis_edges(gen) -> int:
         f"readout 8 and ideal; depths 1 and 128), and {n - n_grid} on "
         f"all-extreme operands with -128 rows and columns (M 8 and 17, K "
         f"12288)")
+    return n + check_sc_artemis_tiles(gen)
+
+
+def check_sc_artemis_tiles(gen) -> int:
+    """artemis above decode at the edges of its tiles and windows
+    (SC_TILE_MS x SC_TILE_KS x SC_TILE_NS at depth 20, readout 8 and
+    ideal), at every depth and readout of SC_TILE_READOUTS (M 17 and
+    256, K 100 and 1013, N 36 and 1028), at K 12288 + 13, and on the
+    all-extreme operands at M 256 (M 17's are in the split-edge cases);
+    bit-equal to the plain version."""
+    t0 = time.perf_counter()
+    n = 0
+    for m in SC_TILE_MS:
+        for k in SC_TILE_KS:
+            for nn in SC_TILE_NS:
+                a, b = _int8(gen, m, k), _int8(gen, k, nn)
+                for r in (8, None):
+                    _sc_compare(a, b, f"M {m} K {k} N {nn}", mode="artemis",
+                                acc_depth=20, readout_bits=r)
+                    n += 1
+    n_grid = n
+    for m in (17, 256):
+        for k in (100, 1013):
+            for nn in (36, 1028):
+                a, b = _int8(gen, m, k), _int8(gen, k, nn)
+                for d, r in SC_TILE_READOUTS:
+                    _sc_compare(a, b, f"M {m} K {k} N {nn}", mode="artemis",
+                                acc_depth=d, readout_bits=r)
+                    n += 1
+    for m, nn in ((256, 36), (256, 1028), (1024, 36)):
+        a, b = _int8(gen, m, 12288 + 13), _int8(gen, 12288 + 13, nn)
+        _sc_compare(a, b, f"M {m} K 12301 N {nn}", mode="artemis")
+        n += 1
+    a, b = _sc_extreme(gen, 256, 12288, 136)
+    for kw in (dict(acc_depth=20, readout_bits=8),
+               dict(acc_depth=20, readout_bits=None),
+               dict(acc_depth=128, readout_bits=None)):
+        out = _sc_compare(a, b, "extreme M 256 K 12288 N 136",
+                          mode="artemis", **kw)
+        n += 1
+        if kw["readout_bits"] is None and out[1, 2].item() != 12288 * 128:
+            raise AssertionError("sc_matmul artemis above decode: a row of "
+                                 "-128 against a column of -128 does not "
+                                 "give 12288 products of 128")
+    log(f"sc_matmul: {n} artemis tile-edge cases bit-equal above decode "
+        f"({n_grid} over M {SC_TILE_MS} x K {SC_TILE_KS} x N "
+        f"{SC_TILE_NS} at depth 20, readout 8 and ideal; depth/readout "
+        f"{SC_TILE_READOUTS} at M 17 and 256; K 12301; -128 extremes at "
+        f"M 256) in {time.perf_counter() - t0:.1f} s")
     return n
 
 
@@ -1444,6 +1516,9 @@ def time_sc_matmul(shapes=SC_SHAPES, m_rows=SC_ROWS,
     rows = []
     for k, n in shapes:
         bs = [_int8(gen, k, n) for _ in range(copies)]
+        # the same weights column-major, the layout cuBLASLt's int8
+        # kernels take
+        bs_col = [b.t().contiguous().t() for b in bs]
         for label, m in m_rows:
             a = _int8(gen, m, k)
             # torch._int_mm takes M > 16: decode rows are zero-padded
@@ -1465,19 +1540,24 @@ def time_sc_matmul(shapes=SC_SHAPES, m_rows=SC_ROWS,
                     else None)
                 plain_ms = _adaptive_ms(lambda i: sc_matmul_ref(
                     a, bs[i % copies], mode=mode), budget_s=1.0, most=10)
-                library_ms = None
+                library_ms = library_col_ms = None
                 if mode == "int8":
-                    lib = torch._int_mm(a_lib, bs[0])[:m]
-                    if not torch.equal(lib, out):
-                        raise AssertionError("torch._int_mm disagrees "
-                                             "with the int8 kernel")
+                    for bl in (bs, bs_col):
+                        lib = torch._int_mm(a_lib, bl[0])[:m]
+                        if not torch.equal(lib, out):
+                            raise AssertionError("torch._int_mm disagrees "
+                                                 "with the int8 kernel")
                     library_ms = _adaptive_ms(lambda i: torch._int_mm(
                         a_lib, bs[i % copies]))
+                    library_col_ms = _adaptive_ms(lambda i: torch._int_mm(
+                        a_lib, bs_col[i % copies]))
                 bound_ms, bound_by, n_bytes, ops = _sc_bound(mode, m, k, n)
                 row = dict(model=model, mode=mode, shape=label, M=m, K=k,
                            N=n, max_abs_err=0.0, ms=ms, device_ms=device_ms,
                            host_ms=host_ms, plain_ms=plain_ms,
-                           library_ms=library_ms, bound_ms=bound_ms,
+                           library_ms=library_ms,
+                           library_colmajor_ms=library_col_ms,
+                           bound_ms=bound_ms,
                            bound_by=bound_by, bytes=n_bytes, ops=ops)
                 if mode == "artemis":   # products and (decode) the scan
                     row["kernel_us"] = _kernel_us(lambda i: sc_matmul_quantized(
@@ -1486,7 +1566,8 @@ def time_sc_matmul(shapes=SC_SHAPES, m_rows=SC_ROWS,
                 if library_ms is not None:
                     row["library_ratio"] = ms / library_ms
                     lib_txt = (f" | _int_mm {library_ms*1e3:9.2f} us "
-                               f"(ratio {ms / library_ms:.2f})")
+                               f"(ratio {ms / library_ms:.2f}), B "
+                               f"column-major {library_col_ms*1e3:9.2f} us")
                 if mode == "artemis_mxu":
                     int8 = rows[-1]   # same shape, int8 first
                     row["over_int8"] = ms / int8["ms"]
@@ -1506,6 +1587,40 @@ def time_sc_matmul(shapes=SC_SHAPES, m_rows=SC_ROWS,
                     f" | plain {plain_ms*1e3:10.2f}"
                     f" us{lib_txt} | bound {bound_ms*1e3:8.2f} us "
                     f"({bound_by}) | {bound_ms/ms:6.1%} of bound")
+        del bs, bs_col
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def time_sc_artemis_wide(m: int = 1024, shapes=SC_SHAPES) -> list[dict]:
+    """artemis at M 1024 (four prefill chunks' rows) at each qwen3_8b
+    projection shape, beside phase 4's M 8 and 256: bit-equal to the
+    plain version once, then per call and on the device alone, beside
+    its bound; each call reads another of 4 weight copies."""
+    import torch
+    from repro_torch.kernels.sc_matmul import sc_matmul_quantized
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    copies = 4
+    rows = []
+    for k, n in shapes:
+        bs = [_int8(gen, k, n) for _ in range(copies)]
+        a = _int8(gen, m, k)
+        _sc_compare(a, bs[0], f"M {m} K {k} N {n}", mode="artemis")
+
+        def call(i):
+            return sc_matmul_quantized(a, bs[i % copies], mode="artemis")
+        ms, device_ms = _adaptive_ms(call), _graph_ms(call)
+        bound_ms, bound_by, n_bytes, ops = _sc_bound("artemis", m, k, n)
+        rows.append(dict(model="qwen3_8b", mode="artemis",
+                         shape=f"rows_{m}", M=m, K=k, N=n, max_abs_err=0.0,
+                         ms=ms, device_ms=device_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, bytes=n_bytes, ops=ops))
+        log(f"  artemis     rows {m:5d}     K {k:5d} N {n:5d}: kernel "
+            f"{ms*1e3:9.2f} us (device {device_ms*1e3:8.2f}) | bound "
+            f"{bound_ms*1e3:8.2f} us ({bound_by}) | {bound_ms/device_ms:6.1%}"
+            f" of bound on the device")
         del bs
     gc.collect()
     torch.cuda.empty_cache()
@@ -3230,6 +3345,7 @@ PROFILE_SCOPES = ("sc_matmul", "quantize", "int_einsum", "quant_einsum",
 GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::matmul",
             "aten::baddbmm")
 SC_KERNEL_NAMES = ("dot_kernel", "artemis_kernel", "artemis_scan_kernel",
+                   "artemis_tile_kernel", "artemis_level_scan_kernel",
                    "mxu_epilogue")
 # sc_quantize's kernels, launched from its C entry (no torch op encloses
 # them): the quantize/cast group by name
@@ -5612,6 +5728,8 @@ def main() -> int:
         log(f"  ptxas: {ptxas_summary(report)}")
         for name, regs, spill in ptxas_instances(report):
             if any(k in name for k in ("mma_dot_kernel", "artemis_kernel",
+                                       "artemis_tile_kernel",
+                                       "artemis_level_scan_kernel",
                                        "sc_quantize",
                                        "paged_attention_tile",
                                        "flash_attention_tile",
@@ -5643,6 +5761,7 @@ def main() -> int:
     phases.mark("4. kernel timing at the full-width qwen3_8b shapes")
     timing = time_paged_attention(cfg)
     sc_rows = time_sc_matmul()
+    sc_wide = time_sc_artemis_wide()
     q_rows = time_sc_quantize()
     sc_graphs = check_sc_graph_replays()
     fa_rows = time_flash_attention(cfg)
@@ -5984,11 +6103,11 @@ def main() -> int:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "launches_by_mode": {k: q["launches"] for k, q in quant.items()},
-        "cases_bit_equal": n_sc_cases + len(sc_rows)
+        "cases_bit_equal": n_sc_cases + len(sc_rows) + len(sc_wide)
         + len(moe_rows["sc_matmul"]) + sc_path["n_compared_here"],
         "path_shapes": sc_path,
         "graph_replays": sc_graphs,
-        "shapes": sc_rows + moe_rows["sc_matmul"],
+        "shapes": sc_rows + sc_wide + moe_rows["sc_matmul"],
     }, {
         "name": "sc_quantize", "route": "cuda",
         "source": "src/repro_torch/kernels/sc_matmul/csrc/sc_matmul.cu",

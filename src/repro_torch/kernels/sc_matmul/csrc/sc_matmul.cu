@@ -53,16 +53,20 @@
 //     k of all ones: 2.25 integer instructions a product, 1.25 of them on
 //     the integer ALU pipe that bounds the loop, the IMADs on the FMA pipe.
 //     Each MOMCAP group's sums are exact integers, so any warp or block may
-//     form any group's sums in any order: K is split over the slices
-//     (warps) of a block and, at decode, over blocks, and only the readouts
-//     and the f32 scan run in group order, per output. A block stages a
+//     form any group's sums in any order; only the readouts and the f32
+//     scan run in group order, per output. At decode (M <= 16) K is split
+//     over the slices (warps) of a block and over blocks: a block stages a
 //     window of consecutive groups (A and B by 16-byte cp.async, the next
 //     window landing while this one is in use), each slice forms one
-//     group's sums, and then either the block scans the window's sums from
-//     shared memory in order (M > 16), or (decode) every group's sums go
-//     to scratch and a second, small kernel scans them, so that even N =
-//     1024 fills the card. The readout is a lookup in a table of the
-//     levels of all acc_depth * 128 + 1 possible sums, built once per
+//     group's sums, every group's sums go to scratch, and a second, small
+//     kernel scans them, so that even N = 1024 fills the card. Above, a
+//     warp owns an output tile and walks all of K in order, staging its own
+//     windows, and reads each group out of its registers where the group
+//     ends: no sums through shared memory, no barrier between a group's
+//     products and its readout (artemis_tile_kernel). Where that gives too
+//     few warps, K is split over blocks too, and the groups' levels, as
+//     bytes, go to scratch for a scan. The readout is a lookup in a table of
+//     the levels of all acc_depth * 128 + 1 possible sums, built once per
 //     device by the wrapper with the exact f32 arithmetic.
 // Later work: wgmma with TMA and a producer warp for the dot.
 
@@ -70,6 +74,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <numeric>
 
 namespace {
 
@@ -408,14 +413,14 @@ __global__ void mxu_epilogue(const int* __restrict__ value,
 }
 
 // ---------------------------------------------------------------------------
-// artemis: MOMCAP groups on the CUDA cores, K split over warps and blocks
+// artemis: MOMCAP groups on the CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int kArtTile = 8;         // a thread's outputs: 8 rows x 8 columns
+constexpr int kArtTile = 8;         // a decode thread's outputs: 8 x 8
 constexpr int kArtKGranule = 16;    // the wrapper pads K to 16-byte A rows
-constexpr int kArtMaxWindow = 160;  // k rows a block stages per window
+constexpr int kArtMaxWindow = 160;  // k rows a decode block stages a window
 constexpr int kArtSplitMaxM = 16;   // M up to which the groups' sums meet
-                                    // in scratch (else in shared memory)
+                                    // in scratch (else a warp walks all K)
 
 // Two products floor(|a||b| / 128) at once. am = 2|a| (at most 256) and
 // bm = |b0| | |b1| << 16 (each at most 128), so am * bm = 2|a||b0| +
@@ -448,34 +453,42 @@ __device__ __forceinline__ float readout_step(float acc, float pos, float neg,
   return __fmaf_rn(-neg, delta, __fmaf_rn(pos, delta, acc));
 }
 
-// k rows kk (and kk + 1 when kTwo) of a thread's 8 x 8 tile: tot gathers
-// every floor product, neg the ones of negative sign, both in the 16-bit
-// lanes of the column pairs (a group sums to at most 128 * 128). neg adds
-// two k at once (one IADD3); tot adds each k with an IMAD by `one` (1 at
-// run time, so not folded into an add), which issues on the FMA pipe
-// beside the IMAD of the products, sparing the integer ALU pipe (PRMT,
-// LOP3, IADD3) that bounds the loop.
-template <bool kTwo, int BM, int BN>
-__device__ __forceinline__ void artemis_rows(const uint8_t* br,
+// k rows kk (and kk + 1 when kTwo) of a thread's R x C tile: B's row at
+// br (C bytes, the next row b_stride on), A's words at am_p / an_p (R
+// each, the next row a_stride on). tot gathers every floor product, neg
+// the ones of negative sign, both in the 16-bit lanes of the column pairs
+// (word j: columns (c, c + 2) of its 4-column word c for even j, (c + 1,
+// c + 3) for odd; a group sums to at most 128 * 128). neg adds two k at
+// once (one IADD3); tot adds each k with an IMAD by `one` (1 at run time,
+// so not folded into an add), which issues on the FMA pipe beside the
+// IMAD of the products, sparing the integer ALU pipe (PRMT, LOP3, IADD3)
+// that bounds the loop.
+template <bool kTwo, int R, int C>
+__device__ __forceinline__ void artemis_rows(const uint8_t* br, int b_stride,
                                              const uint32_t* am_p,
                                              const uint32_t* an_p,
-                                             uint32_t one,
-                                             uint32_t (&tot)[kArtTile][4],
-                                             uint32_t (&neg)[kArtTile][4]) {
-  constexpr int NK = kTwo ? 2 : 1;
-  uint32_t am[NK][kArtTile], an[NK][kArtTile], bm[NK][4], bn[NK][4];
+                                             int a_stride, uint32_t one,
+                                             uint32_t (&tot)[R][C / 2],
+                                             uint32_t (&neg)[R][C / 2]) {
+  static_assert(C % 4 == 0, "whole 4-column words of B");
+  constexpr int NK = kTwo ? 2 : 1, W = C / 2;
+  uint32_t am[NK][R], an[NK][R], bm[NK][W], bn[NK][W];
 #pragma unroll
   for (int q = 0; q < NK; ++q) {
-    const uint2 b = *reinterpret_cast<const uint2*>(br + q * BN);
-    b_pairs(b.x, bm[q][0], bm[q][1], bn[q][0], bn[q][1]);
-    b_pairs(b.y, bm[q][2], bm[q][3], bn[q][2], bn[q][3]);
-    load_words<kArtTile>(am_p + q * BM, am[q]);
-    load_words<kArtTile>(an_p + q * BM, an[q]);
+    uint32_t b[C / 4];
+    load_words<C / 4>(reinterpret_cast<const uint32_t*>(br + q * b_stride),
+                      b);
+#pragma unroll
+    for (int x = 0; x < C / 4; ++x)
+      b_pairs(b[x], bm[q][2 * x], bm[q][2 * x + 1], bn[q][2 * x],
+              bn[q][2 * x + 1]);
+    load_words<R>(am_p + q * a_stride, am[q]);
+    load_words<R>(an_p + q * a_stride, an[q]);
   }
 #pragma unroll
-  for (int i = 0; i < kArtTile; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < W; ++j) {
       const uint32_t y0 = floor_pair(am[0][i], bm[0][j]);
       tot[i][j] = y0 * one + tot[i][j];
       if constexpr (kTwo) {
@@ -489,53 +502,41 @@ __device__ __forceinline__ void artemis_rows(const uint8_t* br,
     }
 }
 
-// Shared memory of a block at a window of wk k rows, in bytes, each part
-// a multiple of 16: two raw A tiles and two raw B tiles (cp.async lands
-// window w + 1 while window w is in use), A as words, then, for the scan
-// in the block, a window's group sums and the readout table.
+// Shared memory of a decode block at a window of wk k rows, in bytes, each
+// part a multiple of 16: two raw A tiles and two raw B tiles (cp.async
+// lands window w + 1 while window w is in use), then A as words.
 struct ArtLayout {
-  int a_stride, a_raw, b_raw, a_words, sums, table, bytes;
-  __host__ __device__ ArtLayout(int bm, int bn, int ks, int wk, int table_len,
-                                bool split) {
+  int a_stride, a_raw, b_raw, a_words, bytes;
+  __host__ __device__ ArtLayout(int bm, int bn, int wk) {
     a_stride = (wk + 15) / 16 * 16 + 16;  // the window from a 16-byte start
     a_raw = 0;
     b_raw = a_raw + 2 * bm * a_stride;
     a_words = b_raw + 2 * wk * bn;
-    sums = a_words + 2 * wk * bm * 4;
-    table = sums + (split ? 0 : ks * bm * bn * 4);
-    bytes = table + (split ? 0 : (table_len * 4 + 15) / 16 * 16);
+    bytes = a_words + 2 * wk * bm * 4;
   }
 };
 
-// Each block: a BM x BN output tile (RM x CN threads a slice, 8 x 8
-// outputs each) over the groups of its split (blockIdx.z), in windows of
-// `slices` consecutive groups, one group per slice of KS. A slice forms
-// its group's exact sums; they are integers, so the slices may form them
-// in any order. Then only the readouts and the f32 scan run in group
-// order: kSplit writes every group's sums (pos | neg << 16 per output) to
-// `sums` ((groups, M, N)) for artemis_scan_kernel; otherwise the block
-// itself scans each window's sums from shared memory, in order, after a
-// barrier.
-template <int RM, int CN, int KS, bool kSplit>
+// Decode (M <= kArtSplitMaxM). Each block: a BM x BN output tile (RM x CN
+// threads a slice, 8 x 8 outputs each) over the groups of its split
+// (blockIdx.z), in windows of `slices` consecutive groups, one group per
+// slice of KS. A slice forms its group's exact sums; they are integers, so
+// the slices and blocks may form them in any order. Every group's sums
+// (pos | neg << 16 per output) go to `sums` ((groups, M, N)), and
+// artemis_scan_kernel reads them out and scans them in group order.
+template <int RM, int CN, int KS>
 __global__ void __launch_bounds__(KS * RM * CN)
     artemis_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
-                   float* __restrict__ out, uint32_t* __restrict__ sums,
-                   const float* __restrict__ table, int M, int N, int K,
-                   int depth, int slices, int groups_per_split, float delta,
-                   int ideal, uint32_t one) {
+                   uint32_t* __restrict__ sums, int M, int N, int K,
+                   int depth, int slices, int groups_per_split, uint32_t one) {
   constexpr int T0 = RM * CN, T = KS * T0;
   constexpr int BM = kArtTile * RM, BN = kArtTile * CN;
-  constexpr int kPer = kSplit ? 1 : BM * BN / T;  // outputs a thread scans
-  static_assert(T0 % 32 == 0 && (BM * BN) % T == 0, "whole warps, outputs");
+  static_assert(T0 % 32 == 0, "whole warps");
   const int groups = (K + depth - 1) / depth;
   const int wk = slices * depth;
-  const int table_len = depth * 128 + 1;
-  const ArtLayout lay(BM, BN, KS, wk, table_len, kSplit);
+  const ArtLayout lay(BM, BN, wk);
   extern __shared__ __align__(128) uint8_t smem[];
   uint32_t* const a_mag = reinterpret_cast<uint32_t*>(smem + lay.a_words);
   uint32_t* const a_neg = a_mag + wk * BM;
-  uint32_t* const s_sums = reinterpret_cast<uint32_t*>(smem + lay.sums);
-  float* const s_table = reinterpret_cast<float*>(smem + lay.table);
 
   const int tid = threadIdx.x;
   const int slice = tid / T0, rm = (tid % T0) / CN, cn = tid % CN;
@@ -543,8 +544,6 @@ __global__ void __launch_bounds__(KS * RM * CN)
   const int g_begin = blockIdx.z * groups_per_split;
   const int g_end = min(groups, g_begin + groups_per_split);
   const int windows = (g_end - g_begin + slices - 1) / slices;
-  if (!kSplit)  // published by the first window's barriers
-    for (int i = tid; i < table_len; i += T) s_table[i] = table[i];
 
   // window w's raw tiles: A rows from the 16-byte boundary at or before
   // its first k, B rows whole; K and N are multiples of 16, so a 16-byte
@@ -569,10 +568,6 @@ __global__ void __launch_bounds__(KS * RM * CN)
       cp_async16(bs + r * BN + 16 * c, in ? B + (size_t)k * N + n : B, in);
     }
   };
-
-  float acc[kPer];
-#pragma unroll
-  for (int q = 0; q < kPer; ++q) acc[q] = 0.0f;
 
   stage(0);
   cp_async_commit();
@@ -604,11 +599,13 @@ __global__ void __launch_bounds__(KS * RM * CN)
       const int kb = slice * depth, ke = kb + depth;
       int kk = kb;
       for (; kk + 1 < ke; kk += 2)
-        artemis_rows<true, BM, BN>(br + kk * BN, a_mag + kk * BM + 8 * rm,
-                                   a_neg + kk * BM + 8 * rm, one, tot, neg);
+        artemis_rows<true, kArtTile, kArtTile>(
+            br + kk * BN, BN, a_mag + kk * BM + 8 * rm,
+            a_neg + kk * BM + 8 * rm, BM, one, tot, neg);
       if (kk < ke)
-        artemis_rows<false, BM, BN>(br + kk * BN, a_mag + kk * BM + 8 * rm,
-                                    a_neg + kk * BM + 8 * rm, one, tot, neg);
+        artemis_rows<false, kArtTile, kArtTile>(
+            br + kk * BN, BN, a_mag + kk * BM + 8 * rm,
+            a_neg + kk * BM + 8 * rm, BM, one, tot, neg);
       // one word per output, pos | neg << 16, in column order: pair j
       // holds columns (c, c + 2) or (c + 1, c + 3) of its 4-column word
 #pragma unroll
@@ -621,51 +618,18 @@ __global__ void __launch_bounds__(KS * RM * CN)
           lo[j] = __byte_perm(pos, neg[i][j], 0x5410);
           hi[j] = __byte_perm(pos, neg[i][j], 0x7632);
         }
-        uint4* dst;
-        if constexpr (kSplit) {
-          if (m0 + r >= M || n0 + kArtTile * cn >= N) continue;
-          dst = reinterpret_cast<uint4*>(
-              sums + ((size_t)g * M + m0 + r) * N + n0 + kArtTile * cn);
-        } else {
-          dst = reinterpret_cast<uint4*>(s_sums + (slice * BM + r) * BN +
-                                         kArtTile * cn);
-        }
+        if (m0 + r >= M || n0 + kArtTile * cn >= N) continue;
+        uint4* const dst = reinterpret_cast<uint4*>(
+            sums + ((size_t)g * M + m0 + r) * N + n0 + kArtTile * cn);
         dst[0] = make_uint4(lo[0], lo[1], hi[0], hi[1]);
         dst[1] = make_uint4(lo[2], lo[3], hi[2], hi[3]);
       }
     }
-    __syncthreads();  // the raw tiles are free; the window's sums are in
-    if constexpr (!kSplit) {
-      // the scan, in group order: slice s holds group g_begin + w *
-      // slices + s. Every lookup first, then the FMA chain
-      const int here = min(slices, g_end - (g_begin + w * slices));
-#pragma unroll
-      for (int q = 0; q < kPer; ++q) {
-        float pl[KS], nl[KS];
-#pragma unroll
-        for (int s = 0; s < KS; ++s)
-          if (s < here) {
-            const uint32_t v = s_sums[s * BM * BN + tid + T * q];
-            pl[s] = s_table[v & 0xFFFFu];
-            nl[s] = s_table[v >> 16];
-          }
-#pragma unroll
-        for (int s = 0; s < KS; ++s)
-          if (s < here)
-            acc[q] = readout_step(acc[q], pl[s], nl[s], delta, ideal != 0);
-      }
-    }
-  }
-  if constexpr (!kSplit) {
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      const int o = tid + T * q, m = m0 + o / BN, n = n0 + o % BN;
-      if (m < M && n < N) out[(size_t)m * N + n] = acc[q];
-    }
+    __syncthreads();  // the raw tiles are free
   }
 }
 
-// The scan of kSplit: one output a thread, 256 a block; the groups'
+// The scan at decode: one output a thread, 256 a block; the groups'
 // sums ((groups, M, N), so a group's 256 words are contiguous) land in
 // shared memory kScanChunk groups at a time through a ring of cp.async
 // stages, and each thread reads its output's sums out in group order.
@@ -720,6 +684,336 @@ __global__ void __launch_bounds__(kScanThreads)
     }
   }
   if (o0 + tid < mn) out[o0 + tid] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// artemis above decode (M > kArtSplitMaxM): a warp a tile, all of K in order
+// ---------------------------------------------------------------------------
+//
+// Each warp owns a (4R) x (8C) output tile (4 x 8 threads, R x C outputs
+// each) and walks all of K in order, kTileWK k rows a window that it
+// stages itself: A's rows and B's rows by 16-byte cp.async into two raw
+// buffers (window w + 1 lands while w is in use), then A's window as
+// words (2|a| and the mask of a < 0, [k][row]) converted by the lanes that
+// copied it. Only __syncwarp orders a warp's lanes; no warp waits for
+// another. At the end of each MOMCAP group a thread reads its outputs'
+// two sums out of its 16-bit lanes into its f32 accumulators, in group
+// order (readout_step), and starts the next group from zero: no group's
+// sums leave its registers. The warps of a block share nothing but, where
+// the readout looks levels up, the table. Where the output has too few
+// tiles to give the card's schedulers two warps each, K is split over
+// blocks too (kSplit): each part's warp writes its groups' levels as
+// bytes, and artemis_level_scan_kernel reads them out in group order, as
+// the decode scan does; where a level can pass 255 (past 8 bits, or the
+// ideal readout) it writes the groups' sums, as the decode kernel does,
+// and artemis_scan_kernel looks their levels up.
+constexpr int kTileWarps = 4;               // warps a block
+constexpr int kTileWK = 32;                 // k rows a window
+constexpr int kTileAStride = kTileWK + 16;  // a raw A row, bytes: 8 rows at
+                                            // one chunk hit 8 bank groups
+// How a group sum becomes its level: the sum itself (readout_bits < 0),
+// or the table's level, looked up in shared memory (computing it in
+// registers, min(rint(RN(x * RN(1 / delta))), levels) where that equals
+// the table for every sum of the depth, took more time on an H100).
+// kReadTable4: the same lookup with tot's lanes kept at 4x their sums
+// (artemis_rows' `one` = 4) and neg's scaled at the readout, so that a
+// lane is its level's byte offset in the table (one instruction a lane,
+// not two); a lane then holds up to 4 * 128 * depth, so depth <= 127.
+// Taken by 8 x 4 tiles, where it saved 2 % on an H100; at 8 x 8 it cost
+// 1 %.
+constexpr int kReadIdeal = 0;
+constexpr int kReadTable = 1;
+constexpr int kReadTable4 = 2;
+
+template <int R, int C>
+struct TileLayout {  // one warp's shared memory, bytes
+  static constexpr int kRows = 4 * R, kCols = 8 * C;
+  static constexpr int kARaw = 0;  // [2][kRows][kTileAStride] int8
+  static constexpr int kBRaw = kARaw + 2 * kRows * kTileAStride;
+  static constexpr int kAMag = kBRaw + 2 * kTileWK * kCols;  // [k][row] u32
+  static constexpr int kANeg = kAMag + kTileWK * kRows * 4;
+  static constexpr int kBytes = kANeg + kTileWK * kRows * 4;
+  static_assert(kCols % 16 == 0 && kBytes % 16 == 0, "16-byte chunks");
+};
+
+// Lane h (0 low, 1 high) of a word of 16-bit sums as an exact f32: the
+// lane as the mantissa of 2^23 + x, less 2^23 (a PRMT and an FADD).
+__device__ __forceinline__ float lane_f32(uint32_t w, int h) {
+  return __fsub_rn(
+      __uint_as_float(__byte_perm(w, 0x4B000000u, h ? 0x7432 : 0x7410)),
+      8388608.0f);
+}
+
+template <int kRead>
+__device__ __forceinline__ float tile_level(uint32_t w, int h,
+                                            const float* s_table) {
+  if constexpr (kRead == kReadTable4)
+    return *reinterpret_cast<const float*>(
+        reinterpret_cast<const uint8_t*>(s_table) +
+        (h ? w >> 16 : w & 0xFFFFu));
+  else if constexpr (kRead == kReadTable)
+    return s_table[h ? w >> 16 : w & 0xFFFFu];
+  else
+    return lane_f32(w, h);
+}
+
+// The end of group g where K is split (8 x 8 tiles): each output's two
+// levels stored at levels[g][m][n] as a u8 pair, or where `wide` its two
+// sums as a u16 pair, pos | neg << 16, the decode kernel's words (a level
+// past 16 bits would not fit 16 bits); word j of row i holds columns
+// (c, c + 2) or (c + 1, c + 3) of its 4-column word. The lanes are zeroed
+// for the next group. s_levels holds the table's levels as integers.
+template <int R, int C, int kRead>
+__device__ __forceinline__ void tile_store_levels(
+    uint32_t (&tot)[R][C / 2], uint32_t (&neg)[R][C / 2],
+    const uint32_t* s_levels, uint8_t* levels, int g, int m, int n, int M,
+    int N, bool wide) {
+  static_assert(C == 8, "a row's 8 outputs: one or two 16-byte stores");
+  uint32_t v[R][C];  // pl | nl << 8, or ps | ns << 16 where wide
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C / 2; ++j) {
+      const uint32_t pos = tot[i][j] - neg[i][j];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t ps = h ? pos >> 16 : pos & 0xFFFFu;
+        const uint32_t ns = h ? neg[i][j] >> 16 : neg[i][j] & 0xFFFFu;
+        v[i][4 * (j / 2) + (j % 2) + 2 * h] =
+            kRead == kReadIdeal || wide ? ps | ns << 16
+                                        : s_levels[ps] | s_levels[ns] << 8;
+      }
+      tot[i][j] = neg[i][j] = 0u;
+    }
+  if (n >= N) return;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (m + i >= M) break;
+    const size_t o = ((size_t)g * M + m + i) * N + n;
+    if (wide) {
+      uint4* const dst = reinterpret_cast<uint4*>(levels + 4 * o);
+#pragma unroll
+      for (int c = 0; c < C / 4; ++c)
+        dst[c] = make_uint4(v[i][4 * c], v[i][4 * c + 1], v[i][4 * c + 2],
+                            v[i][4 * c + 3]);
+    } else {
+      *reinterpret_cast<uint4*>(levels + 2 * o) =
+          make_uint4(v[i][0] | v[i][1] << 16, v[i][2] | v[i][3] << 16,
+                     v[i][4] | v[i][5] << 16, v[i][6] | v[i][7] << 16);
+    }
+  }
+}
+
+// The end of a group: each output's two sums read out into its
+// accumulator, in group order, and the lanes zeroed for the next group.
+template <int R, int C, int kRead>
+__device__ __forceinline__ void tile_readout(uint32_t (&tot)[R][C / 2],
+                                             uint32_t (&neg)[R][C / 2],
+                                             float (&acc)[R][C],
+                                             const float* s_table,
+                                             float delta) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C / 2; ++j) {
+      const uint32_t ng = kRead == kReadTable4 ? neg[i][j] << 2 : neg[i][j];
+      const uint32_t pos = tot[i][j] - ng;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float& a = acc[i][4 * (j / 2) + (j % 2) + 2 * h];
+        a = readout_step(a, tile_level<kRead>(pos, h, s_table),
+                         tile_level<kRead>(ng, h, s_table), delta,
+                         kRead == kReadIdeal);
+      }
+      tot[i][j] = neg[i][j] = 0u;
+    }
+}
+
+// kSplit: blockIdx.y is the part of K, groups_per_split whole groups from
+// a 16-byte boundary, and the levels go to `levels`.
+template <int R, int C, int kRead, bool kSplit>
+__global__ void __launch_bounds__(kTileWarps * 32)
+    artemis_tile_kernel(const int8_t* __restrict__ A,
+                        const int8_t* __restrict__ B, float* __restrict__ out,
+                        uint8_t* __restrict__ levels,
+                        const float* __restrict__ table, int M, int N, int K,
+                        int depth, int tiles_m, int tiles,
+                        int groups_per_split, float delta, int wide,
+                        uint32_t one) {
+  using L = TileLayout<R, C>;
+  constexpr int W = C / 2, kAChunks = L::kRows * (kTileWK / 16),
+                kBChunks = kTileWK * L::kCols / 16;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int table_len = depth * 128 + 1;
+  const int table_bytes =
+      kRead != kReadIdeal ? scan_table_bytes(table_len) : 0;
+  const float* const s_table = reinterpret_cast<const float*>(smem);
+  const uint32_t* const s_levels = reinterpret_cast<const uint32_t*>(smem);
+  if constexpr (kRead != kReadIdeal) {
+    for (int i = threadIdx.x; i < table_len; i += blockDim.x) {
+      if constexpr (kSplit)  // the levels as integers (exact: < 2^24)
+        reinterpret_cast<uint32_t*>(smem)[i] = __float2uint_rn(table[i]);
+      else
+        reinterpret_cast<float*>(smem)[i] = table[i];
+    }
+    __syncthreads();  // once, before any warp's first readout
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tile = blockIdx.x * kTileWarps + warp;
+  if (tile >= tiles) return;
+  uint8_t* const ws = smem + table_bytes + warp * L::kBytes;
+  uint32_t* const a_mag = reinterpret_cast<uint32_t*>(ws + L::kAMag);
+  uint32_t* const a_neg = reinterpret_cast<uint32_t*>(ws + L::kANeg);
+  // m fastest: the warps that share a tile's columns of B run side by side
+  const int m0 = (tile % tiles_m) * L::kRows, n0 = (tile / tiles_m) * L::kCols;
+  const int rm = lane >> 3, cn = lane & 7;
+  // this part's k rows: whole groups, zero-filled past K
+  const int groups = (K + depth - 1) / depth;
+  const int g_begin = kSplit ? blockIdx.y * groups_per_split : 0;
+  const int g_end = kSplit ? min(groups, g_begin + groups_per_split) : groups;
+  const int kbeg = g_begin * depth, kend = g_end * depth;
+  const int windows = (kend - kbeg + kTileWK - 1) / kTileWK;
+
+  // window w's raw rows; K and N are multiples of 16, so a 16-byte chunk
+  // is all in or all out (zero-filled: the ragged last group)
+  auto stage = [&](int w) {
+    const int k0 = kbeg + w * kTileWK;
+    const uint32_t as =
+        smem_addr(ws + L::kARaw) + (w & 1) * L::kRows * kTileAStride;
+#pragma unroll
+    for (int t = 0; t < (kAChunks + 31) / 32; ++t) {
+      const int i = lane + 32 * t, r = i % L::kRows, c = i / L::kRows;
+      const int m = m0 + r, k = k0 + 16 * c;
+      const bool in = i < kAChunks && m < M && k < K;
+      if (i < kAChunks)
+        cp_async16(as + r * kTileAStride + 16 * c,
+                   in ? A + (size_t)m * K + k : A, in);
+    }
+    const uint32_t bs =
+        smem_addr(ws + L::kBRaw) + (w & 1) * kTileWK * L::kCols;
+#pragma unroll
+    for (int t = 0; t < kBChunks / 32; ++t) {
+      const int i = lane + 32 * t;
+      const int r = i / (L::kCols / 16), c = i % (L::kCols / 16);
+      const int k = k0 + r, n = n0 + 16 * c;
+      const bool in = k < K && n < N;
+      cp_async16(bs + r * L::kCols + 16 * c, in ? B + (size_t)k * N + n : B,
+                 in);
+    }
+  };
+  static_assert(kBChunks % 32 == 0, "whole warps of B chunks");
+
+  // A's window as words [k][row]: each lane converts the 16 bytes (16 k of
+  // one row) it copied, rows running over the lanes
+  auto convert = [&](int w) {
+    const uint8_t* const ar = ws + L::kARaw + (w & 1) * L::kRows * kTileAStride;
+#pragma unroll
+    for (int t = 0; t < (kAChunks + 31) / 32; ++t) {
+      const int i = lane + 32 * t, r = i % L::kRows, c = i / L::kRows;
+      if (i >= kAChunks) break;
+      const uint4 v =
+          *reinterpret_cast<const uint4*>(ar + r * kTileAStride + 16 * c);
+      const uint32_t x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t s = negative_bytes(x[q]);
+        const uint32_t mag = (x[q] ^ s) + (s & 0x01010101u);  // |a| bytewise
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int kk = 16 * c + 4 * q + b;
+          a_mag[kk * L::kRows + r] = __byte_perm(mag, 0u, 0x4440 + b) << 1;
+          a_neg[kk * L::kRows + r] = __byte_perm(s, 0u, 0x1111 * b);
+        }
+      }
+    }
+  };
+
+  float acc[R][C];
+  uint32_t tot[R][W], neg[R][W];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[i][c] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < W; ++j) tot[i][j] = neg[i][j] = 0u;
+  }
+  int gend = kbeg + depth;  // the end of the group being summed, ahead
+  stage(0);
+  cp_async_commit();
+  for (int w = 0; w < windows; ++w) {
+    __syncwarp();  // every lane is done with window w - 1's raw buffer
+    if (w + 1 < windows) stage(w + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this lane's copies of window w landed
+    __syncwarp();        // every lane's; window w - 1's words are consumed
+    convert(w);
+    __syncwarp();
+    const int k0 = kbeg + w * kTileWK, wend = min(kTileWK, kend - k0);
+    const uint8_t* const br =
+        ws + L::kBRaw + (w & 1) * kTileWK * L::kCols + C * cn;
+    const uint32_t* const am_p = a_mag + R * rm;
+    const uint32_t* const an_p = a_neg + R * rm;
+    int kk = 0;
+    while (kk < wend) {
+      const int stop = min(wend, gend - k0);
+      for (; kk + 1 < stop; kk += 2)
+        artemis_rows<true, R, C>(br + kk * L::kCols, L::kCols,
+                                 am_p + kk * L::kRows, an_p + kk * L::kRows,
+                                 L::kRows, one, tot, neg);
+      if (kk < stop) {
+        artemis_rows<false, R, C>(br + kk * L::kCols, L::kCols,
+                                  am_p + kk * L::kRows, an_p + kk * L::kRows,
+                                  L::kRows, one, tot, neg);
+        ++kk;
+      }
+      if (k0 + kk == gend) {
+        if constexpr (kSplit)
+          tile_store_levels<R, C, kRead>(tot, neg, s_levels, levels,
+                                         gend / depth - 1, m0 + R * rm,
+                                         n0 + C * cn, M, N, wide != 0);
+        else
+          tile_readout<R, C, kRead>(tot, neg, acc, s_table, delta);
+        gend += depth;
+      }
+    }
+  }
+  // N is a multiple of 16: a thread's C columns are all in or all out
+  const int n = n0 + C * cn;
+  if (kSplit || n >= N) return;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int m = m0 + R * rm + i;
+    if (m >= M) break;
+    float4* const dst = reinterpret_cast<float4*>(out + (size_t)m * N + n);
+#pragma unroll
+    for (int c = 0; c < C / 4; ++c)
+      dst[c] = make_float4(acc[i][4 * c], acc[i][4 * c + 1], acc[i][4 * c + 2],
+                           acc[i][4 * c + 3]);
+  }
+}
+
+// kSplit's scan of u8 level pairs: one output a thread, its groups'
+// levels read in group order, each level as an exact f32. (Four outputs a
+// thread, 8 or 16 bytes a load, kept fewer loads in flight and took 1.8x
+// as long on an H100.)
+__global__ void __launch_bounds__(kScanThreads)
+    artemis_level_scan_kernel(const uint8_t* __restrict__ levels,
+                              float* __restrict__ out, int mn, int groups,
+                              float delta) {
+  const int o = blockIdx.x * kScanThreads + threadIdx.x;
+  if (o >= mn) return;
+  float acc = 0.0f;
+#pragma unroll 8
+  for (int g = 0; g < groups; ++g) {
+    const uint32_t v = __ldg(
+        reinterpret_cast<const unsigned short*>(levels) + (size_t)g * mn + o);
+    const float pl = __fsub_rn(
+        __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7440)), 8388608.0f);
+    const float nl = __fsub_rn(
+        __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7441)), 8388608.0f);
+    acc = readout_step(acc, pl, nl, delta, false);
+  }
+  out[o] = acc;
 }
 
 int num_sms(int dev) {
@@ -809,20 +1103,46 @@ int artemis_slices(int ks, int depth) {
   return std::min(ks, std::max(1, kArtMaxWindow / depth));
 }
 
-// At decode (M <= kArtSplitMaxM) 8 x 256 tiles, 4 single-warp slices a
+// artemis_scan_kernel over (groups, M, N) words of sums, pos | neg << 16,
+// the table in shared memory (opted in once per device).
+cudaError_t launch_artemis_scan(const uint32_t* sums, const float* table,
+                                float* out, int mn, int groups, int depth,
+                                float delta, int ideal, int dev,
+                                cudaStream_t st) {
+  static bool ready[kMaxDevices] = {};
+  if (!ready[dev]) {
+    int optin = 0;
+    cudaError_t err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(artemis_scan_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 optin);
+    if (err != cudaSuccess) return err;
+    ready[dev] = true;
+  }
+  const int table_len = depth * 128 + 1;
+  const int smem = scan_table_bytes(table_len) +
+                   kScanStages * kScanChunk * kScanThreads * 4;
+  artemis_scan_kernel<<<cdiv(mn, kScanThreads), kScanThreads, smem, st>>>(
+      sums, table, out, mn, groups, table_len, delta, ideal);
+  return cudaGetLastError();
+}
+
+// Decode (M <= kArtSplitMaxM): 8 x 256 tiles, 4 single-warp slices a
 // block, K split over blocks so that the waves of blocks end soonest, the
-// sums meeting in scratch for artemis_scan_kernel; above, 32 x 64 tiles,
-// 4 or 8 single-warp slices a block, each block scanning its own sums.
-template <int RM, int CN, int KS, bool kSplit>
-cudaError_t launch_artemis(const int8_t* A, const int8_t* B, float* out,
-                           uint32_t* sums, const float* table, int M, int N,
-                           int K, int depth, float delta, int ideal, int dev,
-                           int sms, cudaStream_t st) {
-  auto kernel = artemis_kernel<RM, CN, KS, kSplit>;
+// sums meeting in scratch for artemis_scan_kernel.
+template <int RM, int CN, int KS>
+cudaError_t launch_artemis_split(const int8_t* A, const int8_t* B, float* out,
+                                 uint32_t* sums, const float* table, int M,
+                                 int N, int K, int depth, float delta,
+                                 int ideal, int dev, int sms,
+                                 cudaStream_t st) {
+  auto kernel = artemis_kernel<RM, CN, KS>;
   constexpr int T = KS * RM * CN, BM = kArtTile * RM, BN = kArtTile * CN;
   const int slices = artemis_slices(KS, depth);
-  const int groups = cdiv(K, depth), table_len = depth * 128 + 1;
-  const ArtLayout lay(BM, BN, KS, slices * depth, table_len, kSplit);
+  const int groups = cdiv(K, depth);
+  const ArtLayout lay(BM, BN, slices * depth);
   // set up once per device: the shared-memory opt-ins; once per depth the
   // blocks that fit one SM
   static bool ready[kMaxDevices] = {};
@@ -835,10 +1155,6 @@ cudaError_t launch_artemis(const int8_t* A, const int8_t* B, float* out,
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-    if (err == cudaSuccess && kSplit)
-      err = cudaFuncSetAttribute(artemis_scan_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 optin);
     if (err != cudaSuccess) return err;
     ready[dev] = true;
   }
@@ -850,23 +1166,114 @@ cudaError_t launch_artemis(const int8_t* A, const int8_t* B, float* out,
     if (fit < 1) return cudaErrorInvalidConfiguration;
   }
   const int gn = cdiv(N, BN), gm = cdiv(M, BM);
-  int per_split = groups;
-  if (kSplit) {
-    const int windows = cdiv(groups, slices);
-    per_split = cdiv(windows, choose_splits(gn * gm, windows, fit * sms)) *
-                slices;
-  }
+  const int windows = cdiv(groups, slices);
+  const int per_split =
+      cdiv(windows, choose_splits(gn * gm, windows, fit * sms)) * slices;
   dim3 grid(gn, gm, cdiv(groups, per_split));
-  kernel<<<grid, T, lay.bytes, st>>>(A, B, out, sums, table, M, N, K, depth,
-                                     slices, per_split, delta, ideal, 1u);
+  kernel<<<grid, T, lay.bytes, st>>>(A, B, sums, M, N, K, depth, slices,
+                                     per_split, 1u);
   err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_artemis_scan(sums, table, out, M * N, groups, depth, delta,
+                             ideal, dev, st);
+}
+
+// The plan of the path above decode, from the shapes alone (so that
+// sc_matmul_scratch_bytes sizes the split's levels without a device):
+// 8 x 8 outputs a thread, the fewest instructions a product, where that
+// gives kTileFillWarps warps (two a scheduler on an H100's 132 SMs, near
+// enough); else 8 x 4 where that gives half as many (8 x 4 and smaller
+// tiles read more shared memory a product, so no smaller tile pays);
+// else 8 x 8 with K split over blocks, whole groups a part from a 16-byte
+// boundary, into as many parts as give kTileFillWarps warps.
+constexpr int kTileFillWarps = 1024;
+struct TilePlan {
+  int shape, splits, groups_per_split;
+};
+TilePlan artemis_tile_plan(int M, int N, int K, int depth) {
+  const int t88 = cdiv(M, 32) * cdiv(N, 64);
+  if (t88 >= kTileFillWarps) return {88, 1, 0};
+  if (cdiv(M, 32) * cdiv(N, 32) >= kTileFillWarps / 2) return {84, 1, 0};
+  const int groups = cdiv(K, depth), unit = 16 / std::gcd(depth, 16);
+  const int per =
+      cdiv(cdiv(groups, cdiv(kTileFillWarps, t88)), unit) * unit;
+  if (per >= groups) return {88, 1, 0};
+  return {88, cdiv(groups, per), per};
+}
+
+// The split's levels: a u16 pair per output and group, the wide sums (u8
+// level pairs, half of it, where no level passes 255).
+long long artemis_levels_bytes(int M, int N, int K, int depth) {
+  const TilePlan plan = artemis_tile_plan(M, N, K, depth);
+  return plan.splits > 1 ? 4LL * cdiv(K, depth) * M * N : 0;
+}
+
+template <int R, int C, int kRead, bool kSplit>
+cudaError_t launch_artemis_tile(const int8_t* A, const int8_t* B, float* out,
+                                uint8_t* levels, const float* table, int M,
+                                int N, int K, int depth, float delta,
+                                const TilePlan& plan, int wide, int dev,
+                                cudaStream_t st) {
+  auto kernel = artemis_tile_kernel<R, C, kRead, kSplit>;
+  using L = TileLayout<R, C>;
+  const int smem = (kRead != kReadIdeal ? scan_table_bytes(depth * 128 + 1)
+                                        : 0) +
+                   kTileWarps * L::kBytes;
+  static bool ready[kMaxDevices] = {};  // the shared-memory opt-in
+  if (!ready[dev]) {
+    int optin = 0;
+    cudaError_t err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err != cudaSuccess) return err;
+    ready[dev] = true;
+  }
+  const int tiles_m = cdiv(M, L::kRows), tiles = tiles_m * cdiv(N, L::kCols);
+  const dim3 grid(cdiv(tiles, kTileWarps), plan.splits);
+  kernel<<<grid, kTileWarps * 32, smem, st>>>(
+      A, B, out, levels, table, M, N, K, depth, tiles_m, tiles,
+      plan.groups_per_split, delta, wide, kRead == kReadTable4 ? 4u : 1u);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !kSplit) return err;
-  const int scan_smem = scan_table_bytes(table_len) +
-                        kScanStages * kScanChunk * kScanThreads * 4;
-  artemis_scan_kernel<<<cdiv(M * N, kScanThreads), kScanThreads, scan_smem,
-                        st>>>(sums, table, out, M * N, groups, table_len,
-                              delta, ideal);
+  const int groups = cdiv(K, depth);
+  if (wide)
+    return launch_artemis_scan(reinterpret_cast<const uint32_t*>(levels),
+                               table, out, M * N, groups, depth, delta,
+                               kRead == kReadIdeal, dev, st);
+  artemis_level_scan_kernel<<<cdiv(M * N, kScanThreads), kScanThreads, 0,
+                              st>>>(levels, out, M * N, groups, delta);
   return cudaGetLastError();
+}
+
+template <int kRead>
+cudaError_t launch_artemis_tiles(const int8_t* A, const int8_t* B, float* out,
+                                 uint8_t* levels, const float* table, int M,
+                                 int N, int K, int depth, float delta,
+                                 int readout_bits, int dev, cudaStream_t st) {
+  const TilePlan plan = artemis_tile_plan(M, N, K, depth);
+  // a level passes 255 only past 8 bits, or ideally (the sum itself):
+  // there the split hands the scan the sums
+  const int wide = kRead == kReadIdeal || readout_bits > 8;
+  if (plan.splits > 1)
+    return levels == nullptr
+               ? cudaErrorInvalidValue
+               : launch_artemis_tile<8, 8, kRead, true>(
+                     A, B, out, levels, table, M, N, K, depth, delta, plan,
+                     wide, dev, st);
+  // 8 x 4 tiles read the table with lanes at 4x where a lane holds
+  // 4 * 128 * depth
+  if (plan.shape == 84 && kRead == kReadTable && depth < kMaxAccDepth)
+    return launch_artemis_tile<8, 4, kReadTable4, false>(
+        A, B, out, nullptr, table, M, N, K, depth, delta, plan, wide, dev,
+        st);
+  if (plan.shape == 84)
+    return launch_artemis_tile<8, 4, kRead, false>(
+        A, B, out, nullptr, table, M, N, K, depth, delta, plan, wide, dev,
+        st);
+  return launch_artemis_tile<8, 8, kRead, false>(
+      A, B, out, nullptr, table, M, N, K, depth, delta, plan, wide, dev, st);
 }
 
 }  // namespace
@@ -913,6 +1320,8 @@ extern "C" long long sc_matmul_scratch_bytes(int M, int N, int K, int mode,
   if (mode == kModeMxu) return 2LL * M * N * (long long)sizeof(int);
   if (mode == kModeArtemis && M <= kArtSplitMaxM && acc_depth >= 1)
     return (long long)cdiv(K, acc_depth) * M * N * (long long)sizeof(uint32_t);
+  if (mode == kModeArtemis && acc_depth >= 1 && acc_depth <= kMaxAccDepth)
+    return artemis_levels_bytes(M, N, K, acc_depth);
   return 0;
 }
 
@@ -940,18 +1349,15 @@ static int mac_launch(const void* A, const void* B, void* out,
     const float* t = static_cast<const float*>(table);
     const int ideal = readout_bits < 0;
     if (M <= kArtSplitMaxM)
-      return (int)launch_artemis<1, 32, 4, true>(
+      return (int)launch_artemis_split<1, 32, 4>(
           a, b, o, static_cast<uint32_t*>(scratch), t, M, N, K, acc_depth,
           delta, ideal, dev, sms, st);
-    // 4 slices a block (78 KB at depth 20: two blocks share an SM and
-    // overlap their barriers) where that fills the card twice, else 8
-    if (cdiv(M, 32) * cdiv(N, 64) >= 2 * sms)
-      return (int)launch_artemis<4, 8, 4, false>(a, b, o, nullptr, t, M, N,
-                                                 K, acc_depth, delta, ideal,
-                                                 dev, sms, st);
-    return (int)launch_artemis<4, 8, 8, false>(a, b, o, nullptr, t, M, N, K,
-                                               acc_depth, delta, ideal, dev,
-                                               sms, st);
+    uint8_t* const lv = static_cast<uint8_t*>(scratch);
+    if (ideal)
+      return (int)launch_artemis_tiles<kReadIdeal>(
+          a, b, o, lv, t, M, N, K, acc_depth, delta, readout_bits, dev, st);
+    return (int)launch_artemis_tiles<kReadTable>(
+        a, b, o, lv, t, M, N, K, acc_depth, delta, readout_bits, dev, st);
   }
   if ((mode != kModeInt8 && mode != kModeMxu) || K % kKGranule != 0)
     return (int)cudaErrorInvalidValue;

@@ -18,7 +18,11 @@ computes, bit for bit: exact integer dots for `int8` and `artemis_mxu`
 true division and accumulated in group order. For `artemis` the wrapper
 hands the kernel the readout level of every possible group sum
 (`readout_table`, built once per device, depth and readout) and, at
-decode, scratch where the groups' exact sums meet before the scan.
+decode, scratch where the groups' exact sums meet before the scan;
+above decode each warp reads its groups out of its registers, looking
+the levels up in the table, and where the output has too few tiles to
+fill the card K is split too and the scratch holds every group's
+levels for the scan.
 
 Every quantized projection calls it, so its host path is kept short,
 as the attention wrappers' are: the checks that read only shapes,
@@ -26,7 +30,7 @@ strides, dtypes and host arguments, the padded sizes, the scratch's
 size, the readout table and the C entry's argument block (`_Args`, the
 .cu's `ScMatmulArgs`) are made once per call signature (`_Plan`); a
 call writes the block's pointers and stream and makes one ctypes call,
-and the scratch of artemis_mxu and of artemis at decode comes from the
+and the scratch of artemis_mxu and of artemis's splits comes from the
 buffer kept per (device, stream) (`build.workspace`).
 """
 from __future__ import annotations
@@ -215,7 +219,8 @@ class _Plan:
         self.out_dtype = torch.int32 if mode == "int8" else torch.float32
         self.launch, scratch_bytes = _entries()
         # artemis_mxu sums its two integer dots here first (split over K);
-        # artemis at decode every group's exact sums, for the scan
+        # artemis at decode every group's exact sums, and above decode,
+        # where it splits K, every group's levels, for the scan
         nbytes = scratch_bytes(m, np_, kp, _MODE_IDS[mode], acc_depth)
         self.scratch_numel = -(-nbytes // 4)
         self.table = (_table(acc_depth, readout_bits, aq.device)
